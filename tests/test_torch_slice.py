@@ -1,0 +1,153 @@
+"""The port's fused render route end to end, against the JAX one.
+
+A 6-frame 64x48 y4m clip goes through both ``render_stereo_video``s (the
+fused route with the same DA_TINY weights, and the depth-video route),
+Full-SBS at the source size, chunks of 4 (so the trackers cross a chunk
+boundary). float32 outputs: mean |d| <= 0.1 and
+max |d| <= 3 u8 steps (summation-order differences move a few pixels
+across a rounding or a bisection boundary).
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from visiondepth3d_tpu.depth.configs import DA_TINY
+from visiondepth3d_tpu.depth.model import DepthPredictor as JPredictor
+from visiondepth3d_tpu.depth.model import init_random
+from visiondepth3d_tpu.io import Y4MReader, Y4MWriter
+from visiondepth3d_tpu.pipeline.stereo_pipeline import RenderConfig as JConfig
+from visiondepth3d_tpu.pipeline.stereo_pipeline import render_stereo_video as jrender
+from visiondepth3d_tpu_torch.cli.main import main as cli_main
+from visiondepth3d_tpu_torch.depth import configs as tconfigs
+from visiondepth3d_tpu_torch.depth.convert import from_jax_params, load_hf_state_dict
+from visiondepth3d_tpu_torch.depth.dpt import DepthAnything
+from visiondepth3d_tpu_torch.depth.model import DepthPredictor
+from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import RenderConfig, render_stereo_video
+
+REPO = Path(__file__).resolve().parents[1]
+SIZE = 56
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    path = tmp_path_factory.mktemp("slice") / "clip.y4m"
+    h, w = 48, 64
+    yy, xx = np.mgrid[0:h, 0:w]
+    with Y4MWriter(str(path), w, h, 24.0) as wr:
+        for i in range(6):
+            f = np.zeros((h, w, 3), np.uint8)
+            f[..., 0] = (xx * 4 + i * 4) % 256
+            f[..., 1] = (yy * 5) % 256
+            f[..., 2] = 100
+            f[10:30, 10 + 4 * i: 25 + 4 * i] = (240, 50, 50)
+            wr.write(f)
+    return path
+
+
+def _read(path):
+    with Y4MReader(str(path)) as rd:
+        return np.stack(list(rd))
+
+
+def test_render_matches_jax(clip, tmp_path):
+    params = init_random(DA_TINY, seed=1, size=SIZE)
+    jrender(clip, None, tmp_path / "jax.y4m", None,
+            JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4),
+            predictor=JPredictor(DA_TINY, params, SIZE))
+    model = DepthAnything(tconfigs.DA_TINY)
+    load_hf_state_dict(model, from_jax_params(params, tconfigs.DA_TINY))
+    prog = render_stereo_video(clip, None, tmp_path / "port.y4m", None,
+                               RenderConfig(preserve_original_aspect=True, chunk_size=4,
+                                            device="cpu"),
+                               predictor=DepthPredictor(model, SIZE, device="cpu"))
+    want, got = _read(tmp_path / "jax.y4m"), _read(tmp_path / "port.y4m")
+    assert prog.frames_done == 6
+    assert got.shape == want.shape == (6, 48, 128, 3)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.mean() <= 0.1 and diff.max() <= 3, (diff.mean(), diff.max())
+
+
+def test_depth_route_matches_jax(clip, tmp_path):
+    """Video + depth video in (no predictor): the same stereo path."""
+    depth = tmp_path / "depth.y4m"
+    h, w = 48, 64
+    yy, xx = np.mgrid[0:h, 0:w]
+    with Y4MWriter(str(depth), w, h, 24.0) as wr:
+        for i in range(6):
+            d = (xx * 3 + 30).astype(np.uint8)
+            d[10:30, 10 + 4 * i: 25 + 4 * i] = 220
+            wr.write(np.repeat(d[..., None], 3, -1))
+    jrender(clip, depth, tmp_path / "jax.y4m", None,
+            JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4))
+    render_stereo_video(clip, depth, tmp_path / "port.y4m", None,
+                        RenderConfig(preserve_original_aspect=True, chunk_size=4,
+                                     device="cpu"))
+    want, got = _read(tmp_path / "jax.y4m"), _read(tmp_path / "port.y4m")
+    assert got.shape == want.shape == (6, 48, 128, 3)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.mean() <= 0.1 and diff.max() <= 3, (diff.mean(), diff.max())
+
+
+def test_cli_render_cpu(clip, tmp_path):
+    out = tmp_path / "cli.y4m"
+    rc = cli_main(["render", "--input", str(clip), "--allow-random", "--device", "cpu",
+                   "--output", str(out), "--preserve-aspect", "--chunk-size", "4",
+                   "--inference-size", str(SIZE), "--enable_healing", "true"])
+    assert rc == 0
+    frames = _read(out)
+    assert frames.shape == (6, 48, 128, 3)
+    assert np.abs(frames[:, :, :64].astype(int) - frames[:, :, 64:].astype(int)).mean() > 0
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "dp=2"], ["--skip-blank-frames"],
+                                  ["--auto-crop-black-bars"], ["--format", "VR"],
+                                  ["--dof_strength", "1.0"]])
+def test_cli_unported_features_raise(clip, tmp_path, flag):
+    with pytest.raises(NotImplementedError):
+        cli_main(["render", "--input", str(clip), "--allow-random", "--device", "cpu",
+                  "--output", str(tmp_path / "x.y4m"), "--inference-size", str(SIZE), *flag])
+
+
+def test_cuda_device_without_card_raises(clip, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError):
+        render_stereo_video(clip, None, tmp_path / "x.y4m", None, RenderConfig(device="cuda"),
+                            predictor=DepthPredictor(DepthAnything(tconfigs.DA_TINY), SIZE))
+
+
+_NO_JAX = """
+import sys
+import torch
+import visiondepth3d_tpu_torch.cli.main
+from visiondepth3d_tpu_torch.depth import DA_TINY
+from visiondepth3d_tpu_torch.depth.registry import load_predictor
+from visiondepth3d_tpu_torch.state import init_trackers
+from visiondepth3d_tpu_torch.stereo import StereoParams
+from visiondepth3d_tpu_torch.stereo.step import render_chunk
+pred = load_predictor("depth-anything-v2-small", None, inference_size=28, config=DA_TINY)
+frames = torch.rand(2, 24, 32, 3, generator=torch.Generator().manual_seed(0))
+depths = pred.predict_01(frames, out_hw=(24, 32))
+_, out = render_chunk(StereoParams().with_shift_bound(32), init_trackers(24, 32, "cpu"),
+                      frames, depths)
+assert out.left.shape == (2, 24, 32, 3)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
+                         cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")

@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library with
+a plain C interface, loaded through ``ctypes``. The build runs at first use,
+into ``kernels/_build/``, under a file name keyed by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one loads at once.
+No fast math: the statistics kernels rely on IEEE float32 division.
+
+Every launcher takes raw device pointers, sizes and PyTorch's current CUDA
+stream, and returns the ``cudaError_t`` of its launch; ``check`` raises on a
+nonzero code. ``launch_counts`` counts the launches of each kernel wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+
+KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats")
+launch_counts = dict.fromkeys(KERNELS, 0)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+
+
+def build_library() -> Path:
+    """Compile csrc/*.cu into _build/ unless an up-to-date build exists."""
+    global build_log
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out = BUILD_DIR / f"libvd3d_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc={res.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _declare(ctypes.CDLL(str(build_library())))
+        return _lib
+
+
+def _declare(L: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    sigs = {
+        "vd3d_stereo_warp": [p, p, p, p, p, p, p, i, i, i, p],
+        "vd3d_feather_heal": [p, p, p, p, p, p, p, i, i, i, f, f, f, i, i, i, p],
+        "vd3d_quantile_pair": [p, i, i, ll, f, f, p, p, p],
+        "vd3d_subject_stats": [p, i, i, ll, p, p, p, p, p],
+    }
+    for name, args in sigs.items():
+        fn = getattr(L, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    L.vd3d_error_string.argtypes = [ctypes.c_int]
+    L.vd3d_error_string.restype = ctypes.c_char_p
+    return L
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib().vd3d_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on t's device, as a raw handle."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(what: str, *tensors) -> None:
+    """Raise unless every tensor is a CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: all inputs must be CUDA tensors on one device, "
+                             f"got {[str(x.device) for x in tensors]}")
