@@ -103,7 +103,7 @@ def test_registry_and_sizes():
     assert parse_inference_size("910x518") == (518, 910)
     assert parse_inference_size("dc-max-quality") == (576, 1024)
     pred = load_predictor("depth-anything-v2-small", None, inference_size=(300, 530),
-                          config=tconfigs.DA_TINY)
+                          config=tconfigs.DA_TINY, device="cpu")
     assert pred._size == (294, 518)
     with pytest.raises(KeyError):
         load_predictor("dpt-large")
@@ -126,7 +126,7 @@ def test_safetensors_checkpoint(tmp_path):
     for k, v in state.items():
         assert loaded[k].dtype == v.dtype and torch.equal(loaded[k], v), k
     pred = load_predictor("depth-anything-v2-small", tmp_path / "model.safetensors",
-                          inference_size=SIZE, config=tconfigs.DA_TINY)
+                          inference_size=SIZE, config=tconfigs.DA_TINY, device="cpu")
     got = pred.model.state_dict()
     for k, v in got.items():
         torch.testing.assert_close(v, state[k].float(), atol=0, rtol=0)

@@ -12,6 +12,10 @@ in TPU interpret mode. Tolerances:
   i.e. away (3 px, the 5x5 + 3x3 reach) from pixels whose gray gradient
   lies within 2e-5 of the 0.05 threshold. bfloat16: mean 4e-3 (the Pallas
   kernel and the XLA chain round every step to bf16).
+- K5 (3x3 conv) float32: 2e-6 against flax ``nn.Conv`` and the Pallas
+  kernel in its ``cat9`` form, the plain version's arithmetic (one K = 9C
+  product; summation order only). bfloat16 against the float32 reference:
+  0.15, the JAX package's own bound for bf16 operands.
 
 The CUDA cases carry the ``cuda`` marker and skip without a card.
 """
@@ -22,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import linen as fnn
 from jax.experimental.pallas import tpu as pltpu
 
 from visiondepth3d_tpu.ops import edges as jedges
@@ -29,8 +34,9 @@ from visiondepth3d_tpu.ops import quantiles as jq
 from visiondepth3d_tpu.ops import warp as jwarp
 from visiondepth3d_tpu.ops.pallas_postfx import feather_heal_pallas
 from visiondepth3d_tpu.ops.pallas_stats import quantile_pair_pallas, subject_stats_pallas
+from visiondepth3d_tpu.ops.pallas_conv import conv3x3_pallas
 from visiondepth3d_tpu.ops.pallas_warp import stereo_warp_pallas
-from visiondepth3d_tpu_torch.kernels import postfx, stats, warp
+from visiondepth3d_tpu_torch.kernels import conv, postfx, stats, warp
 
 
 def _depth(h, w, seed=0, edges=True):
@@ -237,6 +243,74 @@ def test_subject_stats_bit_identical(name):
         assert float(count) == float(pc) and median.numpy() == np.asarray(pm)
 
 
+# ---------------------------------------------------------------- K5 conv
+
+def _conv_inputs(c, o, seed, shape=(2, 16, 24)):
+    rng = np.random.default_rng(seed)
+    x = rng.random((*shape, c), dtype=np.float32)  # image-like, in [0, 1)
+    k = (rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(o)).astype(np.float32)
+    return x, k, b
+
+
+def _flax_conv(x, k, b, act=None):
+    use_bias = b is not None
+    params = {"kernel": jnp.asarray(k), **({"bias": jnp.asarray(b)} if use_bias else {})}
+    y = fnn.Conv(k.shape[-1], (3, 3), padding=((1, 1), (1, 1)), use_bias=use_bias).apply(
+        {"params": params}, jnp.asarray(x))
+    if act == "relu":
+        y = jnp.maximum(y, 0)
+    elif act == "lrelu":
+        y = jnp.where(y >= 0, y, 0.2 * y)
+    return np.asarray(y)
+
+
+@pytest.mark.parametrize("c,o,act,bias", [(16, 24, None, True), (24, 16, None, True),
+                                          (3, 8, None, True), (8, 3, None, True),
+                                          (16, 24, "relu", True), (24, 16, "lrelu", True),
+                                          (8, 8, "lrelu", False)])
+def test_conv_plain_matches_flax_and_pallas(c, o, act, bias):
+    x, k, b = _conv_inputs(c, o, seed=c * 100 + o)
+    b = b if bias else None
+    want = _flax_conv(x, k, b, act)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(conv3x3_pallas(jnp.asarray(x), jnp.asarray(k),
+                                           None if b is None else jnp.asarray(b),
+                                           act=act, block_rows=8, variant="cat9"))
+    got = conv.conv3x3(_t(x), _t(k), None if b is None else _t(b), act)
+    assert got.dtype == torch.float32 and got.shape == (2, 16, 24, o)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=2e-6, rtol=0)
+
+
+def test_conv_plain_bf16():
+    """bf16 operands, f32 accumulation and one rounding: within JAX's own
+    bf16 bound of the f32 reference, and within a bf16 step of the Pallas
+    kernel (same operands, same accumulation type)."""
+    x, k, b = _conv_inputs(16, 16, seed=2, shape=(1, 8, 16))
+    want = _flax_conv(x, k, b)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(conv3x3_pallas(jnp.asarray(x, jnp.bfloat16),
+                                           jnp.asarray(k, jnp.bfloat16),
+                                           jnp.asarray(b, jnp.bfloat16), block_rows=4,
+                                           variant="cat9"),
+                            np.float32)
+    got = conv.conv3x3(_t(x, torch.bfloat16), _t(k), _t(b))
+    assert got.dtype == torch.bfloat16
+    assert np.abs(_np(got) - want).max() < 0.15
+    assert np.abs(_np(got) - pallas).max() <= 2 ** -7 * np.abs(pallas).max()
+
+
+def test_conv_dispatch_cpu_uses_plain():
+    x, k, b = _conv_inputs(8, 4, seed=3)
+    np.testing.assert_array_equal(conv.conv3x3(_t(x), _t(k), _t(b)).numpy(),
+                                  conv.conv3x3_torch(_t(x), _t(k), _t(b)).numpy())
+    with pytest.raises(ValueError):
+        conv.conv3x3_cuda(_t(x), _t(k), _t(b))
+    with pytest.raises(ValueError):
+        conv.conv3x3(_t(x), _t(k), _t(b), act="gelu")
+
+
 # ------------------------------------------------------- CUDA: kernel vs plain
 
 @pytest.mark.cuda
@@ -276,3 +350,22 @@ def test_cuda_stats_match_plain(cuda):
     crop = m[21:86, 38:153]
     for a, b in zip(stats.subject_stats(crop), stats.subject_stats_torch(crop)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,o,act", [(3, 64, None), (64, 32, "lrelu"), (192, 64, None),
+                                     (64, 3, None), (12, 16, "relu")])
+def test_cuda_conv_matches_plain(cuda, dtype, c, o, act):
+    """Ragged tiles (13 x 37 is no multiple of the 8 x 32 tile), channel
+    counts that are no multiple of 16, and every activation."""
+    x, k, b = _conv_inputs(c, o, seed=c + o, shape=(2, 13, 37))
+    x, k, b = _t(x, dtype).to(cuda), _t(k).to(cuda), _t(b).to(cuda)
+    got = conv.conv3x3(x, k, b, act)
+    ref = conv.conv3x3_torch(x, k, b, act)
+    scale = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert err.max().item() <= 8e-3 * scale and err.mean().item() <= 1e-3 * scale

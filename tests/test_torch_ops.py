@@ -134,6 +134,21 @@ def test_resize(name):
     _run(RESIZE[name])
 
 
+@pytest.mark.parametrize("in_hw,out_hw", [((540, 960), (405, 720)),
+                                          ((1440, 2560), (1080, 1920)),
+                                          ((2160, 3840), (1080, 1920)),
+                                          ((64, 96), (48, 72))])
+def test_resize_area_large_sizes_match_jax(in_hw, out_hw):
+    """Above the JAX package's ``_MATRIX_LIMIT`` weights, resize_area is an
+    integer-factor box mean or a 2-tap bilinear gather, not the area
+    matrix; the port makes the same switch (the first two sizes differed by
+    0.13 before it did)."""
+    x = _rng(8).random((*in_hw, 3), dtype=np.float32)
+    want = np.asarray(jresize.resize_area(jnp.asarray(x), out_hw))
+    got = tresize.resize_area(torch.from_numpy(x), out_hw).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
 # ------------------------------------------------------------------ filters
 
 FILTERS = {

@@ -121,25 +121,43 @@ def test_cuda_device_without_card_raises(clip, tmp_path):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError):
         render_stereo_video(clip, None, tmp_path / "x.y4m", None, RenderConfig(device="cuda"),
-                            predictor=DepthPredictor(DepthAnything(tconfigs.DA_TINY), SIZE))
+                            predictor=DepthPredictor(DepthAnything(tconfigs.DA_TINY), SIZE,
+                                                     device="cpu"))
 
 
 _NO_JAX = """
+import pkgutil
 import sys
+import tempfile
+import numpy as np
 import torch
-import visiondepth3d_tpu_torch.cli.main
+import visiondepth3d_tpu_torch
+for mod in pkgutil.walk_packages(visiondepth3d_tpu_torch.__path__, "visiondepth3d_tpu_torch."):
+    if not mod.name.endswith("__main__"):  # that one runs the CLI
+        __import__(mod.name)
 from visiondepth3d_tpu_torch.depth import DA_TINY
 from visiondepth3d_tpu_torch.depth.registry import load_predictor
+from visiondepth3d_tpu_torch.enhance import EnhanceConfig, run_merged_pipeline
+from visiondepth3d_tpu_torch.io import Y4MWriter
 from visiondepth3d_tpu_torch.state import init_trackers
 from visiondepth3d_tpu_torch.stereo import StereoParams
 from visiondepth3d_tpu_torch.stereo.step import render_chunk
-pred = load_predictor("depth-anything-v2-small", None, inference_size=28, config=DA_TINY)
+pred = load_predictor("depth-anything-v2-small", None, inference_size=28, config=DA_TINY,
+                      device="cpu")
 frames = torch.rand(2, 24, 32, 3, generator=torch.Generator().manual_seed(0))
 depths = pred.predict_01(frames, out_hw=(24, 32))
 _, out = render_chunk(StereoParams().with_shift_bound(32), init_trackers(24, 32, "cpu"),
                       frames, depths)
 assert out.left.shape == (2, 24, 32, 3)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+with tempfile.TemporaryDirectory() as td:
+    with Y4MWriter(td + "/in.y4m", 16, 12, 24.0) as wr:
+        for i in range(3):
+            wr.write(np.full((12, 16, 3), 40 * i, np.uint8))
+    cfg = EnhanceConfig(esrgan_nf=8, esrgan_nb=1, esrgan_gc=8, rife_scales=(2, 1),
+                        chunk_size=2, allow_random_weights=True)
+    assert run_merged_pipeline(td + "/in.y4m", td + "/out.y4m", cfg, device="cpu") == 5
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
 assert not bad, bad
 print("ok")
 """

@@ -1,13 +1,15 @@
-"""vd3d-torch command line: the ``render`` subcommand of ``vd3d``.
+"""vd3d-torch command line: the ``render`` and ``tools`` subcommands of ``vd3d``.
 
     vd3d-torch render --input clip.y4m --model depth-anything-v2-small \\
         --checkpoint model.safetensors --format Full-SBS --device cuda
-    python -m visiondepth3d_tpu_torch render ...
+    vd3d-torch tools --input clip.y4m --esrgan --esrgan-weights x4.onnx \\
+        --rife --rife-weights rife.onnx --dtype bfloat16
+    python -m visiondepth3d_tpu_torch render|tools ...
 
 The flags keep the JAX CLI's names and meaning, plus ``--device`` (default
 cuda; a missing card is an error, not a CPU fallback). Flags of features
 not ported yet (--mesh other than off, --skip-blank-frames,
---auto-crop-black-bars) raise NotImplementedError.
+--auto-crop-black-bars, tools --control) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -72,7 +74,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default="off", help="only 'off' is ported")
     p.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
     _add_param_flags(p)
+    _add_tools_parser(sub)
     return ap
+
+
+def _add_tools_parser(sub):
+    from ..enhance.esrgan import ESRGAN_CATALOG
+
+    tp = sub.add_parser("tools", help="RIFE interpolation + Real-ESRGAN upscale")
+    tp.add_argument("--input", required=True)
+    tp.add_argument("--output", default=None)
+    tp.add_argument("--control", default=None, metavar="FILE",
+                    help="suspend/resume/cancel control file (not ported yet)")
+    tp.add_argument("--rife", action="store_true")
+    tp.add_argument("--multiplier", type=int, default=2, choices=[2, 4, 8])
+    tp.add_argument("--esrgan", action="store_true")
+    tp.add_argument("--esrgan-scale", type=int, default=None, choices=[2, 4],
+                    help="override the inferred output scale (KAIR-style .pth files "
+                         "whose unused upconv2 makes x2 look like x4)")
+    tp.add_argument("--pre-downscale", type=float, default=1.0)
+    tp.add_argument("--blend", default="OFF", choices=["OFF", "LOW", "MEDIUM", "HIGH"])
+    tp.add_argument("--chunk-size", type=int, default=4)
+    tp.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="bfloat16: bf16 conv stacks (<1 u8 step output delta)")
+    tp.add_argument("--esrgan-weights", "--esrgan-checkpoint", default=None,
+                    dest="esrgan_weights",
+                    help="RRDBNet-family checkpoint: .onnx, .safetensors or torch .pth; "
+                         "geometry (nf/nb/gc/scale) is inferred")
+    tp.add_argument("--esrgan-model", default=None, choices=sorted(ESRGAN_CATALOG),
+                    help="named upscaler from the reference's catalog, resolved under "
+                         "--weights-dir")
+    tp.add_argument("--weights-dir", default=None,
+                    help="directory holding the named catalog artifacts (default ./weights)")
+    tp.add_argument("--rife-weights", default=None,
+                    help="RIFE IFNet checkpoint (.onnx, .safetensors or torch .pth)")
+    tp.add_argument("--upscaled-size", action="store_true",
+                    help="emit frames at the upscaled size instead of the source size")
+    tp.add_argument("--allow-random-weights", action="store_true",
+                    help="run without checkpoints (shape and speed testing only)")
+    tp.add_argument("--mesh", default="off", help="only 'off' is ported")
+    tp.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
 
 
 def cmd_render(args) -> int:
@@ -115,9 +156,51 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_tools(args) -> int:
+    import os
+
+    from ..enhance import (ESRGAN_CATALOG, EnhanceConfig, load_esrgan_weights,
+                           load_rife_weights, run_merged_pipeline)
+
+    if args.mesh not in (None, "off"):
+        raise NotImplementedError("vd3d-torch tools --mesh is not ported yet (one device)")
+    if args.control:
+        raise NotImplementedError("vd3d-torch tools --control is not ported yet")
+    cfg = EnhanceConfig(
+        use_esrgan=args.esrgan, esrgan_scale=args.esrgan_scale or 4,
+        pre_downscale=args.pre_downscale, keep_original_size=not args.upscaled_size,
+        blend_mode=args.blend, use_rife=args.rife, fps_multiplier=args.multiplier,
+        chunk_size=args.chunk_size, allow_random_weights=args.allow_random_weights,
+        dtype=args.dtype)
+    esrgan_params = rife_params = None
+    esrgan_path, esrgan_scale = args.esrgan_weights, args.esrgan_scale
+    if args.esrgan_model:
+        entry = ESRGAN_CATALOG[args.esrgan_model]
+        esrgan_path = os.path.join(args.weights_dir or "weights", entry["file"])
+        # the catalog's scale settles what the file's names cannot
+        esrgan_scale = esrgan_scale or entry["scale"]
+    if esrgan_path:
+        esrgan_params, ecfg = load_esrgan_weights(esrgan_path, scale=esrgan_scale)
+        # geometry comes from the checkpoint, not the flags
+        cfg = dataclasses.replace(
+            cfg, esrgan_nf=ecfg.nf, esrgan_nb=ecfg.nb, esrgan_gc=ecfg.gc,
+            esrgan_scale=ecfg.scale, esrgan_n_up=ecfg.n_up, esrgan_unshuffle=ecfg.unshuffle)
+    if args.rife_weights:
+        rife_params = load_rife_weights(args.rife_weights)
+    output = args.output or str(args.input).rsplit(".", 1)[0] + "_enhanced.y4m"
+
+    def progress(n, fps):
+        print(f"\r{n} frames | {fps:.2f} fps", end="", flush=True)
+
+    n = run_merged_pipeline(args.input, output, cfg, esrgan_params=esrgan_params,
+                            rife_params=rife_params, progress_cb=progress, device=args.device)
+    print(f"\nenhanced {n} frames -> {output}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return cmd_render(args)
+    return cmd_tools(args) if args.cmd == "tools" else cmd_render(args)
 
 
 if __name__ == "__main__":

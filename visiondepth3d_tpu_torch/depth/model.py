@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.resize import resize_bilinear
 from .configs import DPTConfig
 from .dpt import DepthAnything
@@ -38,16 +39,18 @@ class DepthPredictor:
     """A depth model at a fixed inference size on one device.
 
     ``model``: a ``DepthAnything`` with its weights loaded. A bfloat16
-    predictor casts the weights once here, not per call.
+    predictor casts the weights once here, not per call. ``device``: the
+    CUDA card unless the caller passes "cpu"; without a card the default
+    raises.
     """
 
     def __init__(self, model: DepthAnything, inference_size: int | tuple = 518,
-                 dtype: str = "float32", device="cpu",
+                 dtype: str = "float32", device=DEFAULT_DEVICE,
                  mean: tuple = IMAGENET_MEAN, std: tuple = IMAGENET_STD):
         if dtype not in _DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {tuple(_DTYPES)}")
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cfg = model.cfg
         self.model = model.to(device=self.device, dtype=_DTYPES[dtype]).eval()
         self.inference_size = inference_size

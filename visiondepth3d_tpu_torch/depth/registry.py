@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import DEFAULT_DEVICE
 from . import configs
 from .convert import load_hf_state_dict, load_safetensors
 from .dpt import DepthAnything
@@ -47,9 +48,10 @@ def parse_inference_size(spec) -> int | tuple[int, int]:
 
 
 def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518,
-                   seed: int = 0, dtype: str = "float32", device="cpu",
+                   seed: int = 0, dtype: str = "float32", device=DEFAULT_DEVICE,
                    fast_head: bool = False, config=None) -> DepthPredictor:
-    """A predictor for a catalog entry on ``device``.
+    """A predictor for a catalog entry on ``device`` (the CUDA card unless
+    the caller passes "cpu"; without a card the default raises).
 
     checkpoint: an HF ``.safetensors`` file, an HF-keyed state dict, or None
     for seeded random weights (shape and speed testing only).

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats")
+KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats", "conv3x3")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
@@ -89,6 +89,7 @@ def _declare(L: ctypes.CDLL) -> ctypes.CDLL:
         "vd3d_feather_heal": [p, p, p, p, p, p, p, i, i, i, f, f, f, i, i, i, p],
         "vd3d_quantile_pair": [p, i, i, ll, f, f, p, p, p],
         "vd3d_subject_stats": [p, i, i, ll, p, p, p, p, p],
+        "vd3d_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, p],
     }
     for name, args in sigs.items():
         fn = getattr(L, name)

@@ -147,12 +147,58 @@ def resize_bicubic(img: torch.Tensor, out_hw, align_corners: bool = False,
     return _apply(img, "cubic", out_hw, align_corners, hwc)
 
 
+# Above this many weight-matrix elements the JAX package's resize_area
+# switches from the area matrix to integer-factor box pooling or a 2-tap
+# bilinear gather (``_MATRIX_LIMIT`` in visiondepth3d_tpu/ops/resize.py);
+# the port makes the same switch at the same sizes, so both give the same
+# pixels.
+_MATRIX_LIMIT = 1 << 18
+
+
+def _gather_axis_linear(img: torch.Tensor, out_size: int, axis: int,
+                        align_corners: bool) -> torch.Tensor:
+    """Bilinear resample along one axis with runtime indices, positions in
+    float32 as the JAX package computes them."""
+    in_size = img.shape[axis]
+    if in_size == 1:
+        reps = [1] * img.ndim
+        reps[axis] = out_size
+        return img.repeat(reps)
+    dst = torch.arange(out_size, dtype=torch.float32, device=img.device)
+    if align_corners:
+        src = dst * ((in_size - 1) / max(out_size - 1, 1))
+    else:
+        src = torch.clamp((dst + 0.5) * (in_size / out_size) - 0.5, 0.0, in_size - 1)
+    x0 = torch.clamp(torch.floor(src).to(torch.int64), 0, in_size - 1)
+    x1 = torch.clamp(x0 + 1, 0, in_size - 1)
+    w = (src - x0.to(torch.float32)).to(img.dtype)
+    shape = [1] * img.ndim
+    shape[axis] = out_size
+    w = w.reshape(shape)
+    g0 = torch.index_select(img, axis, x0)
+    g1 = torch.index_select(img, axis, x1)
+    return g0 * (1.0 - w) + g1 * w
+
+
 def resize_area(img: torch.Tensor, out_hw,
                 channel_last: bool | None = None) -> torch.Tensor:
-    """cv2.INTER_AREA-style resize (box average when shrinking)."""
+    """cv2.INTER_AREA-style resize (box average when shrinking).
+
+    As in the JAX package: above ``_MATRIX_LIMIT`` weights, an exact
+    integer-factor box mean where both factors are integers, else a 2-tap
+    bilinear gather; below it, the area matrices."""
     hwc = _is_channel_last(img, channel_last)
-    if _spatial_shape(img, hwc) == tuple(out_hw):
+    h, w = _spatial_shape(img, hwc)
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
         return img
+    if h * oh > _MATRIX_LIMIT or w * ow > _MATRIX_LIMIT:
+        h_axis = img.ndim - 3 if hwc else img.ndim - 2
+        if h % oh == 0 and w % ow == 0:
+            shape = (*img.shape[:h_axis], oh, h // oh, ow, w // ow, *img.shape[h_axis + 2:])
+            return img.reshape(shape).mean(dim=(h_axis + 1, h_axis + 3))
+        out = _gather_axis_linear(img, oh, h_axis, False)
+        return _gather_axis_linear(out, ow, h_axis + 1, False)
     return _apply(img, "area", out_hw, False, hwc)
 
 

@@ -22,6 +22,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..io import Y4MPlaneReader, open_depth_reader, open_video, open_writer
 from ..ops import formats as fmt_ops
 from ..ops.convert import (float_to_u8_round, float_to_u8_trunc, rgb_u8_to_yuv420,
@@ -51,16 +52,6 @@ class RenderConfig:
     auto_crop_black_bars: bool = False
     resume: bool = False
     mesh: str | None = None
-
-
-def resolve_device(device) -> torch.device:
-    """The render device; a CUDA device that is not there is an error."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA device is available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 def _check_ported(params: StereoParams, cfg: RenderConfig):
