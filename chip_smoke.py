@@ -3,29 +3,46 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
+    python3 chip_smoke.py --phases card,build,kernels     # a subset
+
 Phases, each printed on its own line; any failure exits nonzero:
-  1. the card (nvidia-smi name and power limit), torch / CUDA / nvcc versions;
-  2. build the hand-written kernels from visiondepth3d_tpu_torch/kernels/csrc;
-  3. each kernel against its plain PyTorch version on the card, with
-     CUDA-event times of both, of the library call where one computes the
-     same function, and the kernel's bound: K1-K4 at the shapes of the 1080p
-     render (1080x1920 frames, 648x1152 subject crop), K5 (the 3x3 conv) in
-     f32 and bf16 at five shapes of the frame-tools path;
-  4. the render path: a synthetic 1920x1080 y4m clip of 64 frames through
-     render_stereo_video with the benchmark configuration (Depth Anything
-     V2-Small, random weights from a seed, 518^2, bf16, fast head; healing
-     on, bf16 image plane; Full-SBS 1080p; chunks of 16), three timed runs
-     with every kernel launch counted, then one run and each layer of one
-     chunk under torch.profiler for the card's own time and busy share;
-  5. the frame-tools path: a synthetic 960x540 y4m clip of 9 frames through
-     run_merged_pipeline with Real-ESRGAN x4plus and practical-RIFE v4.x at
-     full width (random weights from a seed), bf16, chunks of 4, two timed
-     runs with K5's launches counted, then one run and each layer of one
-     chunk under torch.profiler;
-  6. kernels against plain versions over whole paths: a 256x144 render and a
-     128x72 frame-tools run on the CPU (plain versions) and on the card;
-  7. the CLI once per subcommand: python -m visiondepth3d_tpu_torch render /
-     tools ...
+  1. (card) the card (nvidia-smi name and power limit), torch / CUDA / nvcc
+     versions;
+  2. (build) build the hand-written kernels from
+     visiondepth3d_tpu_torch/kernels/csrc;
+  3. (kernels) each kernel against its plain PyTorch version on the card,
+     with CUDA-event times of both, of the library call where one computes
+     the same function, and the kernel's bound: K1-K4 at the shapes of the
+     1080p render (1080x1920 frames, 648x1152 subject crop), K5 (the 3x3
+     conv) in f32 and bf16 at five shapes of the frame-tools path, K6 (DOF +
+     grade) at 1080p, both eyes, dof_strength 2 and 5, K7 (attention) at
+     the depth model's shapes [16|8|2, 1370, 6, 64] and a padded
+     [2, 270, 3, 64];
+  4. (render) the render path: a synthetic 1920x1080 y4m clip of 64 frames
+     through render_stereo_video with the benchmark configuration (Depth
+     Anything V2-Small, random weights from a seed, 518^2, bf16, fast head;
+     healing on, bf16 image plane; Full-SBS 1080p; chunks of 16), three
+     timed runs with every kernel launch counted, then one run and each
+     layer of one chunk under torch.profiler for the card's own time and
+     busy share;
+  5. (dof) the depth-of-field render: the same configuration with
+     dof_strength 2 over a 32-frame clip, two timed runs with K6 (and one
+     with the plain DOF ops on the card), launches counted, one profiled run;
+  6. (depth) the depth-only route: render_depth_video_file (DA-V2-Small,
+     518^2, bf16, fast head, batch 8) over a 64-frame 1080p clip, two timed
+     runs with SDPA and two with the ops.attention.USE_VMEM_KERNEL opt-in
+     (K7, 12 launches per model call), one profiled run of each;
+  7. (tools) the frame-tools path: a synthetic 960x540 y4m clip of 9 frames
+     through run_merged_pipeline with Real-ESRGAN x4plus and practical-RIFE
+     v4.x at full width (random weights from a seed), bf16, chunks of 4, two
+     timed runs with K5's launches counted, then one run and each layer of
+     one chunk under torch.profiler;
+  8. (parity) kernels against plain versions over whole paths, on the CPU
+     (plain versions) and on the card: a 256x144 render without and with
+     depth of field, the depth route with the attention opt-in, and a 128x72
+     frame-tools run;
+  9. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
+     render (also with --dof_strength 2) / depth / tools ...
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
@@ -47,22 +64,36 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = ROOT / "visiondepth3d_tpu_torch"
 
-# kernel name -> (source, TPU kernel it replaces)
+# kernel name -> (source, TPU kernel it replaces: its public function and
+# the line of its pallas_call)
 KERNEL_TABLE = {
     "stereo_warp": ("visiondepth3d_tpu_torch/kernels/csrc/warp.cu",
-                    "visiondepth3d_tpu/ops/pallas_warp.py:28"),
+                    "visiondepth3d_tpu/ops/pallas_warp.py:126 stereo_warp_pallas "
+                    "(pallas_call :168)"),
     "feather_heal": ("visiondepth3d_tpu_torch/kernels/csrc/postfx.cu",
-                     "visiondepth3d_tpu/ops/pallas_postfx.py:60"),
+                     "visiondepth3d_tpu/ops/pallas_postfx.py:139 feather_heal_pallas "
+                     "(pallas_call :207)"),
     "quantile_pair": ("visiondepth3d_tpu_torch/kernels/csrc/stats.cu",
-                      "visiondepth3d_tpu/ops/pallas_stats.py:44"),
+                      "visiondepth3d_tpu/ops/pallas_stats.py:72 quantile_pair_pallas "
+                      "(pallas_call :78)"),
     "subject_stats": ("visiondepth3d_tpu_torch/kernels/csrc/stats.cu",
-                      "visiondepth3d_tpu/ops/pallas_stats.py:90"),
+                      "visiondepth3d_tpu/ops/pallas_stats.py:128 subject_stats_pallas "
+                      "(pallas_call :137)"),
     "conv3x3": ("visiondepth3d_tpu_torch/kernels/csrc/conv.cu",
-                "visiondepth3d_tpu/ops/pallas_conv.py:44"),
+                "visiondepth3d_tpu/ops/pallas_conv.py:116 conv3x3_pallas (pallas_call :158)"),
+    "dof_grade": ("visiondepth3d_tpu_torch/kernels/csrc/dof.cu",
+                  "visiondepth3d_tpu/ops/pallas_dof.py:111 dof_grade_pallas (pallas_call :180)"),
+    "vmem_attention": ("visiondepth3d_tpu_torch/kernels/csrc/attention.cu",
+                       "visiondepth3d_tpu/ops/pallas_attention.py:86 vmem_attention "
+                       "(pallas_call :114)"),
 }
-# the kernels of each main path: the render's four, the frame tools' conv
+# the kernels of each main path: the render's four, the DOF render's K6 (on
+# top of the four), the depth route's attention, the frame tools' conv
 RENDER_KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats")
+DOF_KERNELS = ("dof_grade",)
+DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
+ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "parity", "cli")
 H, W = 1080, 1920
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit): HBM bytes/s,
@@ -94,7 +125,22 @@ def card_line() -> str:
 
 HAND_KERNELS = ("stereo_warp_kernel", "feather_heal_kernel", "hist_kernel",
                 "qpair_replay_kernel", "subject_replay_kernel", "conv3x3_wmma_kernel",
-                "conv3x3_fma_kernel")
+                "conv3x3_fma_kernel", "dof_grade_kernel", "attention_wmma_kernel",
+                "attention_fma_kernel")
+
+_PREDICTORS: dict = {}
+
+
+def da_predictor(device: str = "cuda", dtype: str = "bfloat16"):
+    """Depth Anything V2-Small at 518^2, fast head, random weights from
+    seed 0: one instance per (device, dtype), shared by the phases."""
+    if (device, dtype) not in _PREDICTORS:
+        from visiondepth3d_tpu_torch.depth.registry import load_predictor
+
+        _PREDICTORS[device, dtype] = load_predictor(
+            "depth-anything-v2-small", None, inference_size=518, seed=0, dtype=dtype,
+            device=device, fast_head=True)
+    return _PREDICTORS[device, dtype]
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -333,7 +379,121 @@ def phase_kernels(card: str) -> dict:
     say(f"PHASE kernels subject_stats bit-exact on 3 crops, max_abs_err=0 {line}")
     del frame, depth, shift, base, left, right, dl, dr, args, got, ref, diff
     phase_conv_kernel(card, results)
+    phase_dof_kernel(card, results)
+    phase_attention_kernel(card, results)
     return results
+
+
+def phase_dof_kernel(card: str, results: dict):
+    """K6 against its plain version at 1080p, both eyes, grade on, f32 and
+    bf16, dof_strength 2 (5 levels, reach 4: the DOF render's setting) and
+    5 (reach 10, the preset maximum). No library call computes the LOD stack
+    and the lerp; library is none. The JSON line carries dof_strength 2.
+
+    Bound: read both eyes (3 values each) and the f32 depth, write both
+    eyes. Operations per value (in f32 on CUDA cores whatever the storage
+    type): a multiply and an add per tap of both separable passes of every
+    blurred level (4 x the summed kernel sizes: 96 at sigma 2, 224 at 5),
+    the two-level lerp 4, clamp 2, grade 8; per pixel 8 for the blur index.
+    """
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import dof as kdof
+    from visiondepth3d_tpu_torch.ops.dof import level_ksize, level_sigmas
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    base = smooth_frame(gen, H, W, dev)
+    left = (base + 0.03 * torch.randn(H, W, 3, generator=gen).to(dev)).clamp(0, 1)
+    right = (base - 0.03 * torch.randn(H, W, 3, generator=gen).to(dev)).clamp(0, 1)
+    depth = smooth_depth(gen, H, W, dev)
+    focal = torch.tensor(0.45, device=dev)
+    kw = dict(saturation=1.2, contrast=1.1, brightness=0.02)
+    n = 5
+    for sigma in (2.0, 5.0):
+        ksum = sum(level_ksize(sg) for sg in level_sigmas(sigma, n) if sg > 0)
+        flops = H * W * (6 * (4 * ksum + 14) + 8)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (left.to(dt), right.to(dt), depth, focal, sigma, 0.35, n)
+            got = kdof.dof_grade_cuda(*args, **kw)
+            ref = kdof.dof_grade_torch(*args, **kw)
+            diff = torch.cat([(a.float() - b.float()).abs().reshape(-1) for a, b in zip(got, ref)])
+            err, mean = diff.max().item(), diff.mean().item()
+            ms = time_ms(lambda: kdof.dof_grade_cuda(*args, **kw))
+            plain = time_ms(lambda: kdof.dof_grade_torch(*args, **kw), warmup=1, runs=5)
+            nbytes = H * W * (12 * args[0].element_size() + 4) + 4
+            bound_ms, bound_by = bound(flops, nbytes, "float32")
+            if dt == torch.float32:
+                ok, gate = err <= 1e-5, "need max <= 1e-5"
+            else:
+                ok, gate = err <= 1.6e-2 and mean <= 2e-3, "need max <= 1.6e-2, mean <= 2e-3"
+            if sigma == 2.0:
+                results[("dof_grade", dt)] = dict(err=err, ms=ms, plain=plain, bound_ms=bound_ms,
+                                                  bound_by=bound_by, library_ms=None)
+            say(f"PHASE kernels dof_grade sigma {sigma} reach {kdof.dof_reach(sigma, n)} {dt} "
+                f"max_abs_err={err:.3e} mean_abs_err={mean:.3e} ({gate}) kernel {ms:.4f} ms "
+                f"plain {plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{flops / 1e9:.3f} GFLOP) library none [{card}]")
+            expect(ok, f"dof_grade sigma {sigma} {dt}: max |err| {err}, mean {mean}")
+    del base, left, right, depth, got, ref, diff
+
+
+# K7 at the depth route's shapes: [B, N, H, D] and type. B 8 is the depth
+# route's batch, 16 the render's chunk; [2, 270, 3, 64] pads 270 keys to
+# whole 64-key tiles.
+ATTN_SHAPES = (((16, 1370, 6, 64), "bfloat16"), ((8, 1370, 6, 64), "bfloat16"),
+               ((2, 1370, 6, 64), "float32"), ((2, 270, 3, 64), "bfloat16"),
+               ((2, 270, 3, 64), "float32"))
+
+
+def phase_attention_kernel(card: str, results: dict):
+    """K7 against its plain version (f32 matmuls without TF32), with SDPA on
+    BHND views as the library call. Bound: 4 B H N^2 D operations (the two
+    products) at the type's peak, Q, K, V read and O written once. The JSON
+    line carries [8, 1370, 6, 64] bf16, the depth route's call."""
+    import torch
+    import torch.nn.functional as F
+
+    from visiondepth3d_tpu_torch.kernels import attention as kattn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(7)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for shape, tname in ATTN_SHAPES:
+            dt = getattr(torch, tname)
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt) for _ in range(3))
+            got = kattn.vmem_attention_cuda(q, k, v)
+            ref = kattn.vmem_attention_torch(q, k, v)
+            diff = (got.float() - ref.float()).abs()
+            err, mean = diff.max().item(), diff.mean().item()
+            del got, ref, diff
+            ms = time_ms(lambda: kattn.vmem_attention_cuda(q, k, v))
+            plain = time_ms(lambda: kattn.vmem_attention_torch(q, k, v), warmup=1, runs=5)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            b, n, h, d = shape
+            flops = 4.0 * b * h * n * n * d
+            nbytes = 4 * b * n * h * d * q.element_size()
+            bound_ms, bound_by = bound(flops, nbytes, tname)
+            if dt == torch.float32:
+                ok, gate = err <= 1e-5, "need max <= 1e-5"
+            else:
+                ok, gate = err <= 1.6e-2 and mean <= 1e-3, "need max <= 1.6e-2, mean <= 1e-3"
+            if shape in ((8, 1370, 6, 64), (2, 1370, 6, 64)):
+                results[("vmem_attention", dt)] = dict(err=err, ms=ms, plain=plain,
+                                                       bound_ms=bound_ms, bound_by=bound_by,
+                                                       library_ms=library)
+            say(f"PHASE kernels vmem_attention {list(shape)} {tname} max_abs_err={err:.3e} "
+                f"mean_abs_err={mean:.3e} ({gate}) kernel {ms:.4f} ms plain {plain:.4f} ms "
+                f"library {library:.4f} ms (SDPA) bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s) [{card}]")
+            expect(ok, f"vmem_attention {list(shape)} {tname}: max |err| {err}, mean {mean}")
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 # K5 at the shapes of the frame-tools path (960x540 input, chunks of 5
@@ -440,11 +600,18 @@ def read_clip(path):
         return rd.width, rd.height, np.stack(frames) if frames else None
 
 
+def warm_clip(tmp: Path) -> Path:
+    """A 16-frame 1080p clip for warm-up runs (one chunk)."""
+    path = tmp / "warm_1080p.y4m"
+    if not path.exists():
+        write_clip(path, W, H, 16)
+    return path
+
+
 def phase_render(card: str, tmp: Path) -> dict:
     """The benchmark configuration through render_stereo_video."""
     import torch
 
-    from visiondepth3d_tpu_torch.depth.registry import load_predictor
     from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
     from visiondepth3d_tpu_torch.pipeline.geometry import resolve_geometry
     from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import (
@@ -454,16 +621,15 @@ def phase_render(card: str, tmp: Path) -> dict:
     from visiondepth3d_tpu_torch.stereo.step import render_chunk
 
     dev = torch.device("cuda")
-    pred = load_predictor("depth-anything-v2-small", None, inference_size=518, seed=0,
-                          dtype="bfloat16", device=dev, fast_head=True)
+    pred = da_predictor()
     params = StereoParams(enable_healing=True, image_dtype="bfloat16")
     cfg = RenderConfig(output_format="Full-SBS", output_height=1080, chunk_size=16,
                        device="cuda")
     n_frames, reps = 64, 3
-    warm_clip, clip = tmp / "warm_1080p.y4m", tmp / "clip_1080p.y4m"
-    write_clip(warm_clip, W, H, 16)
+    clip = tmp / "clip_1080p.y4m"
     write_clip(clip, W, H, n_frames)
-    render_stereo_video(warm_clip, None, tmp / "warm_sbs.y4m", params, cfg, predictor=pred)
+    render_stereo_video(warm_clip(tmp), None, tmp / "warm_sbs.y4m", params, cfg,
+                        predictor=pred)
     torch.cuda.synchronize()
 
     # the main path, timed `reps` times; the counts are zeroed before each run
@@ -531,8 +697,161 @@ def phase_render(card: str, tmp: Path) -> dict:
     return counts
 
 
+def phase_render_dof(card: str, tmp: Path) -> dict:
+    """Path A: the benchmark render with dof_strength 2 (K1-K4 and K6, one
+    K6 launch per frame for both eyes), two timed runs; then one run with
+    the plain DOF ops on the card (dof_backend "torch") and one profiled
+    run."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import (RenderConfig,
+                                                                  render_stereo_video)
+    from visiondepth3d_tpu_torch.stereo.params import StereoParams
+
+    pred = da_predictor()
+    params = StereoParams(enable_healing=True, image_dtype="bfloat16", dof_strength=2.0)
+    cfg = RenderConfig(output_format="Full-SBS", output_height=1080, chunk_size=16,
+                       device="cuda")
+    n_frames = 32
+    clip = tmp / "clip_dof_1080p.y4m"
+    write_clip(clip, W, H, n_frames)
+    render_stereo_video(warm_clip(tmp), None, tmp / "warm_dof.y4m", params, cfg,
+                        predictor=pred)
+    torch.cuda.synchronize()
+    runs = {}
+    for name, p in (("K6", params), ("K6", params),
+                    ("plain DOF", params.replace(dof_backend="torch"))):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        render_stereo_video(clip, None, tmp / f"dof_{name.replace(' ', '_')}.y4m", p, cfg,
+                            predictor=pred)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        prev = runs.setdefault(name, {"fps": [], "counts": counts})
+        expect(prev["counts"] == counts,
+               f"launch counts differ between runs: {prev['counts']} then {counts}")
+        prev["fps"].append(n_frames / wall)
+    counts = runs["K6"]["counts"]
+    expect(counts["dof_grade"] == n_frames,
+           f"K6 launched {counts['dof_grade']} times, want {n_frames} (one per frame)")
+    for k in RENDER_KERNELS:
+        expect(counts[k] > 0, f"kernel {k} was not launched on the DOF render path")
+    expect(runs["plain DOF"]["counts"]["dof_grade"] == 0, "the plain-DOF run launched K6")
+    ow, oh, out = read_clip(tmp / "dof_K6.y4m")
+    expect((ow, oh) == (2 * W, H) and out is not None and out.shape[0] == n_frames,
+           f"DOF render output {ow}x{oh} with {0 if out is None else out.shape[0]} frames")
+    plain_out = read_clip(tmp / "dof_plain_DOF.y4m")[2]
+    d = float(np.abs(out.astype(np.int16) - plain_out.astype(np.int16)).mean())
+    expect(d <= 1.0, f"K6 and plain-DOF renders differ by mean |d| {d:.4f} u8")
+    fps_k6 = runs["K6"]["fps"]
+    say(f"PHASE render dof: {n_frames} frames 1920x1080 -> {ow}x{oh} Full-SBS, dof_strength "
+        f"2, K6 runs {', '.join(f'{f:.2f}' for f in fps_k6)} fps, plain-DOF run "
+        f"{runs['plain DOF']['fps'][0]:.2f} fps; K6 vs plain-DOF output mean |d| {d:.4f} u8 "
+        f"[{card}]")
+    say(f"PHASE render dof launches: {json.dumps(counts)}")
+    prof = device_profile(lambda: render_stereo_video(clip, None, tmp / "dof_prof.y4m", params,
+                                                      cfg, predictor=pred))
+    say(f"PHASE render dof profile ({n_frames} frames, one more K6 run under torch.profiler, "
+        f"against the faster K6 run's wall): {fmt_profile(prof, 1e3 * n_frames / max(fps_k6))} "
+        f"[{card}]")
+    return counts
+
+
+def phase_depth(card: str, tmp: Path) -> dict:
+    """Path B: render_depth_video_file over a 64-frame 1080p clip, batch 8,
+    two timed runs with SDPA and two with the USE_VMEM_KERNEL opt-in (K7,
+    12 launches per model call), one profiled run of each."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
+                                                                 render_depth_video_file)
+
+    pred = da_predictor()
+    cfg = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda")
+    n_frames = 64
+    clip = tmp / "depth_1080p.y4m"
+    write_clip(clip, W, H, n_frames)
+    layers = pred.cfg.backbone.num_layers
+    want_k7 = {"sdpa": 0, "K7": layers * -(-n_frames // cfg.batch_size)}
+    walls, outs, counts_k7 = {}, {}, None
+    try:
+        for mode in ("sdpa", "K7"):
+            attn_ops.USE_VMEM_KERNEL = mode == "K7"
+            render_depth_video_file(warm_clip(tmp), tmp / "depth_warm.y4m", cfg, predictor=pred)
+            torch.cuda.synchronize()
+            walls[mode], counts = [], None
+            for _ in range(2):
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                n = render_depth_video_file(clip, tmp / f"depth_{mode}.y4m", cfg, predictor=pred)
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+                run_counts = dict(launch_counts)
+                expect(counts is None or run_counts == counts,
+                       f"launch counts differ between runs: {counts} then {run_counts}")
+                counts = run_counts
+            expect(n == n_frames, f"depth route wrote {n} frames, want {n_frames}")
+            expect(counts["vmem_attention"] == want_k7[mode],
+                   f"{mode}: K7 launched {counts['vmem_attention']} times, want {want_k7[mode]}")
+            others = {k: v for k, v in counts.items() if k != "vmem_attention" and v}
+            expect(not others, f"the depth route launched other kernels: {others}")
+            ow, oh, out = read_clip(tmp / f"depth_{mode}.y4m")
+            outs[mode] = out[..., 0]  # a gray video: R = G = B through Y4M's YUV
+            expect((ow, oh) == (W, H) and out.shape[0] == n_frames,
+                   f"depth output {ow}x{oh} with {outs[mode].shape[0]} frames")
+            expect(float(outs[mode].std()) > 1.0, f"{mode} depth output is flat")
+            say(f"PHASE depth {mode}: {n_frames} frames 1920x1080, DA-V2-S 518 bf16 fast head, "
+                f"batch {cfg.batch_size}, 2 runs: "
+                f"{', '.join(f'{n_frames / w:.2f}' for w in walls[mode])} fps end to end, "
+                f"K7 launches per run {counts['vmem_attention']} [{card}]")
+            prof = device_profile(lambda: render_depth_video_file(
+                clip, tmp / f"depth_{mode}_prof.y4m", cfg, predictor=pred))
+            say(f"PHASE depth {mode} profile (one more run under torch.profiler, against the "
+                f"faster run's wall): {fmt_profile(prof, 1e3 * min(walls[mode]))} [{card}]")
+            if mode == "K7":
+                counts_k7 = counts
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+    # the two bf16 routes against each other and against the same route in
+    # float32 (SDPA, TF32 off): two bf16 attentions round at other places,
+    # and the random-weight ViT and the per-frame percentile stretch amplify
+    # that, so K7 is held to be no further from float32 than SDPA is
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        render_depth_video_file(clip, tmp / "depth_f32.y4m",
+                                DepthConfig(batch_size=8, device="cuda"),
+                                predictor=da_predictor("cuda", "float32"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    ref = read_clip(tmp / "depth_f32.y4m")[2][..., 0]
+
+    def mean_d(a, b):
+        return float(np.abs(a.astype(np.int16) - b.astype(np.int16)).mean())
+
+    d = mean_d(outs["sdpa"], outs["K7"])
+    d_sdpa, d_k7 = mean_d(outs["sdpa"], ref), mean_d(outs["K7"], ref)
+    # SSIM on the first frame of each batch (full-frame SSIM of all 64 costs a minute)
+    ssim = min(ssim_gray(a, b) for a, b in zip(outs["sdpa"][::cfg.batch_size],
+                                                outs["K7"][::cfg.batch_size]))
+    say(f"PHASE depth: bf16 outputs SDPA vs K7 mean |d| {d:.4f} u8, min SSIM {ssim:.5f} over "
+        f"every {cfg.batch_size}th frame (need >= 0.99); against the float32 SDPA route: SDPA "
+        f"{d_sdpa:.4f} u8, K7 {d_k7:.4f} u8 (need K7 <= SDPA + 0.25)")
+    expect(ssim >= 0.99 and d_k7 <= d_sdpa + 0.25,
+           f"K7 depth output: SSIM {ssim:.5f} to SDPA, {d_k7:.4f} u8 from float32 against "
+           f"SDPA's {d_sdpa:.4f}")
+    return counts_k7
+
+
 def ssim_gray(a, b) -> float:
-    """Mean SSIM of two u8 RGB frames on their luma (7x7 box windows)."""
+    """Mean SSIM of two u8 RGB frames on their luma, or of two gray frames
+    (7x7 box windows)."""
     import numpy as np
 
     def box(x, k=7):
@@ -540,8 +859,8 @@ def ssim_gray(a, b) -> float:
         return (c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]) / (k * k)
 
     wts = np.array([0.299, 0.587, 0.114])
-    x = (a.astype(np.float64) @ wts)
-    y = (b.astype(np.float64) @ wts)
+    x, y = ((f.astype(np.float64) @ wts) if f.ndim == 3 else f.astype(np.float64)
+            for f in (a, b))
     c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
     mx, my = box(x), box(y)
     vx, vy = box(x * x) - mx * mx, box(y * y) - my * my
@@ -551,45 +870,68 @@ def ssim_gray(a, b) -> float:
 
 
 def phase_parity(card: str, tmp: Path):
-    """The same small render on the CPU (plain versions) and on the card."""
+    """The same small runs on the CPU (plain versions) and on the card: the
+    render without and with depth of field (K1-K4, and K6), and the depth
+    route with the attention opt-in (K7)."""
     import numpy as np
     import torch
 
-    from visiondepth3d_tpu_torch.depth.registry import load_predictor
     from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
+                                                                 render_depth_video_file)
     from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import (
         RenderConfig, render_stereo_video)
     from visiondepth3d_tpu_torch.stereo.params import StereoParams
 
     # float32 depth model on both sides, TF32 off: the comparison is about
-    # the stereo kernels, not about matmul rounding in the random ViT
+    # the hand kernels, not about matmul rounding in the random ViT
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     clip = tmp / "small.y4m"
     write_clip(clip, 256, 144, 4)
-    params = StereoParams(enable_healing=True, image_dtype="bfloat16")
-    outs = {}
-    for device in ("cpu", "cuda"):
-        pred = load_predictor("depth-anything-v2-small", None, inference_size=518, seed=0,
-                              dtype="float32", device=device, fast_head=True)
+
+    def render(device, params, out):
         cfg = RenderConfig(preserve_original_aspect=True, chunk_size=4, device=device)
-        reset_launch_counts()
-        render_stereo_video(clip, None, tmp / f"small_{device}.y4m", params, cfg,
-                            predictor=pred)
-        if device == "cuda":
-            torch.cuda.synchronize()
-            expect(all(launch_counts[k] > 0 for k in RENDER_KERNELS),
-                   f"card render skipped a kernel: {launch_counts}")
-        else:
-            expect(not any(launch_counts.values()), "CPU render launched a kernel")
-        outs[device] = read_clip(tmp / f"small_{device}.y4m")[2]
-    a, b = outs["cpu"], outs["cuda"]
-    expect(a.shape == b.shape == (4, 144, 512, 3), f"shapes {a.shape} {b.shape}")
-    mean = float(np.abs(a.astype(int) - b.astype(int)).mean())
-    ssim = min(ssim_gray(x, y) for x, y in zip(a, b))
-    say(f"PHASE parity: 256x144 x4 frames, CPU plain vs card kernels: "
-        f"mean |d| {mean:.4f} u8 (need <= 1), min SSIM {ssim:.5f} (need >= 0.99)")
-    expect(mean <= 1.0 and ssim >= 0.99, "CPU and card renders disagree")
+        render_stereo_video(clip, None, out, params, cfg,
+                            predictor=da_predictor(device, "float32"))
+
+    def depth_route(device, out):
+        attn_ops.USE_VMEM_KERNEL = True
+        try:
+            render_depth_video_file(clip, out, DepthConfig(batch_size=4, device=device),
+                                    predictor=da_predictor(device, "float32"))
+        finally:
+            attn_ops.USE_VMEM_KERNEL = False
+
+    base = StereoParams(enable_healing=True, image_dtype="bfloat16")
+    cases = (
+        ("render", lambda dev, out: render(dev, base, out), RENDER_KERNELS, (4, 144, 512, 3)),
+        ("render dof", lambda dev, out: render(dev, base.replace(dof_strength=2.0), out),
+         RENDER_KERNELS + DOF_KERNELS, (4, 144, 512, 3)),
+        ("depth K7", depth_route, DEPTH_KERNELS, (4, 144, 256, 3)),
+    )
+    for name, run, kernels, shape in cases:
+        outs = {}
+        for device in ("cpu", "cuda"):
+            out = tmp / f"parity_{name.replace(' ', '_')}_{device}.y4m"
+            reset_launch_counts()
+            run(device, out)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                expect(all(launch_counts[k] > 0 for k in kernels),
+                       f"card {name} skipped a kernel: {launch_counts}")
+            else:
+                expect(not any(launch_counts.values()), f"CPU {name} launched a kernel")
+            outs[device] = read_clip(out)[2]
+        a, b = outs["cpu"], outs["cuda"]
+        expect(a.shape == b.shape == shape, f"{name} shapes {a.shape} {b.shape}")
+        mean = float(np.abs(a.astype(int) - b.astype(int)).mean())
+        ssim = min(ssim_gray(x, y) for x, y in zip(a, b))
+        say(f"PHASE parity {name}: 256x144 x4 frames, CPU plain vs card kernels "
+            f"({', '.join(kernels)}): mean |d| {mean:.4f} u8 (need <= 1), min SSIM {ssim:.5f} "
+            f"(need >= 0.99)")
+        expect(mean <= 1.0 and ssim >= 0.99, f"CPU and card {name} runs disagree")
 
 
 TOOLS_W, TOOLS_H, TOOLS_FRAMES, TOOLS_CHUNK = 960, 540, 9, 4
@@ -750,6 +1092,20 @@ def phase_cli(tmp: Path):
     expect((w, h) == (512, 144) and frames is not None and frames.shape[0] == 4,
            f"CLI output {w}x{h} with {0 if frames is None else frames.shape[0]} frames")
     say(f"PHASE cli: vd3d-torch render -> {w}x{h}, {frames.shape[0]} frames")
+    for sub, extra, want in (("render", ["--dof_strength", "2", "--allow-random",
+                                         "--preserve-aspect", "--chunk-size", "4"], (512, 144)),
+                             ("depth", ["--allow-random-weights"], (256, 144))):
+        out = tmp / f"cli_{sub}_extra.y4m"
+        cmd = [sys.executable, "-m", "visiondepth3d_tpu_torch", sub, "--input", str(clip),
+               "--output", str(out), "--device", "cuda", *extra]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT)
+        expect(res.returncode == 0, f"{sub} CLI rc={res.returncode}: {res.stderr[-2000:]}")
+        w, h, frames = read_clip(out)
+        expect((w, h) == want and frames is not None and frames.shape[0] == 4,
+               f"{sub} CLI output {w}x{h} with {0 if frames is None else frames.shape[0]} "
+               f"frames")
+        say(f"PHASE cli: vd3d-torch {sub} {' '.join(extra)} -> {w}x{h}, {frames.shape[0]} "
+            f"frames")
     out = tmp / "cli_tools.y4m"
     cmd = [sys.executable, "-m", "visiondepth3d_tpu_torch", "tools", "--input", str(clip),
            "--output", str(out), "--esrgan", "--rife", "--allow-random-weights",
@@ -765,7 +1121,7 @@ def phase_cli(tmp: Path):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of card,build,kernels,render,tools,parity,cli")
+                    help=f"comma list of {','.join(ALL_PHASES)}")
     args = ap.parse_args(argv)
     if not PKG.is_dir():
         print(f"chip_smoke: {PKG} not found; run from a checkout of the repo",
@@ -778,28 +1134,39 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    phases = set(args.phases.split(",")) if args.phases != "all" else {
-        "card", "build", "kernels", "render", "tools", "parity", "cli"}
+    phases = set(args.phases.split(",")) if args.phases != "all" else set(ALL_PHASES)
+    unknown = phases - set(ALL_PHASES)
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
+        return 2
     try:
+        def timed(name, fn, *a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            say(f"PHASE {name} took {time.perf_counter() - t0:.1f} s")
+            return out
+
         card = phase_card()
-        phase_build()
-        kernels = phase_kernels(card) if "kernels" in phases else {}
+        timed("build", phase_build)
+        kernels = timed("kernels", phase_kernels, card) if "kernels" in phases else {}
         counts = {}
         with tempfile.TemporaryDirectory(prefix="vd3d_smoke_") as td:
             tmp = Path(td)
-            if "render" in phases:
-                render_counts = phase_render(card, tmp)
-                counts.update({k: render_counts[k] for k in RENDER_KERNELS})
-            if "tools" in phases:
-                tools_counts = phase_tools(card, tmp)
-                counts.update({k: tools_counts[k] for k in TOOLS_KERNELS})
+            # each main path, with the kernels whose launches it counts
+            for name, fn, path_kernels in (("render", phase_render, RENDER_KERNELS),
+                                           ("dof", phase_render_dof, DOF_KERNELS),
+                                           ("depth", phase_depth, DEPTH_KERNELS),
+                                           ("tools", phase_tools, TOOLS_KERNELS)):
+                if name in phases:
+                    run_counts = timed(name, fn, card, tmp)
+                    counts.update({k: run_counts[k] for k in path_kernels})
             if "parity" in phases:
-                phase_parity(card, tmp)
-                phase_tools_parity(tmp)
+                timed("parity", phase_parity, card, tmp)
+                timed("parity tools", phase_tools_parity, tmp)
             if "cli" in phases:
                 if "parity" not in phases:
                     write_clip(tmp / "small.y4m", 256, 144, 4)
-                phase_cli(tmp)
+                timed("cli", phase_cli, tmp)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                         ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
         expect(not leaked, f"the JAX package or jax was imported: {leaked}")
@@ -807,10 +1174,12 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    # launches are counted on each main path (render: K1-K4, tools: K5);
-    # a kernel whose path did not run has null launches
+    # launches are counted on each main path (render: K1-K4, DOF render: K6,
+    # depth route with the opt-in: K7, tools: K5); a kernel whose path did
+    # not run has null launches
     product_dtype = {"stereo_warp": torch.bfloat16, "feather_heal": torch.bfloat16,
-                     "conv3x3": torch.bfloat16}
+                     "conv3x3": torch.bfloat16, "dof_grade": torch.bfloat16,
+                     "vmem_attention": torch.bfloat16}
     table = []
     for name, (source, replaces) in KERNEL_TABLE.items():
         key = (name, product_dtype.get(name, torch.float32))

@@ -109,11 +109,26 @@ def test_cli_render_cpu(clip, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mesh", "dp=2"], ["--skip-blank-frames"],
                                   ["--auto-crop-black-bars"], ["--format", "VR"],
-                                  ["--dof_strength", "1.0"]])
+                                  ["--format", "Passive Interlaced"]])
 def test_cli_unported_features_raise(clip, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         cli_main(["render", "--input", str(clip), "--allow-random", "--device", "cpu",
                   "--output", str(tmp_path / "x.y4m"), "--inference-size", str(SIZE), *flag])
+
+
+def test_cli_render_dof_cpu(clip, tmp_path):
+    """Depth of field through the CLI on the CPU (the plain ops): the
+    output differs from the same render without it."""
+    outs = {}
+    for dof in ("0", "2"):
+        outs[dof] = tmp_path / f"dof{dof}.y4m"
+        rc = cli_main(["render", "--input", str(clip), "--allow-random", "--device", "cpu",
+                       "--output", str(outs[dof]), "--preserve-aspect", "--chunk-size", "4",
+                       "--inference-size", str(SIZE), "--dof_strength", dof])
+        assert rc == 0
+    sharp, blurred = _read(outs["0"]), _read(outs["2"])
+    assert blurred.shape == sharp.shape == (6, 48, 128, 3)
+    assert np.abs(blurred.astype(int) - sharp.astype(int)).mean() > 0.5
 
 
 def test_cuda_device_without_card_raises(clip, tmp_path):
@@ -149,6 +164,14 @@ depths = pred.predict_01(frames, out_hw=(24, 32))
 _, out = render_chunk(StereoParams().with_shift_bound(32), init_trackers(24, 32, "cpu"),
                       frames, depths)
 assert out.left.shape == (2, 24, 32, 3)
+_, out = render_chunk(StereoParams(dof_strength=2.0).with_shift_bound(32),
+                      init_trackers(24, 32, "cpu"), frames, depths)
+assert out.left.shape == (2, 24, 32, 3)
+from visiondepth3d_tpu_torch.ops import attention
+from visiondepth3d_tpu_torch.pipeline.depth_pipeline import DepthConfig, render_depth_video_file
+attention.USE_VMEM_KERNEL = True
+big = load_predictor("depth-anything-v2-small", None, inference_size=322, config=DA_TINY,
+                     device="cpu")
 with tempfile.TemporaryDirectory() as td:
     with Y4MWriter(td + "/in.y4m", 16, 12, 24.0) as wr:
         for i in range(3):
@@ -156,6 +179,11 @@ with tempfile.TemporaryDirectory() as td:
     cfg = EnhanceConfig(esrgan_nf=8, esrgan_nb=1, esrgan_gc=8, rife_scales=(2, 1),
                         chunk_size=2, allow_random_weights=True)
     assert run_merged_pipeline(td + "/in.y4m", td + "/out.y4m", cfg, device="cpu") == 5
+    for tiled in (False, True):
+        dcfg = DepthConfig(inference_size=322, tile_size=322, tiled=tiled, batch_size=2,
+                           device="cpu")
+        assert render_depth_video_file(td + "/in.y4m", td + "/depth.y4m", dcfg,
+                                       predictor=big) == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
 assert not bad, bad

@@ -16,6 +16,16 @@ the step frame by frame; the trackers are compared after every frame.
 - shipped config (bisection quantiles, bf16 image plane, healing on):
   per-frame SSIM >= 0.99 and mean |d| <= one u8 step (the JAX CPU path
   keeps the warped image in float32 where the port rounds it to bf16).
+
+The depth-of-field cases run ``render_chunk`` over the clip with
+``dof_strength = 2.0`` on both sides, in both configurations and in a
+Half-SBS geometry (the warp at half the eye's width, so DOF reads the
+depth resized to the warp size), under the same gates, except that parity
+mode allows four u8 steps: the focal plane differs by one float32 ulp
+from the second frame on (inside the 1e-6 tracker gate), which moves the
+DOF lerp weights of every blurred pixel by about 1e-7 and so flips a few
+more truncations at the grade, and the sharpen's center weight of 3 turns
+one such flip into three steps beside its own.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 
 from visiondepth3d_tpu.state import init_trackers as jinit
 from visiondepth3d_tpu.stereo import StereoParams as JParams
+from visiondepth3d_tpu.stereo.step import render_chunk as jrender_chunk
 from visiondepth3d_tpu.stereo.step import stereo_frame_step as jstep
 from visiondepth3d_tpu_torch.state import init_trackers as tinit
 from visiondepth3d_tpu_torch.stereo import StereoParams as TParams
@@ -94,23 +105,63 @@ def test_stereo_step_matches_jax(config):
         jt, jout = step(jt, jnp.asarray(frames[i]), jnp.asarray(depths[i]))
         tt, tout = stereo_frame_step(tp, tt, torch.from_numpy(frames[i]),
                                      torch.from_numpy(depths[i]))
-        for name in TRACKER_FIELDS:
-            a = np.asarray(getattr(jt, name)).astype(np.float64)
-            b = getattr(tt, name).float().numpy().astype(np.float64)
-            tol = 1e-6 if config == "parity" else 1e-4
-            np.testing.assert_allclose(b, a, atol=tol, rtol=0, err_msg=f"frame {i} {name}")
+        _check_trackers(config, jt, tt, f"frame {i}")
         for name in ("left", "right"):
-            a = np.asarray(getattr(jout, name), np.float32)
-            b = getattr(tout, name).float().numpy()
-            if config == "parity":
-                steps = np.abs(a - b) * 255.0
-                flipped = steps > 255.0 * 1e-5
-                assert np.abs(steps - np.round(steps)).max() <= 255.0 * 1e-5, (i, name)
-                assert steps.max() <= 3.0 + 1e-3, (i, name, steps.max())
-                assert flipped.mean() <= 1e-3, (i, name, flipped.mean())
-            else:
-                assert np.abs(a - b).mean() <= 1.0 / 255.0, (i, name)
-                assert _ssim(a, b) >= 0.99, (i, name)
+            _check_eye(config, np.asarray(getattr(jout, name), np.float32),
+                       getattr(tout, name).float().numpy(), (i, name))
+
+
+def _check_trackers(config, jt, tt, where):
+    for name in TRACKER_FIELDS:
+        a = np.asarray(getattr(jt, name)).astype(np.float64)
+        b = getattr(tt, name).float().numpy().astype(np.float64)
+        tol = 1e-6 if config == "parity" else 1e-4
+        np.testing.assert_allclose(b, a, atol=tol, rtol=0, err_msg=f"{where} {name}")
+
+
+def _check_eye(config, a, b, where, max_steps=3):
+    if config == "parity":
+        steps = np.abs(a - b) * 255.0
+        flipped = steps > 255.0 * 1e-5
+        assert np.abs(steps - np.round(steps)).max() <= 255.0 * 1e-5, where
+        assert steps.max() <= max_steps + 1e-3, (where, steps.max())
+        assert flipped.mean() <= 1e-3, (where, flipped.mean())
+    else:
+        assert np.abs(a - b).mean() <= 1.0 / 255.0, where
+        assert _ssim(a, b) >= 0.99, where
+
+
+DOF_CASES = {"parity": ("parity", None), "shipped": ("shipped", None),
+             "shipped_half_sbs": ("shipped", (H, W // 2))}
+T_DOF = 4  # frames of the clip the DOF cases run (the focal tracker moves from the second)
+
+
+@pytest.mark.parametrize("case", sorted(DOF_CASES))
+def test_render_chunk_dof_matches_jax(case):
+    config, warp_hw = DOF_CASES[case]
+    kw = dict(CONFIGS[config], dof_strength=2.0, warp_hw=warp_hw)
+    width = W if warp_hw is None else warp_hw[1]
+    jp = JParams(**kw).with_shift_bound(width)
+    tp = TParams(**{**kw, "warp_backend": kw.get("warp_backend", "auto")}).with_shift_bound(width)
+    frames, depths = (a[:T_DOF] for a in _clip(seed=2))
+    if config == "parity":  # op by op: no fused multiply-adds
+        with jax.disable_jit():
+            jt, jout = jrender_chunk(jp, jinit(H, W), jnp.asarray(frames), jnp.asarray(depths))
+    else:
+        jt, jout = jax.jit(lambda t, f, d: jrender_chunk(jp, t, f, d))(
+            jinit(H, W), jnp.asarray(frames), jnp.asarray(depths))
+    tt, tout = render_chunk(tp, tinit(H, W, "cpu"), torch.from_numpy(frames),
+                            torch.from_numpy(depths))
+    _check_trackers(config, jt, tt, "chunk end")
+    assert tout.left.shape == (T_DOF, H, width, 3)
+    for name in ("left", "right", "focal_depth"):
+        a = np.asarray(getattr(jout, name), np.float32)
+        b = getattr(tout, name).float().numpy()
+        if name == "focal_depth":
+            np.testing.assert_allclose(b, a, atol=1e-6 if config == "parity" else 1e-4)
+            continue
+        for i in range(T_DOF):
+            _check_eye(config, a[i], b[i], (i, name), max_steps=4)
 
 
 def test_render_chunk_carries_trackers():
@@ -130,6 +181,13 @@ def test_render_chunk_carries_trackers():
 
 
 def test_unported_dof_raises():
-    with pytest.raises(NotImplementedError):
-        stereo_frame_step(TParams(dof_strength=1.0), tinit(8, 8, "cpu"),
-                          torch.zeros(8, 8, 3), torch.zeros(8, 8))
+    """Depth of field is ported: the step runs it on the CPU. What still
+    raises is asking for the kernel with CPU tensors, or a blur reach past
+    the kernel's halo (dof_strength > 5)."""
+    frame, depth = torch.rand(8, 8, 3), torch.rand(8, 8)
+    _, out = stereo_frame_step(TParams(dof_strength=1.0), tinit(8, 8, "cpu"), frame, depth)
+    assert out.left.shape == (8, 8, 3)
+    for dof_strength in (1.0, 5.5):
+        with pytest.raises(ValueError):
+            stereo_frame_step(TParams(dof_strength=dof_strength, dof_backend="cuda"),
+                              tinit(8, 8, "cpu"), frame, depth)

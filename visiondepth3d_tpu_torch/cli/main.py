@@ -1,15 +1,21 @@
-"""vd3d-torch command line: the ``render`` and ``tools`` subcommands of ``vd3d``.
+"""vd3d-torch command line: the ``render``, ``depth`` and ``tools``
+subcommands of ``vd3d``.
 
     vd3d-torch render --input clip.y4m --model depth-anything-v2-small \\
         --checkpoint model.safetensors --format Full-SBS --device cuda
+    vd3d-torch render --input clip.y4m --allow-random --dof_strength 2
+    vd3d-torch depth --input clip.y4m --checkpoint model.safetensors \\
+        --dtype bfloat16 --batch-size 8 [--tiled] [--bits 16]
     vd3d-torch tools --input clip.y4m --esrgan --esrgan-weights x4.onnx \\
         --rife --rife-weights rife.onnx --dtype bfloat16
-    python -m visiondepth3d_tpu_torch render|tools ...
+    python -m visiondepth3d_tpu_torch render|depth|tools ...
 
 The flags keep the JAX CLI's names and meaning, plus ``--device`` (default
 cuda; a missing card is an error, not a CPU fallback). Flags of features
 not ported yet (--mesh other than off, --skip-blank-frames,
---auto-crop-black-bars, tools --control) raise NotImplementedError.
+--auto-crop-black-bars; depth --mesh other than auto/off, the diffusion
+and video-depth models; depth and tools --control) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -74,8 +80,65 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default="off", help="only 'off' is ported")
     p.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
     _add_param_flags(p)
+    _add_depth_parser(sub)
     _add_tools_parser(sub)
     return ap
+
+
+def _depth_size(spec):
+    """--inference-size of ``depth``: "original" is the source resolution."""
+    from ..depth.registry import parse_inference_size
+
+    return None if str(spec).strip().lower() == "original" else parse_inference_size(spec)
+
+
+def _add_depth_parser(sub):
+    dp = sub.add_parser("depth", help="estimate a depth video from a 2D video")
+    dp.add_argument("--input", required=True)
+    dp.add_argument("--output", default=None)
+    dp.add_argument("--control", default=None, metavar="FILE",
+                    help="suspend/resume/cancel control file (not ported yet)")
+    dp.add_argument("--model", default="depth-anything-v2-small")
+    dp.add_argument("--inference-size", type=_depth_size, default=518, metavar="N|WxH|NAME",
+                    help="square int, WxH, a named preset, or 'original' for the source "
+                         "resolution; snapped to the patch multiple")
+    dp.add_argument("--batch-size", type=int, default=8)
+    dp.add_argument("--invert", action="store_true")
+    dp.add_argument("--bits", type=int, default=8, choices=[8, 16])
+    dp.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    dp.add_argument("--checkpoint", default=None, help="HF .safetensors weights for --model")
+    dp.add_argument("--steps", type=int, default=2, help="diffusion denoise steps (not ported)")
+    dp.add_argument("--window", type=int, default=24,
+                    help="DepthCrafter sliding-window size (not ported)")
+    dp.add_argument("--overlap", type=int, default=6)
+    dp.add_argument("--target-fps", type=float, default=15.0,
+                    help="stride long clips down to this rate (DepthCrafter; not ported)")
+    dp.add_argument("--track-letterbox", action="store_true",
+                    help="detect and crop black bars, reinsert them in the output depth")
+    dp.add_argument("--allow-random-weights", action="store_true",
+                    help="run without --checkpoint (random weights; shape and speed testing "
+                         "only)")
+    dp.add_argument("--tiled", action="store_true",
+                    help="Hann-blended tiled inference: resize to --inference-size, then run "
+                         "overlapping --tile-size model tiles")
+    dp.add_argument("--tile-size", type=int, default=518)
+    dp.add_argument("--exact-head", action="store_true",
+                    help="the transformers head op order instead of the fast head")
+    dp.add_argument("--tile-overlap", type=int, default=64)
+    dp.add_argument("--mesh", default="auto", help="'auto' or 'off' (one device)")
+    dp.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
+
+
+def cmd_depth(args) -> int:
+    from ..pipeline.depth_pipeline import render_depth_video
+
+    if args.control:
+        raise NotImplementedError("vd3d-torch depth --control is not ported yet")
+    if args.checkpoint is None and not args.allow_random_weights:
+        print("vd3d-torch depth needs --checkpoint (or --allow-random-weights for testing)",
+              file=sys.stderr)
+        return 2
+    return render_depth_video(args)
 
 
 def _add_tools_parser(sub):
@@ -200,7 +263,7 @@ def cmd_tools(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return cmd_tools(args) if args.cmd == "tools" else cmd_render(args)
+    return {"render": cmd_render, "depth": cmd_depth, "tools": cmd_tools}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ follow the HF ``Dinov2Backbone`` inside ``DepthAnythingForDepthEstimation``
 (``backbone.embeddings.*``, ``backbone.encoder.layer.{i}.*``,
 ``backbone.layernorm.*``), so an HF state dict loads directly. Position
 embeddings are re-gridded bicubically (align_corners=False) with the
-matrices of ``ops/resize.py``. Attention is
-``F.scaled_dot_product_attention``.
+matrices of ``ops/resize.py``. Attention goes through
+``ops/attention.py:multi_head_attention`` on BNHD views of the projections
+(SDPA by default; K7 under its ``USE_VMEM_KERNEL`` opt-in).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import multi_head_attention
 from ..ops.resize import resize_bicubic
 from .configs import ViTConfig
 
@@ -81,12 +83,11 @@ class Attention(nn.Module):
         b, n, c = x.shape
         a = self.attention
 
-        def heads(t):
-            return t.reshape(b, n, self.num_heads, c // self.num_heads).transpose(1, 2)
+        def heads(t):  # [B, N, H * D] is already BNHD
+            return t.reshape(b, n, self.num_heads, c // self.num_heads)
 
-        out = F.scaled_dot_product_attention(heads(a.query(x)), heads(a.key(x)),
-                                             heads(a.value(x)))
-        return self.output.dense(out.transpose(1, 2).reshape(b, n, c))
+        out = multi_head_attention(heads(a.query(x)), heads(a.key(x)), heads(a.value(x)))
+        return self.output.dense(out.reshape(b, n, c))
 
 
 class LayerScale(nn.Module):

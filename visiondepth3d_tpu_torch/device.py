@@ -4,6 +4,7 @@ fall back to the CPU."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -17,3 +18,12 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+def host_to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``: through pinned memory and an asynchronous
+    copy for a CUDA device (the copy overlaps the host's next work)."""
+    t = torch.from_numpy(arr)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t

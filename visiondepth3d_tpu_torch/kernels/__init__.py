@@ -1,13 +1,15 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version.
 
-| wrapper                        | source          | replaces (TPU kernel)                     |
-| ------------------------------ | --------------- | ----------------------------------------- |
-| ``warp.stereo_warp``           | csrc/warp.cu    | ops/pallas_warp.py:_warp_kernel           |
-| ``postfx.feather_heal``        | csrc/postfx.cu  | ops/pallas_postfx.py:_postfx_kernel       |
-| ``stats.quantile_pair``        | csrc/stats.cu   | ops/pallas_stats.py:_qpair_kernel         |
-| ``stats.subject_stats``        | csrc/stats.cu   | ops/pallas_stats.py:_subject_kernel       |
-| ``conv.conv3x3``               | csrc/conv.cu    | ops/pallas_conv.py:_conv3_kernel          |
+| wrapper                      | source            | replaces (TPU kernel, ops/...)       |
+| ---------------------------- | ----------------- | ------------------------------------ |
+| ``warp.stereo_warp``         | csrc/warp.cu      | pallas_warp.py:stereo_warp_pallas    |
+| ``postfx.feather_heal``      | csrc/postfx.cu    | pallas_postfx.py:feather_heal_pallas |
+| ``stats.quantile_pair``      | csrc/stats.cu     | pallas_stats.py:quantile_pair_pallas |
+| ``stats.subject_stats``      | csrc/stats.cu     | pallas_stats.py:subject_stats_pallas |
+| ``conv.conv3x3``             | csrc/conv.cu      | pallas_conv.py:conv3x3_pallas        |
+| ``dof.dof_grade``            | csrc/dof.cu       | pallas_dof.py:dof_grade_pallas       |
+| ``attention.vmem_attention`` | csrc/attention.cu | pallas_attention.py:vmem_attention   |
 
 Each dispatcher sends a CUDA tensor to the kernel and a CPU tensor to the
 plain version (``*_torch``); there is no fallback from a failed build or

@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats", "conv3x3")
+KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats", "conv3x3",
+           "dof_grade", "vmem_attention")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
@@ -90,6 +91,8 @@ def _declare(L: ctypes.CDLL) -> ctypes.CDLL:
         "vd3d_quantile_pair": [p, i, i, ll, f, f, p, p, p],
         "vd3d_subject_stats": [p, i, i, ll, p, p, p, p, p],
         "vd3d_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, p],
+        "vd3d_dof_grade": [p, p, p, p, p, p, i, i, p, p, i, f, f, f, f, f, i, i, p],
+        "vd3d_attention": [p, p, p, p, i, i, i, i, f, i, p],
     }
     for name, args in sigs.items():
         fn = getattr(L, name)

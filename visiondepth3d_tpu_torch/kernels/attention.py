@@ -1,0 +1,67 @@
+"""K7: single-call self-attention over BNHD tensors (``csrc/attention.cu``)
+and its plain version.
+
+``vmem_attention`` dispatches on the tensors' device: a CUDA tensor
+launches the kernel, a CPU tensor runs ``vmem_attention_torch``. Both keep
+the TPU kernel's numerics (``ops/pallas_attention.py:vmem_attention``):
+float32 logits and softmax statistics, the normalized probabilities
+rounded to the input type, P V accumulated in float32, one rounding of the
+output. q, k, v: [B, N, H, D] float32 or bfloat16, self-attention
+(one N for all three).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ._lib import check, launch_counts, lib, require_cuda, stream_of
+
+HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+
+
+def vmem_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version: f32 logits, f32 softmax, p in the input type, P V in f32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = (e / torch.sum(e, dim=-1, keepdim=True)).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
+
+
+def vmem_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernel: q, k, v [B, N, H, D] of one type (float32 or bfloat16) on
+    one CUDA device, D in HEAD_DIMS. Returns [B, N, H, D] in that type."""
+    require_cuda("vmem_attention_cuda", q, k, v)
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"vmem_attention_cuda: expected equal [B, N, H, D] self-attention "
+                         f"inputs, got {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError("vmem_attention_cuda: q, k, v must share float32 or bfloat16")
+    b, n, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"vmem_attention_cuda: head dim {d} not in {HEAD_DIMS}")
+    if b > 65535 or h > 65535:
+        raise ValueError("vmem_attention_cuda: more than 65535 batches or heads")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("vmem_attention_cuda: inputs must be 16-byte aligned")
+    out = torch.empty_like(q)
+    rc = lib().vd3d_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
+                              h, d, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+                              stream_of(q))
+    check(rc, "vmem_attention_cuda")
+    launch_counts["vmem_attention"] += 1
+    return out
+
+
+def vmem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q.device.type == "cuda":
+        return vmem_attention_cuda(q, k, v)
+    if q.device.type == "cpu":
+        return vmem_attention_torch(q, k, v)
+    raise ValueError(f"vmem_attention: unsupported device {q.device}")

@@ -1,8 +1,10 @@
-"""Small stencil filters: box blur, sharpening, forward-difference gradients.
+"""Small stencil filters: box blur, Gaussian blur, sharpening, gradients.
 
 Counterpart of ``visiondepth3d_tpu/ops/filters.py``:
 - ``box_blur``: k x k mean, stride 1, zero padding counted in the mean
   (``F.avg_pool2d(count_include_pad=True)`` semantics);
+- ``gaussian_blur``: separable, torchvision-style weights, reflect padding
+  (no edge repeat), rows first then columns;
 - ``sharpen``: the brightness-preserving 3x3 cross kernel with a
   reflect-101 border, clamped to [0, 1];
 - ``forward_diff_grad``: left/top zero-padded forward differences.
@@ -10,6 +12,9 @@ Counterpart of ``visiondepth3d_tpu/ops/filters.py``:
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,6 +40,49 @@ def box_blur(x: torch.Tensor, ksize: int) -> torch.Tensor:
     for o in range(1, ksize):
         acc = acc + xp[..., o:o + w]
     return (acc / float(ksize * ksize)).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
+    """torchvision's 1-D Gaussian: exp(-(x/sigma)^2/2) on the ksize taps
+    centred at 0, normalized, as float32."""
+    lim = (ksize - 1) / 2.0
+    x = np.linspace(-lim, lim, ksize)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def _reflect_index(n: int, pad: int, device=None) -> torch.Tensor:
+    """Source indices of an axis of length n padded by ``pad`` on both
+    sides with reflection about the edge samples (index -1 reads 1), as
+    ``jnp.pad(mode="reflect")``; pads wider than the axis reflect again."""
+    i = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    i = torch.remainder(i, period)
+    return torch.where(i >= n, period - i, i)
+
+
+def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur of [H, W] or [H, W, C] with reflect padding,
+    rows first. Sums in float32, returns x's dtype (one rounding)."""
+    if sigma <= 0.0 or ksize <= 1:
+        return x
+    k = _gaussian_kernel_1d(ksize, float(sigma)).tolist()
+    pad = ksize // 2
+    dt = x.dtype
+    xf = x.float() if x.ndim == 3 else x.float()[..., None]  # [H, W, C]
+    h, w = xf.shape[:2]
+    xp = xf.index_select(0, _reflect_index(h, pad, x.device))
+    acc = xp[0:h] * k[0]
+    for t in range(1, ksize):
+        acc = acc + xp[t:t + h] * k[t]
+    xp = acc.index_select(1, _reflect_index(w, pad, x.device))
+    out = xp[:, 0:w] * k[0]
+    for t in range(1, ksize):
+        out = out + xp[:, t:t + w] * k[t]
+    return (out if x.ndim == 3 else out[..., 0]).to(dt)
 
 
 def sharpen(x: torch.Tensor, factor: float) -> torch.Tensor:

@@ -22,7 +22,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import host_to_device, resolve_device
 from ..io import Y4MPlaneReader, open_depth_reader, open_video, open_writer
 from ..ops import formats as fmt_ops
 from ..ops.convert import (float_to_u8_round, float_to_u8_trunc, rgb_u8_to_yuv420,
@@ -62,8 +62,6 @@ def _check_ported(params: StereoParams, cfg: RenderConfig):
     for name, asked in unported.items():
         if asked:
             raise NotImplementedError(f"RenderConfig.{name} is not ported yet")
-    if params.dof_strength > 0.0:
-        raise NotImplementedError("depth of field (dof_strength > 0) is not ported yet")
     if cfg.output_format not in fmt_ops.FORMATS:
         raise NotImplementedError(
             f"output format {cfg.output_format!r} is not ported yet; use {fmt_ops.FORMATS}")
@@ -132,13 +130,6 @@ class RenderProgress:
         if not self.total_frames or self.fps <= 0:
             return None
         return (self.total_frames - self.frames_done) / self.fps
-
-
-def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(arr)
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
 
 
 def render_stereo_video(input_path, depth_path, output_path,
@@ -221,16 +212,16 @@ def render_stereo_video(input_path, depth_path, output_path,
             frames += [frames[-1]] * (cfg.chunk_size - n)  # static chunk shape
             depths += [depths[-1]] * (cfg.chunk_size - n)
             if yuv_in:
-                frames_in = tuple(_to_device(np.stack([f[i] for f in frames]), dev)
+                frames_in = tuple(host_to_device(np.stack([f[i] for f in frames]), dev)
                                   for i in range(3))
             else:
-                frames_in = _to_device(np.stack(frames), dev)
+                frames_in = host_to_device(np.stack(frames), dev)
             with torch.inference_mode():
                 if dd is None:
                     trackers, out_u8 = chunk_fn(trackers, frames_in)
                 else:
                     db = np.clip(np.stack(depths) * 65535.0 + 0.5, 0, 65535).astype(np.uint16)
-                    trackers, out_u8 = chunk_fn(trackers, frames_in, _to_device(db, dev))
+                    trackers, out_u8 = chunk_fn(trackers, frames_in, host_to_device(db, dev))
                 if yuv_out:
                     planes = rgb_u8_to_yuv420(out_u8)
                     out_u8 = torch.cat([p.reshape(p.shape[0], -1) for p in planes], dim=1)

@@ -8,7 +8,10 @@ the port's values:
   version for CPU tensors), "cuda" (the kernel; CUDA tensors only),
   "torch" (the plain shifted accumulation, or the gather without a bound),
   "gather" (the plain gather);
-- ``postfx_backend``: "auto", "cuda" or "torch", the same way.
+- ``postfx_backend``: "auto", "cuda" or "torch", the same way;
+- ``dof_backend``: "auto" (the fused depth of field + grade kernel for CUDA
+  tensors, the plain ``apply_dof`` per eye then the grade for CPU
+  tensors), "cuda" (the kernel) or "torch" (the plain ops).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 
 WARP_BACKENDS = ("auto", "cuda", "torch", "gather")
 POSTFX_BACKENDS = ("auto", "cuda", "torch")
+DOF_BACKENDS = ("auto", "cuda", "torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +55,7 @@ class StereoParams:
     max_shift_px_bound: int | None = None
     warp_backend: str = "auto"
     postfx_backend: str = "auto"
+    dof_backend: str = "auto"
     blur_ksize: int = 9
     dof_strength: float = 0.0
     use_subject_tracking: bool = True
@@ -75,6 +80,8 @@ class StereoParams:
         if self.postfx_backend not in POSTFX_BACKENDS:
             raise ValueError(
                 f"postfx_backend {self.postfx_backend!r} not in {POSTFX_BACKENDS}")
+        if self.dof_backend not in DOF_BACKENDS:
+            raise ValueError(f"dof_backend {self.dof_backend!r} not in {DOF_BACKENDS}")
         if self.quantile_mode not in ("hist", "exact"):
             raise ValueError(f"quantile_mode {self.quantile_mode!r}")
         if self.image_dtype not in ("float32", "bfloat16"):

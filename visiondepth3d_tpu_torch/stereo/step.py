@@ -3,10 +3,11 @@
 Counterpart of ``visiondepth3d_tpu/stereo/step.py``. Stage order: temporal
 smooth, percentile-EMA normalization, shift smoother and dynamic parallax,
 curvature, subject estimate, Pop-Control shaping, shift map with edge-mask
-suppression, dual-eye warp, feather + heal, color grade, floating-window
-bars, sharpen. ``render_chunk`` runs the step frame by frame over a chunk,
-carrying the trackers (a Python loop in place of ``lax.scan``); nothing in
-the loop reads a device value on the host.
+suppression, dual-eye warp, feather + heal, focal tracking and depth of
+field, color grade, floating-window bars, sharpen. ``render_chunk`` runs
+the step frame by frame over a chunk, carrying the trackers (a Python loop
+in place of ``lax.scan``); nothing in the loop reads a device value on the
+host.
 """
 
 from __future__ import annotations
@@ -15,9 +16,10 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import dof as kdof
 from ..kernels import postfx as kpostfx
 from ..kernels import warp as kwarp
-from ..ops import convert, edges, filters, formats, grade, subject
+from ..ops import convert, dof, edges, filters, formats, grade, subject
 from ..ops.depth_shaping import enhance_curvature, shape_depth_for_pop
 from ..ops.resize import resize_bilinear
 from ..state import trackers as trk
@@ -103,6 +105,21 @@ def _dispatch_postfx(p: StereoParams, left, right, frame_i, dleft, dright):
     return fn(left, right, frame_i, dleft, dright, **kw)
 
 
+def _dispatch_dof(p: StereoParams, left, right, depth_w, focal):
+    """Depth of field on both eyes. Returns (left, right, graded): the
+    kernel applies the color grade too, the plain ops leave it to the
+    caller. "auto" runs the kernel for CUDA tensors."""
+    if p.dof_backend == "cuda" or (p.dof_backend == "auto" and left.device.type == "cuda"):
+        left, right = kdof.dof_grade_cuda(
+            left, right, depth_w, focal, p.dof_strength, p.dof_focus_width, p.dof_levels,
+            saturation=p.color_saturation, contrast=p.color_contrast,
+            brightness=p.color_brightness)
+        return left, right, True
+    left, right = (dof.apply_dof(eye, depth_w, focal, p.dof_strength, p.dof_focus_width,
+                                 p.dof_levels) for eye in (left, right))
+    return left, right, False
+
+
 def pixel_shift(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
                 depth: torch.Tensor, fg, mg, bg):
     """The DIBR core. frame: [H, W, 3], depth: [H, W].
@@ -134,8 +151,6 @@ def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tenso
                       depth01: torch.Tensor):
     """One frame through the stereo stage. frame: [H, W, 3] float RGB in
     [0, 1]; depth01: [H, W] in [0, 1]. Returns (trackers, StereoFrameOut)."""
-    if p.dof_strength > 0.0:
-        raise NotImplementedError("depth of field (dof_strength > 0) is not ported yet")
     t_in = t
 
     t, depth_s = trk.temporal_depth_smooth(t, depth01, alpha=0.5)
@@ -156,11 +171,18 @@ def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tenso
     motion = torch.where(t.initialized,
                          subject.motion_metric(t_in.prev_norm_depth, depth_n), 0.0)
     t, focal = trk.focal_tracker_update(t, candidate_focal, motion)
+    graded = False
+    if p.dof_strength > 0.0:
+        # DOF reads the normalized depth at the warp size (Half-SBS warps
+        # at another width than the eye)
+        depth_w = resize_bilinear(depth_n, tuple(left.shape[:2]))
+        left, right, graded = _dispatch_dof(p, left, right, depth_w, focal)
 
-    left = grade.apply_color_grade(left, p.color_saturation, p.color_contrast,
-                                   p.color_brightness)
-    right = grade.apply_color_grade(right, p.color_saturation, p.color_contrast,
-                                    p.color_brightness)
+    if not graded:
+        left = grade.apply_color_grade(left, p.color_saturation, p.color_contrast,
+                                       p.color_brightness)
+        right = grade.apply_color_grade(right, p.color_saturation, p.color_contrast,
+                                        p.color_brightness)
     left = _maybe_quantize(left, p)
     right = _maybe_quantize(right, p)
 
