@@ -14,7 +14,9 @@ Phases, each printed on its own line; any failure exits nonzero:
      with CUDA-event times of both, of the library call where one computes
      the same function, and the kernel's bound: K1-K4 at the shapes of the
      1080p render (1080x1920 frames, 648x1152 subject crop), K5 (the 3x3
-     conv) in f32 and bf16 at five shapes of the frame-tools path, K6 (DOF +
+     conv) in f32 and bf16 at five shapes of the frame-tools path and on
+     the dense block's strided views (input a channel slice of the
+     192-channel buffer, output written into a slice of it), K6 (DOF +
      grade) at 1080p, both eyes, dof_strength 2 and 5, K7 (attention) at
      the depth model's shapes [16|8|2, 1370, 6, 64] and a padded
      [2, 270, 3, 64];
@@ -36,7 +38,8 @@ Phases, each printed on its own line; any failure exits nonzero:
      through run_merged_pipeline with Real-ESRGAN x4plus and practical-RIFE
      v4.x at full width (random weights from a seed), bf16, chunks of 4, two
      timed runs with K5's launches counted, then one run and each layer of
-     one chunk under torch.profiler;
+     one chunk under torch.profiler, with the device time in concatenation
+     kernels (none in the ESRGAN trunk);
   8. (parity) kernels against plain versions over whole paths, on the CPU
      (plain versions) and on the card: a 256x144 render without and with
      depth of field, the depth route with the attention opt-in, and a 128x72
@@ -124,8 +127,8 @@ def card_line() -> str:
 
 
 HAND_KERNELS = ("stereo_warp_kernel", "feather_heal_kernel", "hist_kernel",
-                "qpair_replay_kernel", "subject_replay_kernel", "conv3x3_wmma_kernel",
-                "conv3x3_fma_kernel", "dof_grade_kernel", "attention_wmma_kernel",
+                "qpair_replay_kernel", "subject_replay_kernel", "conv3x3_wgmma_kernel",
+                "conv3x3_fma_kernel", "dof_grade_kernel", "attention_wgmma_kernel",
                 "attention_fma_kernel")
 
 _PREDICTORS: dict = {}
@@ -155,8 +158,9 @@ def device_profile(fn) -> dict | None:
     """Run fn() once under torch.profiler and read the card's own time.
 
     Returns, in ms, the summed duration of every device event (kernels,
-    memsets, copies), the part spent in this package's hand-written kernels,
-    and the union of the device intervals (the time the card was busy);
+    memsets, copies), the part spent in this package's hand-written kernels
+    and the part in concatenation kernels (names with "Cat"), and the union
+    of the device intervals (the time the card was busy);
     None when the trace holds no device event. The profiler slows the host
     but not the device, so the busy share is the union over the wall time of
     the same call made without the profiler.
@@ -182,6 +186,7 @@ def device_profile(fn) -> dict | None:
     busy += cur_e - cur_s
     return {"device_ms": sum(e - s for s, e, _ in ivs) / 1e3,
             "hand_ms": sum(e - s for s, e, n in ivs if any(k in n for k in HAND_KERNELS)) / 1e3,
+            "cat_ms": sum(e - s for s, e, n in ivs if "Cat" in n) / 1e3,
             "events": len(ivs), "busy_ms": busy / 1e3}
 
 
@@ -193,6 +198,10 @@ def fmt_profile(p: dict | None, wall_ms: float) -> str:
     return (f"device {p['device_ms']:.3f} ms in {p['events']} events "
             f"(hand kernels {p['hand_ms']:.3f} ms), busy {p['busy_ms']:.3f} ms of "
             f"{wall_ms:.3f} ms wall = {100 * p['busy_ms'] / wall_ms:.1f} % busy")
+
+
+def fmt_cat(p: dict | None) -> str:
+    return "" if p is None else f"; concatenation kernels {p['cat_ms']:.3f} ms"
 
 
 def time_ms(fn, warmup: int = 3, runs: int = 21) -> float:
@@ -569,8 +578,66 @@ def phase_conv_kernel(card: str, results: dict):
             say(f"PHASE kernels conv3x3 {dt} five shapes: kernel {tot['ms']:.4f} ms plain "
                 f"{tot['plain']:.4f} ms library {tot['library']:.4f} ms bound {bound_ms:.4f} ms "
                 f"({bound_by}) [{card}]")
+            conv_dense_block_views(card, dt, gen)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+def conv_dense_block_views(card: str, dt, gen):
+    """K5 on the views the dense block gives it: conv k reads the first 64 +
+    32 (k - 1) channels of a 192-channel [1, 540, 960] buffer and writes its
+    32 channels right after them (conv5 reads all 192 into a new tensor),
+    against the plain version on the same views, with the gates of the
+    contiguous shapes; the channels it must not write are checked unchanged."""
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import conv
+
+    dev = torch.device("cuda")
+    buf = torch.randn(1, 540, 960, 192, generator=gen, device=dev).to(dt)
+    for k in range(1, 6):
+        c, o = 64 + 32 * (k - 1), (32 if k < 5 else 64)
+        act = "lrelu" if k < 5 else None
+        w = torch.randn(3, 3, c, o, generator=gen, device=dev) / (9 * c) ** 0.5
+        b = 0.1 * torch.randn(o, generator=gen, device=dev)
+        packed = conv.pack_conv3x3(w, b, dt)
+        ref = conv.conv3x3_torch(buf[..., :c], w, b, act)
+        if k < 5:
+            before = buf.clone()
+            out = buf[..., c:c + o]
+            conv.conv3x3_cuda(buf[..., :c], w, b, act, packed=packed, out=out)
+            torch.cuda.synchronize()
+            kept = bool(torch.equal(buf[..., :c], before[..., :c]) and
+                        torch.equal(buf[..., c + o:], before[..., c + o:]))
+            got = out.clone()
+            buf.copy_(before)
+            del before
+
+            def run():
+                conv.conv3x3_cuda(buf[..., :c], w, b, act, packed=packed, out=out)
+        else:
+            got, kept = conv.conv3x3_cuda(buf, w, b, act, packed=packed), True
+
+            def run():
+                conv.conv3x3_cuda(buf, w, b, act, packed=packed)
+        diff = (got.float() - ref.float()).abs()
+        scale = ref.float().abs().max().item()
+        err, mean = diff.max().item(), diff.mean().item()
+        ms = time_ms(run, warmup=2, runs=7)
+        if dt == torch.float32:
+            ok, gate = err <= 1e-4 * scale, f"need max <= 1e-4 * {scale:.3f}"
+        else:
+            ok = err <= 8e-3 * scale and mean <= 1e-3 * scale
+            gate = f"need max <= 8e-3 and mean <= 1e-3 of {scale:.3f}"
+        view = f"buf[..., :{c}] -> " + (f"buf[..., {c}:{c + o}]" if k < 5 else "new")
+        say(f"PHASE kernels conv3x3 dense block conv{k} {view} {act} {dt} max_abs_err={err:.3e} "
+            f"mean_abs_err={mean:.3e} ({gate}) other channels unchanged {kept} kernel {ms:.4f} "
+            f"ms [{card}]")
+        expect(ok and kept, f"conv3x3 dense block conv{k} {dt}: max |err| {err}, mean {mean}, "
+                            f"other channels unchanged {kept}")
+        del got, ref, diff, w, b, packed
+    del buf
+    torch.cuda.empty_cache()
 
 
 def write_clip(path, w, h, n, fps=24.0):
@@ -1013,7 +1080,7 @@ def phase_tools(card: str, tmp: Path) -> dict:
     prof = device_profile(lambda: run_merged_pipeline(clip, tmp / "tools_prof.y4m", cfg, ep,
                                                       rp, device=dev))
     say(f"PHASE tools profile (one more run under torch.profiler, against the faster "
-        f"run's wall): {fmt_profile(prof, 1e3 * min(walls))} [{card}]")
+        f"run's wall): {fmt_profile(prof, 1e3 * min(walls))}{fmt_cat(prof)} [{card}]")
 
     # the layers of one device-resident 5-frame chunk
     from visiondepth3d_tpu_torch.enhance.esrgan import RRDBNet
@@ -1040,8 +1107,12 @@ def phase_tools(card: str, tmp: Path) -> dict:
     }
     for name, f in layers.items():
         span = time_ms(f, warmup=1, runs=3)
+        prof = device_profile(f)
         say(f"PHASE tools layers {name} ({TOOLS_CHUNK + 1}-frame chunk, wall = host-gated "
-            f"span, median of 3): {fmt_profile(device_profile(f), span)} [{card}]")
+            f"span, median of 3): {fmt_profile(prof, span)}{fmt_cat(prof)} [{card}]")
+        if name == "esrgan trunk" and prof is not None:
+            expect(prof["cat_ms"] == 0.0,
+                   f"the ESRGAN trunk ran concatenation kernels ({prof['cat_ms']:.3f} ms)")
     return counts
 
 

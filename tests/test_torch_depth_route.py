@@ -74,6 +74,44 @@ def test_vmem_attention_plain_matches_pallas():
     assert np.abs(got_b.float().numpy() - want).max() < 1e-2
 
 
+def _one_pass_attention(q, k, v, tile=64):
+    """The bf16 K7 kernel's schedule in plain PyTorch: 64-key tiles, the
+    running row max and sum, the unnormalized probabilities rounded to bf16
+    before P V, one divide by the sum at the end, one rounding."""
+    b, n, h, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    m = torch.full((b, h, n, 1), -torch.inf)
+    l = torch.zeros(b, h, n, 1)
+    o = torch.zeros(b, h, n, d)
+    for k0 in range(0, n, tile):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + tile]) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.einsum("bhqk,bkhd->bhqd", p.to(q.dtype).float(),
+                                     vf[:, k0:k0 + tile])
+        m = m_new
+    return (o / l).permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 270, 3, 64), (1, 1370, 2, 64)])
+def test_one_pass_schedule_within_bf16_gate(shape):
+    """Rounding the unnormalized P (the bf16 kernel's rounding point) stays
+    within K7's bf16 gate (max 1.6e-2, mean 1e-3) of the plain version (the
+    TPU kernel's rounding point) and of jax.nn.dot_product_attention on the
+    same bf16 inputs."""
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(shape, seed=9))
+    got = _one_pass_attention(q, k, v).float()
+    plain = kattention.vmem_attention_torch(q, k, v).float()
+    ref = torch.from_numpy(np.asarray(jax.nn.dot_product_attention(
+        *(jnp.asarray(x.float().numpy()) for x in (q, k, v)))))
+    for want in (plain, ref):
+        err = (got - want).abs()
+        assert err.max().item() <= 1.6e-2 and err.mean().item() <= 1e-3
+
+
 def test_attention_dispatch_and_gate(monkeypatch):
     """SDPA by default; the opt-in takes self-attention with 512 <= N <=
     4096 and <= 8 heads to K7 (its plain version for CPU tensors)."""
@@ -260,7 +298,8 @@ def test_letterbox_copy_is_identical():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 270, 3, 64), (1, 600, 2, 16), (1, 130, 2, 128),
-                                   (2, 64, 1, 32)])
+                                   (2, 64, 1, 32), (2, 1370, 6, 64), (1, 1, 1, 64),
+                                   (1, 333, 3, 32), (1, 700, 2, 128), (3, 1370, 1, 16)])
 def test_cuda_vmem_attention_matches_plain(dtype, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")

@@ -134,6 +134,34 @@ def test_rrdbnet_matches_jax(style):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+def _rdb_concat(m, x):
+    """The dense block as written with concatenations (the JAX package's
+    form), on the port's convs."""
+    x1 = m.conv1(x)
+    x2 = m.conv2(torch.cat([x, x1], -1))
+    x3 = m.conv3(torch.cat([x, x1, x2], -1))
+    x4 = m.conv4(torch.cat([x, x1, x2, x3], -1))
+    return x + 0.2 * m.conv5(torch.cat([x, x1, x2, x3, x4], -1))
+
+
+@pytest.mark.parametrize("nf,gc", [(16, 8), (64, 32)])
+def test_buffered_dense_block_matches_jax_and_concat(nf, gc):
+    """The one-buffer ResidualDenseBlock equals the concat form bit for bit
+    and the JAX package's block (flax params through the converter)."""
+    x = np.random.default_rng(nf).random((1, 6, 10, nf), dtype=np.float32)
+    jm = jesr.ResidualDenseBlock(nf=nf, gc=gc)
+    params = _jax_params(jm, 3, x, jitter=0.02)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    sd = rrdbnet_from_jax_params({"body0": {"rdb1": _np(params)}})
+    tm = tesr.ResidualDenseBlock(nf, gc)
+    tm.load_state_dict({k.removeprefix("body.0.rdb1."): v for k, v in sd.items()})
+    with torch.no_grad():
+        got = tm(_t(x))
+        concat = _rdb_concat(tm, _t(x))
+    assert torch.equal(got, concat)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("res_prelu", [False, True])
 def test_ifnet_matches_jax(res_prelu):
     rng = np.random.default_rng(2)

@@ -311,6 +311,70 @@ def test_conv_dispatch_cpu_uses_plain():
         conv.conv3x3(_t(x), _t(k), _t(b), act="gelu")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_channel_slices_match_contiguous(dtype):
+    """An input that is a channel slice of a wider NHWC buffer, and an out=
+    that is another slice of it, give the contiguous form bit for bit and
+    leave the rest of the buffer alone."""
+    x, k, b = _conv_inputs(24, 8, seed=11)
+    buf = _t(np.random.default_rng(12).random((2, 16, 24, 40), dtype=np.float32), dtype)
+    buf[..., :24] = _t(x, dtype)
+    want = conv.conv3x3(buf[..., :24].contiguous(), _t(k), _t(b), "lrelu")
+    got = conv.conv3x3(buf[..., :24], _t(k), _t(b), "lrelu")
+    assert torch.equal(got, want)
+    before = buf.clone()
+    res = conv.conv3x3(buf[..., :24], _t(k), _t(b), "lrelu", out=buf[..., 30:38])
+    assert res.data_ptr() == buf[..., 30:38].data_ptr()
+    assert torch.equal(buf[..., 30:38], want)
+    assert torch.equal(buf[..., :30], before[..., :30])
+    assert torch.equal(buf[..., 38:], before[..., 38:])
+
+
+def test_conv_rejects_other_strides():
+    x, k, b = _conv_inputs(8, 4, seed=13)
+    tx = _t(x)
+    for bad in (tx.transpose(1, 2), tx[:, 1:], tx[:, :, 1:], tx[..., ::2]):
+        with pytest.raises(ValueError, match="channel slice"):
+            conv.conv3x3(bad, _t(k[:, :, :bad.shape[-1]]), _t(b))
+    out = torch.empty(2, 24, 16, 4).transpose(1, 2)
+    with pytest.raises(ValueError, match="channel slice"):
+        conv.conv3x3(tx, _t(k), _t(b), out=out)
+    with pytest.raises(ValueError, match="out must be"):
+        conv.conv3x3(tx, _t(k), _t(b), out=torch.empty(2, 16, 24, 5))
+    assert conv.is_channel_slice(torch.empty(1, 2, 3, 8)[..., 2:5])
+    assert not conv.is_channel_slice(torch.empty(2, 3, 8))
+
+
+def _unpack_bf16(p):
+    """The bf16 layout back to HWIO: undo the 16-byte group swizzle of each
+    64-byte row, then [block, chunk, 9, bn, 32] -> [9, Cp, Op]."""
+    nblk, nch, _, bn = p.w.shape[:4]
+    n = torch.arange(bn)[:, None]
+    w = p.w[:, :, :, n, torch.arange(4)[None, :] ^ ((n >> 1) & 3)]
+    w = w.reshape(nblk, nch, 9, bn, 32).permute(2, 1, 4, 0, 3).reshape(9, nch * 32, nblk * bn)
+    return w[:, :p.c, :p.o].reshape(3, 3, p.c, p.o), w
+
+
+@pytest.mark.parametrize("c,o", [(3, 64), (64, 32), (192, 64), (64, 3), (96, 96),
+                                 (192, 192), (48, 24)])
+def test_pack_conv3x3_layout_unpacks_to_hwio(c, o):
+    """pack_conv3x3's bf16 layout (what the wgmma kernel reads) holds every
+    weight once, zeros in the padding, and unpacks back to HWIO; the float32
+    layout is [9, Cp, Op]."""
+    _, k, b = _conv_inputs(c, o, seed=c + 7 * o)
+    p = conv.pack_conv3x3(_t(k), _t(b), torch.bfloat16)
+    assert p.bn == conv.block_n(o) and p.op % p.bn == 0 and p.cp % 32 == 0
+    assert p.w.shape == (p.op // p.bn, p.cp // 32, 9, p.bn, 4, 8)
+    hwio, padded = _unpack_bf16(p)
+    assert torch.equal(hwio, _t(k).to(torch.bfloat16))
+    assert int((padded != 0).sum()) == int((hwio != 0).sum())
+    assert torch.equal(p.bias[:o], _t(b).to(torch.bfloat16).float())
+    assert not p.bias[o:].any()
+    p32 = conv.pack_conv3x3(_t(k), _t(b), torch.float32)
+    assert p32.bn == 0 and p32.w.shape == (9, p32.cp, p32.op)
+    assert torch.equal(p32.w[:, :c, :o].reshape(3, 3, c, o), _t(k))
+
+
 # ------------------------------------------------------- CUDA: kernel vs plain
 
 @pytest.mark.cuda
@@ -355,14 +419,50 @@ def test_cuda_stats_match_plain(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,o,act", [(3, 64, None), (64, 32, "lrelu"), (192, 64, None),
-                                     (64, 3, None), (12, 16, "relu")])
+                                     (64, 3, None), (12, 16, "relu"), (36, 16, "lrelu"),
+                                     (96, 96, None), (192, 192, "lrelu")])
 def test_cuda_conv_matches_plain(cuda, dtype, c, o, act):
-    """Ragged tiles (13 x 37 is no multiple of the 8 x 32 tile), channel
-    counts that are no multiple of 16, and every activation."""
+    """Ragged tiles (13 x 37 is no multiple of the 8 x 32 or 4 x 32 tile),
+    channel counts that are no multiple of 16 (C = 3, 12, 36: pixel strides
+    TMA cannot take, one and two chunks), several blocks of output
+    channels (96, 192), and every activation."""
     x, k, b = _conv_inputs(c, o, seed=c + o, shape=(2, 13, 37))
     x, k, b = _t(x, dtype).to(cuda), _t(k).to(cuda), _t(b).to(cuda)
     got = conv.conv3x3(x, k, b, act)
     ref = conv.conv3x3_torch(x, k, b, act)
+    scale = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert err.max().item() <= 8e-3 * scale and err.mean().item() <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_cuda_conv_on_dense_block_slices(cuda, dtype, k):
+    """Conv k of a dense block (nf 64, gc 32): the input a slice of the
+    192-channel buffer, the output written into the next 32 channels
+    (conv5 reads all 192 into a new tensor), against the plain version on
+    the same views."""
+    c = 64 + 32 * (k - 1)
+    o = 32 if k < 5 else 64
+    x, w, b = _conv_inputs(c, o, seed=40 + k, shape=(2, 13, 37))
+    buf = _t(np.random.default_rng(k).random((2, 13, 37, 192), dtype=np.float32), dtype)
+    buf[..., :c] = _t(x, dtype)
+    buf = buf.to(cuda)
+    w, b = _t(w).to(cuda), _t(b).to(cuda)
+    act = "lrelu" if k < 5 else None
+    ref = conv.conv3x3_torch(buf[..., :c], w, b, act)
+    if k < 5:
+        before = buf.clone()
+        conv.conv3x3(buf[..., :c], w, b, act, out=buf[..., c:c + o])
+        got = buf[..., c:c + o]
+        assert torch.equal(buf[..., :c], before[..., :c])
+        assert torch.equal(buf[..., c + o:], before[..., c + o:])
+    else:
+        got = conv.conv3x3(buf, w, b, act)
     scale = ref.float().abs().max().item()
     err = (got.float() - ref.float()).abs()
     if dtype == torch.float32:

@@ -11,7 +11,9 @@ names (``conv_first``, ``body.N.rdbM.convK``, ``conv_body``, ``conv_up1``,
 canonicalised by ``convert_esrgan`` loads with ``load_state_dict``.
 
 Every 3x3 conv is ``Conv3x3``: on a CUDA tensor it always runs the hand
-kernel K5 (``kernels/conv.py``), on a CPU tensor its plain version.
+kernel K5 (``kernels/conv.py``), on a CPU tensor its plain version. The
+dense blocks concatenate nothing: each works in one buffer that its convs
+read channel slices of and write their outputs into.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.conv import PackedConv, conv3x3, pack_conv3x3
+from ..kernels.conv import PackedConv, conv3x3, is_channel_slice, pack_conv3x3
 
 
 class Conv3x3(nn.Module):
@@ -50,29 +52,39 @@ class Conv3x3(nn.Module):
         self._packed = None
         super()._load_from_state_dict(*args, **kwargs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+        """x: [B, H, W, C] (read in place when it is a channel slice, else
+        copied to contiguous memory); ``out``: a channel slice to write into,
+        as ``kernels.conv.conv3x3`` takes it."""
+        if not is_channel_slice(x):
+            x = x.contiguous()
         packed = self._pack(x.dtype) if x.device.type == "cuda" else None
-        return conv3x3(x, self.weight.permute(2, 3, 1, 0), self.bias, self.act, packed=packed)
-
-
-def _cat(*xs):
-    return torch.cat(xs, dim=-1)
+        return conv3x3(x, self.weight.permute(2, 3, 1, 0), self.bias, self.act, packed=packed,
+                       out=out)
 
 
 class ResidualDenseBlock(nn.Module):
+    """Five convs, each on the concatenation of the block input and every
+    earlier output. The concatenation is one [B, H, W, nf + 4 gc] buffer:
+    x fills channels [0, nf), conv k (1-4) reads the first nf + (k - 1) gc
+    channels and writes its gc channels right after them, conv5 reads all
+    of it."""
+
     def __init__(self, nf: int = 64, gc: int = 32):
         super().__init__()
+        self.nf, self.gc = nf, gc
         for k in range(1, 6):
             setattr(self, f"conv{k}", Conv3x3(nf + (k - 1) * gc, gc if k < 5 else nf,
                                               act="lrelu" if k < 5 else None))
 
     def forward(self, x):
-        x1 = self.conv1(x)
-        x2 = self.conv2(_cat(x, x1))
-        x3 = self.conv3(_cat(x, x1, x2))
-        x4 = self.conv4(_cat(x, x1, x2, x3))
-        x5 = self.conv5(_cat(x, x1, x2, x3, x4))
-        return x + 0.2 * x5
+        nf, gc = self.nf, self.gc
+        buf = x.new_empty(*x.shape[:3], nf + 4 * gc)
+        buf[..., :nf] = x
+        for k in range(1, 5):
+            c = nf + (k - 1) * gc
+            getattr(self, f"conv{k}")(buf[..., :c], out=buf[..., c:c + gc])
+        return x + 0.2 * self.conv5(buf)
 
 
 class RRDB(nn.Module):

@@ -90,7 +90,7 @@ def _declare(L: ctypes.CDLL) -> ctypes.CDLL:
         "vd3d_feather_heal": [p, p, p, p, p, p, p, i, i, i, f, f, f, i, i, i, p],
         "vd3d_quantile_pair": [p, i, i, ll, f, f, p, p, p],
         "vd3d_subject_stats": [p, i, i, ll, p, p, p, p, p],
-        "vd3d_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, p],
+        "vd3d_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, i, p],
         "vd3d_dof_grade": [p, p, p, p, p, p, i, i, p, p, i, f, f, f, f, f, i, i, p],
         "vd3d_attention": [p, p, p, p, i, i, i, i, f, i, p],
     }
