@@ -11,15 +11,22 @@ Phases, each printed on its own line; any failure exits nonzero:
   2. (build) build the hand-written kernels from
      visiondepth3d_tpu_torch/kernels/csrc;
   3. (kernels) each kernel against its plain PyTorch version on the card,
-     with CUDA-event times of both, of the library call where one computes
-     the same function, and the kernel's bound: K1-K4 at the shapes of the
-     1080p render (1080x1920 frames, 648x1152 subject crop), K5 (the 3x3
+     with times of both, of the library call where one computes the same
+     function, and the kernel's bound. A kernel's time is `runs` back-to-
+     back launches captured in one CUDA graph and replayed between one
+     CUDA-event pair, over `runs`; beside it the host loop of the same
+     launches (the host launching each), one call's device operations
+     counted from a CUDA-graph capture (the count the gates read), and its
+     device time from torch.profiler where the profiler sees the card.
+     Library calls are timed by graph replay too, plain versions by the
+     host loop. An empty kernel timed both ways is the launch floor. K1-K4
+     at the shapes of the 1080p render (1080x1920 frames, 648x1152 subject crop, and an unaligned crop), K5 (the 3x3
      conv) in f32 and bf16 at five shapes of the frame-tools path and on
      the dense block's strided views (input a channel slice of the
      192-channel buffer, output written into a slice of it), K6 (DOF +
-     grade) at 1080p, both eyes, dof_strength 2 and 5, K7 (attention) at
-     the depth model's shapes [16|8|2, 1370, 6, 64] and a padded
-     [2, 270, 3, 64];
+     grade) at 1080p, both eyes, dof_strength 2 and 5, all in focus and all
+     out of focus, K7 (attention) at the depth model's shapes
+     [16|8|2, 1370, 6, 64] and a padded [2, 270, 3, 64];
   4. (render) the render path: a synthetic 1920x1080 y4m clip of 64 frames
      through render_stereo_video with the benchmark configuration (Depth
      Anything V2-Small, random weights from a seed, 518^2, bf16, fast head;
@@ -57,6 +64,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -127,7 +135,7 @@ def card_line() -> str:
 
 
 HAND_KERNELS = ("stereo_warp_kernel", "feather_heal_kernel", "hist_kernel",
-                "qpair_replay_kernel", "subject_replay_kernel", "conv3x3_wgmma_kernel",
+                "qpair_replay_kernel", "subject_stats_kernel", "conv3x3_wgmma_kernel",
                 "conv3x3_fma_kernel", "dof_grade_kernel", "attention_wgmma_kernel",
                 "attention_fma_kernel")
 
@@ -204,23 +212,72 @@ def fmt_cat(p: dict | None) -> str:
     return "" if p is None else f"; concatenation kernels {p['cat_ms']:.3f} ms"
 
 
-def time_ms(fn, warmup: int = 3, runs: int = 21) -> float:
-    """Median CUDA-event time of fn() over `runs` launches, after a warm-up."""
+def _events_ms(run) -> float:
+    """CUDA-event time of run() (which enqueues work), synchronized."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_ms(fn, warmup: int = 3, runs: int = 20) -> float:
+    """Host loop: `runs` back-to-back calls of fn() between one CUDA-event
+    pair, after a warm-up; the total over `runs`. The host launches every
+    call, so a call shorter than the host's own time per call measures the
+    host (see graph_ms)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+
+    def run():
+        for _ in range(runs):
+            fn()
+    return _events_ms(run) / runs
+
+
+def graph_ms(fn, warmup: int = 3, runs: int = 20) -> float:
+    """Graph replay: `runs` calls of fn() captured in one CUDA graph, which
+    is replayed between one CUDA-event pair; the total over `runs`. The same
+    back-to-back launches with no host work between them: a kernel's own
+    time plus the card's gap between launches."""
+    import torch
+
+    for _ in range(warmup):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _events_ms(graph.replay) / runs
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def launch_floor(card: str) -> dict:
+    """An empty kernel timed both ways: the least a launch costs."""
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels._lib import check, lib, stream_of
+
+    probe = torch.empty(1, device="cuda")
+
+    def empty():
+        check(lib().vd3d_empty(stream_of(probe)), "empty kernel")
+    floor = {"host": time_ms(empty, runs=200), "graph": graph_ms(empty, runs=200)}
+    say(f"PHASE kernels launch floor (an empty kernel): host loop {floor['host']:.4f} ms, "
+        f"graph replay {floor['graph']:.4f} ms per launch [{card}]")
+    return floor
 
 
 # ---------------------------------------------------------------- inputs
@@ -275,30 +332,74 @@ def phase_build():
     path = _lib.build_library()
     _lib.lib()
     dt = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _lib.build_log.splitlines() if "registers" in ln]
     say(f"PHASE build: {path.name} in {dt:.1f} s")
-    for ln in regs:
-        say(f"  ptxas: {ln}")
+    for name, regs, spill in ptxas_kernels(_lib.build_log):
+        say(f"  ptxas: {name}: {regs}; {spill}")
+
+
+def ptxas_kernels(log: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers line, spill line) of each entry function in the
+    `-Xptxas -v` log; the kernel is named by its HAND_KERNELS stem and the
+    mangled template arguments after it."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            mangled = m.group(1)
+            stem = next((k for k in HAND_KERNELS + ("empty_kernel",) if k in mangled), mangled)
+            tail = mangled.split(stem, 1)[-1] if stem in mangled else ""
+            args = re.match(r"I(.*?)EEv", tail)
+            name, spill = stem + (f"<{args.group(1)}>" if args else ""), ""
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            out.append((name, ln.split(":", 1)[-1].strip(), spill))
+            name = None
+    return out
+
+
+def kernel_times(fn, runs: int = 20) -> dict:
+    """A kernel wrapper's times: graph replay (`ms`, the kernel's row), the
+    host loop (`host`), the device operations of one call counted from a
+    CUDA-graph capture (`events`), and one call's device time and device
+    events from the profiler (`device`, `prof_events`; None where the
+    profiler saw no device event: the gates read only `events`)."""
+    from visiondepth3d_tpu_torch.kernels._lib import device_ops
+
+    prof = device_profile(fn)
+    return {"ms": graph_ms(fn, runs=runs), "host": time_ms(fn, runs=runs),
+            "events": device_ops(fn),
+            "device": None if prof is None else prof["device_ms"],
+            "prof_events": None if prof is None else prof["events"]}
+
+
+def fmt_times(t: dict) -> str:
+    prof = ("device time not measured (the profiler saw no device event)" if t["device"] is None
+            else f"profiler {t['device']:.4f} ms of device time in {t['prof_events']} events")
+    return (f"kernel {t['ms']:.4f} ms (graph replay; host loop {t['host']:.4f} ms; one call "
+            f"{t['events']} device operations, {prof})")
 
 
 def phase_kernels(card: str) -> dict:
     """Each kernel against its plain version: K1-K4 at the 1080p render's
-    shapes, K5 at five shapes of the frame-tools path. Returns, per kernel
-    and type, its error, times (kernel, plain, library) and bound."""
+    shapes, then K5, K6 and K7. Returns, per kernel and type, its error,
+    times (kernel, plain, library) and bound."""
     import torch
 
     from visiondepth3d_tpu_torch.kernels import postfx, stats, warp
+    from visiondepth3d_tpu_torch.kernels._lib import device_ops
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     results = {}
+    floor = launch_floor(card)
 
-    def record(name, dt, err, ms, plain, flops, nbytes, library_ms=None):
+    def record(name, dt, err, times, plain, flops, nbytes, library_ms=None):
         tname = "bfloat16" if dt == torch.bfloat16 else "float32"
         bound_ms, bound_by = bound(flops, nbytes, tname)
-        results[(name, dt)] = dict(err=err, ms=ms, plain=plain, bound_ms=bound_ms,
+        results[(name, dt)] = dict(err=err, ms=times["ms"], plain=plain, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=library_ms)
-        return (f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {bound_ms:.4f} ms "
+        return (f"{fmt_times(times)} plain {plain:.4f} ms bound {bound_ms:.4f} ms "
                 f"({bound_by}) library "
                 f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} [{card}]")
 
@@ -318,10 +419,10 @@ def phase_kernels(card: str) -> dict:
         got = warp.stereo_warp_cuda(f, d, shift, max_shift)
         ref = warp.stereo_warp_torch(f, d, shift, max_shift)
         err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
-        ms = time_ms(lambda: warp.stereo_warp_cuda(f, d, shift, max_shift))
+        times = kernel_times(lambda: warp.stereo_warp_cuda(f, d, shift, max_shift))
         plain = time_ms(lambda: warp.stereo_warp_torch(f, d, shift, max_shift))
         s = f.element_size()
-        line = record("stereo_warp", dt, err, ms, plain, 38 * H * W, H * W * (12 * s + 4))
+        line = record("stereo_warp", dt, err, times, plain, 38 * H * W, H * W * (12 * s + 4))
         say(f"PHASE kernels stereo_warp {dt} max_abs_err={err:.3e} (tol {tol}) {line}")
         expect(err <= tol, f"stereo_warp {dt}: max |err| {err} > {tol}")
 
@@ -341,9 +442,9 @@ def phase_kernels(card: str) -> dict:
         ref = postfx.feather_heal_torch(*args, **kw)
         diff = torch.cat([(a.float() - b.float()).abs().reshape(-1) for a, b in zip(got, ref)])
         err = diff.max().item()
-        ms = time_ms(lambda: postfx.feather_heal_cuda(*args, **kw))
+        times = kernel_times(lambda: postfx.feather_heal_cuda(*args, **kw))
         plain = time_ms(lambda: postfx.feather_heal_torch(*args, **kw))
-        line = record("feather_heal", dt, err, ms, plain, 376 * H * W,
+        line = record("feather_heal", dt, err, times, plain, 376 * H * W,
                       H * W * 17 * args[0].element_size())
         if dt == torch.float32:
             within = (diff <= 1e-4).float().mean().item()
@@ -355,6 +456,8 @@ def phase_kernels(card: str) -> dict:
             say(f"PHASE kernels feather_heal {dt} max_abs_err={err:.3e} "
                 f"mean_abs_err={mean:.3e} (need <= 2e-3) {line}")
             expect(mean <= 2e-3, f"feather_heal bf16: mean |err| {mean}")
+    floor_note = (f"launch floor {floor['graph']:.4f} ms graph replay, {floor['host']:.4f} ms "
+                  f"host loop")
 
     # K3: the quantile pair, bit-exact, on a depth map and a constant map.
     # Bound: one read of the map; 12 bisection steps of a compare and a
@@ -364,29 +467,37 @@ def phase_kernels(card: str) -> dict:
         got = stats.quantile_pair_cuda(x, *qs)
         ref = stats.quantile_pair_torch(x, *qs)
         expect(torch.equal(got, ref), f"quantile_pair {name}: {got.tolist()} != {ref.tolist()}")
-    ms = time_ms(lambda: stats.quantile_pair_cuda(depth, 0.02, 0.98))
+    times = kernel_times(lambda: stats.quantile_pair_cuda(depth, 0.02, 0.98), runs=100)
     plain = time_ms(lambda: stats.quantile_pair_torch(depth, 0.02, 0.98))
-    line = record("quantile_pair", torch.float32, 0.0, ms, plain, 24 * H * W, 4 * H * W + 8)
-    say(f"PHASE kernels quantile_pair bit-exact on 3 maps, max_abs_err=0 {line}")
+    line = record("quantile_pair", torch.float32, 0.0, times, plain, 24 * H * W, 4 * H * W + 8)
+    say(f"PHASE kernels quantile_pair bit-exact on 3 maps, max_abs_err=0 {line}; {floor_note}")
 
-    # K4: subject statistics on the 60 % center crop (a strided view).
-    # Bound: one read of the crop; 42 operations per pixel (valid band 3,
-    # 64-bin index 3, 12 bisection steps of 3).
-    for name, m in (("depth", depth), ("constant", torch.full((H, W), 0.37, device=dev)),
-                    ("empty", torch.full((H, W), 0.01, device=dev))):
-        crop = m[H // 5: H * 4 // 5, W // 5: W * 4 // 5]
-        expect(tuple(crop.shape) == (648, 1152), f"crop shape {tuple(crop.shape)}")
+    # K4: subject statistics on the 60 % center crop (a strided view), and
+    # on an unaligned view (start column 385, odd width: the scalar loads).
+    # One cluster launch: one device event per call. Bound: one read of the
+    # crop; 42 operations per pixel (valid band 3, 64-bin index 3, 12
+    # bisection steps of 3).
+    crops = {name: m[H // 5: H * 4 // 5, W // 5: W * 4 // 5]
+             for name, m in (("depth", depth), ("constant", torch.full((H, W), 0.37, device=dev)),
+                             ("empty", torch.full((H, W), 0.01, device=dev)))}
+    crops["unaligned"] = depth[H // 5: H * 4 // 5, W // 5 + 1: W * 4 // 5]
+    expect(tuple(crops["depth"].shape) == (648, 1152), f"crop {tuple(crops['depth'].shape)}")
+    for name, crop in crops.items():
         got = stats.subject_stats_cuda(crop)
         ref = stats.subject_stats_torch(crop)
         for a, b, part in zip(got, ref, ("hist", "count", "median")):
             expect(torch.equal(a, b), f"subject_stats {name} {part}: {a} != {b}")
-    crop = depth[H // 5: H * 4 // 5, W // 5: W * 4 // 5]
-    ms = time_ms(lambda: stats.subject_stats_cuda(crop))
+        events = device_ops(lambda: stats.subject_stats_cuda(crop))
+        expect(events == 1, f"subject_stats {name}: {events} device events per call, want 1")
+    crop = crops["depth"]
+    times = kernel_times(lambda: stats.subject_stats_cuda(crop), runs=100)
     plain = time_ms(lambda: stats.subject_stats_torch(crop))
-    line = record("subject_stats", torch.float32, 0.0, ms, plain, 42 * crop.numel(),
+    line = record("subject_stats", torch.float32, 0.0, times, plain, 42 * crop.numel(),
                   4 * crop.numel() + 4 * 66)
-    say(f"PHASE kernels subject_stats bit-exact on 3 crops, max_abs_err=0 {line}")
-    del frame, depth, shift, base, left, right, dl, dr, args, got, ref, diff
+    say(f"PHASE kernels subject_stats bit-exact on 4 crops ({', '.join(crops)}), "
+        f"max_abs_err=0, cluster of {stats.cluster_size()} CTAs, 1 device event per call "
+        f"{line}; {floor_note}")
+    del frame, depth, shift, base, left, right, dl, dr, args, got, ref, diff, crops, crop
     phase_conv_kernel(card, results)
     phase_dof_kernel(card, results)
     phase_attention_kernel(card, results)
@@ -396,8 +507,10 @@ def phase_kernels(card: str) -> dict:
 def phase_dof_kernel(card: str, results: dict):
     """K6 against its plain version at 1080p, both eyes, grade on, f32 and
     bf16, dof_strength 2 (5 levels, reach 4: the DOF render's setting) and
-    5 (reach 10, the preset maximum). No library call computes the LOD stack
-    and the lerp; library is none. The JSON line carries dof_strength 2.
+    5 (reach 10, the preset maximum); then bf16 at strength 2 with every
+    pixel in focus (levels 0-1 only) and every pixel out of focus (levels
+    3-4). No library call computes the LOD stack and the lerp; library is
+    none. The JSON line carries dof_strength 2 bf16 on the smooth depth.
 
     Bound: read both eyes (3 values each) and the f32 depth, write both
     eyes. Operations per value (in f32 on CUDA cores whatever the storage
@@ -417,34 +530,42 @@ def phase_dof_kernel(card: str, results: dict):
     right = (base - 0.03 * torch.randn(H, W, 3, generator=gen).to(dev)).clamp(0, 1)
     depth = smooth_depth(gen, H, W, dev)
     focal = torch.tensor(0.45, device=dev)
+    flat = torch.full((H, W), 0.45, device=dev)
     kw = dict(saturation=1.2, contrast=1.1, brightness=0.02)
     n = 5
-    for sigma in (2.0, 5.0):
+    cases = [(sigma, dt, "smooth depth", depth, focal) for sigma in (2.0, 5.0)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(2.0, torch.bfloat16, "all in focus", flat, focal),
+              (2.0, torch.bfloat16, "all out of focus", flat, torch.tensor(0.95, device=dev))]
+    for sigma, dt, what, dmap, fd in cases:
         ksum = sum(level_ksize(sg) for sg in level_sigmas(sigma, n) if sg > 0)
         flops = H * W * (6 * (4 * ksum + 14) + 8)
-        for dt in (torch.float32, torch.bfloat16):
-            args = (left.to(dt), right.to(dt), depth, focal, sigma, 0.35, n)
-            got = kdof.dof_grade_cuda(*args, **kw)
-            ref = kdof.dof_grade_torch(*args, **kw)
-            diff = torch.cat([(a.float() - b.float()).abs().reshape(-1) for a, b in zip(got, ref)])
-            err, mean = diff.max().item(), diff.mean().item()
-            ms = time_ms(lambda: kdof.dof_grade_cuda(*args, **kw))
-            plain = time_ms(lambda: kdof.dof_grade_torch(*args, **kw), warmup=1, runs=5)
-            nbytes = H * W * (12 * args[0].element_size() + 4) + 4
-            bound_ms, bound_by = bound(flops, nbytes, "float32")
-            if dt == torch.float32:
-                ok, gate = err <= 1e-5, "need max <= 1e-5"
-            else:
-                ok, gate = err <= 1.6e-2 and mean <= 2e-3, "need max <= 1.6e-2, mean <= 2e-3"
-            if sigma == 2.0:
-                results[("dof_grade", dt)] = dict(err=err, ms=ms, plain=plain, bound_ms=bound_ms,
-                                                  bound_by=bound_by, library_ms=None)
-            say(f"PHASE kernels dof_grade sigma {sigma} reach {kdof.dof_reach(sigma, n)} {dt} "
-                f"max_abs_err={err:.3e} mean_abs_err={mean:.3e} ({gate}) kernel {ms:.4f} ms "
-                f"plain {plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by}; "
-                f"{flops / 1e9:.3f} GFLOP) library none [{card}]")
-            expect(ok, f"dof_grade sigma {sigma} {dt}: max |err| {err}, mean {mean}")
-    del base, left, right, depth, got, ref, diff
+        args = (left.to(dt), right.to(dt), dmap, fd, sigma, 0.35, n)
+        got = kdof.dof_grade_cuda(*args, **kw)
+        ref = kdof.dof_grade_torch(*args, **kw)
+        diff = torch.cat([(a.float() - b.float()).abs().reshape(-1) for a, b in zip(got, ref)])
+        err, mean = diff.max().item(), diff.mean().item()
+        del got, ref, diff
+        times = kernel_times(lambda: kdof.dof_grade_cuda(*args, **kw))
+        plain = time_ms(lambda: kdof.dof_grade_torch(*args, **kw), warmup=1, runs=5)
+        nbytes = H * W * (12 * args[0].element_size() + 4) + 4
+        bound_ms, bound_by = bound(flops, nbytes, "float32")
+        if dt == torch.float32:
+            ok, gate = err <= 1e-5, "need max <= 1e-5"
+        else:
+            ok, gate = err <= 1.6e-2 and mean <= 2e-3, "need max <= 1.6e-2, mean <= 2e-3"
+        if sigma == 2.0 and what == "smooth depth":
+            results[("dof_grade", dt)] = dict(err=err, ms=times["ms"], plain=plain,
+                                              bound_ms=bound_ms, bound_by=bound_by,
+                                              library_ms=None)
+        say(f"PHASE kernels dof_grade sigma {sigma} reach {kdof.dof_reach(sigma, n)} {dt} {what} "
+            f"max_abs_err={err:.3e} mean_abs_err={mean:.3e} ({gate}) {fmt_times(times)} "
+            f"plain {plain:.4f} ms bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{flops / 1e9:.3f} GFLOP) library none [{card}]")
+        expect(ok, f"dof_grade sigma {sigma} {dt} {what}: max |err| {err}, mean {mean}")
+        expect(times["events"] == 1, f"dof_grade: {times['events']} device events per call")
+    del base, left, right, depth, flat
+    torch.cuda.empty_cache()
 
 
 # K7 at the depth route's shapes: [B, N, H, D] and type. B 8 is the depth
@@ -478,10 +599,11 @@ def phase_attention_kernel(card: str, results: dict):
             diff = (got.float() - ref.float()).abs()
             err, mean = diff.max().item(), diff.mean().item()
             del got, ref, diff
-            ms = time_ms(lambda: kattn.vmem_attention_cuda(q, k, v))
+            times = kernel_times(lambda: kattn.vmem_attention_cuda(q, k, v))
+            ms = times["ms"]
             plain = time_ms(lambda: kattn.vmem_attention_torch(q, k, v), warmup=1, runs=5)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            library = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
             b, n, h, d = shape
             flops = 4.0 * b * h * n * n * d
             nbytes = 4 * b * n * h * d * q.element_size()
@@ -495,9 +617,9 @@ def phase_attention_kernel(card: str, results: dict):
                                                        bound_ms=bound_ms, bound_by=bound_by,
                                                        library_ms=library)
             say(f"PHASE kernels vmem_attention {list(shape)} {tname} max_abs_err={err:.3e} "
-                f"mean_abs_err={mean:.3e} ({gate}) kernel {ms:.4f} ms plain {plain:.4f} ms "
-                f"library {library:.4f} ms (SDPA) bound {bound_ms:.4f} ms ({bound_by}; "
-                f"{flops / ms / 1e9:.1f} TFLOP/s) [{card}]")
+                f"mean_abs_err={mean:.3e} ({gate}) {fmt_times(times)} plain {plain:.4f} ms "
+                f"library {library:.4f} ms (SDPA, graph replay) bound {bound_ms:.4f} ms "
+                f"({bound_by}; {flops / ms / 1e9:.1f} TFLOP/s) [{card}]")
             expect(ok, f"vmem_attention {list(shape)} {tname}: max |err| {err}, mean {mean}")
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
@@ -544,13 +666,14 @@ def phase_conv_kernel(card: str, results: dict):
                 scale = ref.float().abs().max().item()
                 err, mean = diff.max().item(), diff.mean().item()
                 del got, ref, diff
-                ms = time_ms(lambda: conv.conv3x3_cuda(x, w, b, act, packed=packed),
-                             warmup=2, runs=7)
+                times = kernel_times(lambda: conv.conv3x3_cuda(x, w, b, act, packed=packed),
+                                     runs=5)
+                ms = times["ms"]
                 plain = time_ms(lambda: conv.conv3x3_torch(x, w, b, act), warmup=1, runs=3)
                 xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
                 wc = w.to(dt).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 bc = b.to(dt)
-                library = time_ms(lambda: F.conv2d(xc, wc, bc, padding=1), warmup=2, runs=7)
+                library = graph_ms(lambda: F.conv2d(xc, wc, bc, padding=1), warmup=2, runs=5)
                 n_px = shape[0] * shape[1] * shape[2]
                 flops = 2.0 * n_px * 9 * c * o
                 nbytes = (n_px * (c + o) + 9 * c * o + o) * x.element_size()
@@ -562,9 +685,9 @@ def phase_conv_kernel(card: str, results: dict):
                     ok = err <= 8e-3 * scale and mean <= 1e-3 * scale
                     gate = f"need max <= 8e-3 and mean <= 1e-3 of {scale:.3f}"
                 say(f"PHASE kernels conv3x3 {name} {list(shape)}->{o} {act} {dt} "
-                    f"max_abs_err={err:.3e} mean_abs_err={mean:.3e} ({gate}) kernel {ms:.4f} ms "
-                    f"plain {plain:.4f} ms library {library:.4f} ms bound {bound_ms:.4f} ms "
-                    f"({bound_by}; {flops / ms / 1e9:.1f} TFLOP/s) [{card}]")
+                    f"max_abs_err={err:.3e} mean_abs_err={mean:.3e} ({gate}) {fmt_times(times)} "
+                    f"plain {plain:.4f} ms library {library:.4f} ms (graph replay) bound "
+                    f"{bound_ms:.4f} ms ({bound_by}; {flops / ms / 1e9:.1f} TFLOP/s) [{card}]")
                 expect(ok, f"conv3x3 {name} {dt}: max |err| {err}, mean {mean}, max |ref| {scale}")
                 for k, v in (("err", err), ("ms", ms), ("plain", plain), ("library", library),
                              ("flops", flops), ("bytes", nbytes)):
@@ -623,7 +746,7 @@ def conv_dense_block_views(card: str, dt, gen):
         diff = (got.float() - ref.float()).abs()
         scale = ref.float().abs().max().item()
         err, mean = diff.max().item(), diff.mean().item()
-        ms = time_ms(run, warmup=2, runs=7)
+        ms = graph_ms(run, warmup=2, runs=5)
         if dt == torch.float32:
             ok, gate = err <= 1e-4 * scale, f"need max <= 1e-4 * {scale:.3f}"
         else:
@@ -632,7 +755,7 @@ def conv_dense_block_views(card: str, dt, gen):
         view = f"buf[..., :{c}] -> " + (f"buf[..., {c}:{c + o}]" if k < 5 else "new")
         say(f"PHASE kernels conv3x3 dense block conv{k} {view} {act} {dt} max_abs_err={err:.3e} "
             f"mean_abs_err={mean:.3e} ({gate}) other channels unchanged {kept} kernel {ms:.4f} "
-            f"ms [{card}]")
+            f"ms (graph replay) [{card}]")
         expect(ok and kept, f"conv3x3 dense block conv{k} {dt}: max |err| {err}, mean {mean}, "
                             f"other channels unchanged {kept}")
         del got, ref, diff, w, b, packed
@@ -754,7 +877,8 @@ def phase_render(card: str, tmp: Path) -> dict:
     }
     for name, fn in layers.items():
         span = time_ms(fn, warmup=2, runs=5)
-        say(f"PHASE layers {name} (16-frame chunk, wall = host-gated span, median of 5): "
+        say(f"PHASE layers {name} (16-frame chunk, wall = host-gated span, mean of 5 "
+            f"back-to-back): "
             f"{fmt_profile(device_profile(fn), span)} [{card}]")
     _, outs = render_chunk(run_params, trackers, frames, depths)
     finite = bool(torch.isfinite(outs.left.float()).all() and
@@ -1109,7 +1233,7 @@ def phase_tools(card: str, tmp: Path) -> dict:
         span = time_ms(f, warmup=1, runs=3)
         prof = device_profile(f)
         say(f"PHASE tools layers {name} ({TOOLS_CHUNK + 1}-frame chunk, wall = host-gated "
-            f"span, median of 3): {fmt_profile(prof, span)}{fmt_cat(prof)} [{card}]")
+            f"span, mean of 3 back-to-back): {fmt_profile(prof, span)}{fmt_cat(prof)} [{card}]")
         if name == "esrgan trunk" and prof is not None:
             expect(prof["cat_ms"] == 0.0,
                    f"the ESRGAN trunk ran concatenation kernels ({prof['cat_ms']:.3f} ms)")

@@ -4,7 +4,11 @@ twins; the CUDA kernels against their plain versions on a card.
 The Pallas kernels run as the JAX package's own tests run them on the CPU,
 in TPU interpret mode. Tolerances:
 - K3 (quantile pair) and K4 (subject statistics): bit-identical; both
-  sides take the bisection's decisions on exact float32 counts.
+  sides take the bisection's decisions on exact float32 counts. K4's
+  cluster schedule (per-CTA counts, the slice merge, the 64-bin histogram
+  from the 4096 right-closed bins and the edge counts, the replay as a
+  count of the k where the bisection's predicate holds) is emulated in
+  numpy and held bit-identical too.
 - K1 (warp) float32: 1e-5. bfloat16: 1e-2, two bf16 steps near 1: the
   Pallas kernel accumulates its taps in bf16, the plain version in float32
   with one rounding at the end.
@@ -220,6 +224,9 @@ SUBJECT_CASES = {
     "depth": lambda: _depth(48, 80),
     "constant_valid": lambda: np.full((24, 64), 0.37, np.float32),
     "none_valid": lambda: np.full((24, 64), 0.97, np.float32),
+    # every value on a 1/64 edge: the 64-bin histogram's correction terms
+    "on_64_edges": lambda: (np.random.default_rng(3).integers(0, 65, (40, 96)) / 64
+                            ).astype(np.float32),
 }
 
 
@@ -241,6 +248,72 @@ def test_subject_stats_bit_identical(name):
             ph, pc, pm = subject_stats_pallas(jnp.asarray(np.ascontiguousarray(crop)), 64)
         np.testing.assert_array_equal(hist.numpy(), np.asarray(ph))
         assert float(count) == float(pc) and median.numpy() == np.asarray(pm)
+
+
+def _subject_schedule(m: np.ndarray, r0: int, c0: int, rows: int, cols: int, cluster: int):
+    """numpy emulation of csrc/stats.cu:subject_stats_kernel on the view
+    m[r0:r0 + rows, c0:c0 + cols] of a contiguous map (16-byte aligned at
+    its start): -> (hist [64], count, median), float32."""
+    ld = m.shape[1]
+    vec = (r0 * ld + c0) % 4 == 0 and ld % 4 == 0 and cols % 4 == 0
+    g = 4 if vec else 1
+    groups = cols // g
+    n = rows * groups
+    f32 = np.float32
+    hist, edge = np.zeros(4096, np.int64), np.zeros(65, np.int64)
+    for rank in range(cluster):  # each CTA's part of the (row, group) grid
+        items = np.arange(n * rank // cluster, n * (rank + 1) // cluster)
+        r, c = items // groups, items % groups
+        v = m[r0 + r[:, None], c0 + c[:, None] * g + np.arange(g)].ravel()
+        v = v[(v > f32(0.05)) & (v < f32(0.95))]
+        t = v * f32(4096)
+        up = np.ceil(t).astype(np.int64)
+        hist += np.bincount(up - 1, minlength=4096)
+        edge += np.bincount(up[(up % 64 == 0) & (up == t)] // 64, minlength=65)
+    s = 4096 // cluster
+    slices = [np.cumsum(hist[q * s:(q + 1) * s]) for q in range(cluster)]
+    hist64 = np.zeros(64, np.float32)
+    for q in range(cluster):
+        for j in range(s // 64):
+            i = q * (s // 64) + j
+            right_closed = slices[q][64 * j + 63] - (slices[q][64 * j - 1] if j else 0)
+            hist64[i] = right_closed + edge[i] - edge[i + 1]
+    totals = np.array([sl[-1] for sl in slices])
+    base = np.concatenate([[0], np.cumsum(totals)])
+    cnt = f32(base[-1])
+    count = max(cnt, f32(1))
+    q = (np.floor((count - f32(1)) * f32(0.5)) + f32(1)) / count
+    cum = np.concatenate([base[k] + slices[k] for k in range(cluster)])
+    holds = (cum[:4095].astype(np.float32) / count) < q
+    k = int(holds.sum())
+    median = (f32(k) / f32(4096) + f32(k + 1) / f32(4096)) * f32(0.5)
+    return hist64, cnt, f32(median)
+
+
+SCHEDULE_VIEWS = {
+    **{name: (fn, None) for name, fn in SUBJECT_CASES.items()},
+    # a row stride and start column that rule out the float4 loads
+    "unaligned_view": (lambda: _depth(50, 93, seed=4), (7, 1, 37, 61)),
+}
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("name", sorted(SCHEDULE_VIEWS))
+def test_subject_cluster_schedule_bit_identical(name, cluster):
+    fn, view = SCHEDULE_VIEWS[name]
+    m = fn()
+    h, w = m.shape
+    r0, c0, rows, cols = view or (h // 5, w // 5, h * 4 // 5 - h // 5, w * 4 // 5 - w // 5)
+    crop = m[r0:r0 + rows, c0:c0 + cols]
+    hist, count, median = _subject_schedule(m, r0, c0, rows, cols, cluster)
+    valid = (crop > 0.05) & (crop < 0.95)
+    np.testing.assert_array_equal(hist, np.asarray(
+        jq.histogram_01(jnp.asarray(crop), 64, jnp.asarray(valid))))
+    assert count == float(valid.sum())
+    assert median == np.asarray(jq.hist_masked_median(jnp.asarray(crop), jnp.asarray(valid)))
+    p_hist, p_count, p_median = stats.subject_stats_torch(_t(m)[r0:r0 + rows, c0:c0 + cols])
+    np.testing.assert_array_equal(hist, p_hist.numpy())
+    assert count == p_count.item() and median == p_median.numpy()
 
 
 # ---------------------------------------------------------------- K5 conv
@@ -408,12 +481,24 @@ def test_cuda_postfx_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 def test_cuda_stats_match_plain(cuda):
+    """K3, and K4 on an aligned crop, an unaligned view (start column 1,
+    odd width: scalar loads), a 1x1 crop, a crop larger than one pass of
+    the cluster's loads, and values on the 64-bin edges; K4 is one device
+    event per call."""
+    from visiondepth3d_tpu_torch.kernels._lib import device_ops
+
     m = _t(_depth(108, 192)).to(cuda)
     assert torch.equal(stats.quantile_pair(m, 0.02, 0.98),
                        stats.quantile_pair_torch(m, 0.02, 0.98))
-    crop = m[21:86, 38:153]
-    for a, b in zip(stats.subject_stats(crop), stats.subject_stats_torch(crop)):
-        assert torch.equal(a, b)
+    big = _t(_depth(1080, 1920, seed=5)).to(cuda)
+    edges = _t(SUBJECT_CASES["on_64_edges"]()).to(cuda)
+    for crop in (m[21:86, 36:156], m[21:86, 1:150], m[40:41, 50:51], big, edges[8:32, 16:80]):
+        for a, b in zip(stats.subject_stats(crop), stats.subject_stats_torch(crop)):
+            assert torch.equal(a, b)
+    crop = m[21:86, 36:156]
+    stats.subject_stats(crop)
+    assert device_ops(lambda: stats.subject_stats(crop)) == 1
+    assert device_ops(lambda: stats.quantile_pair(m, 0.02, 0.98)) == 3
 
 
 @pytest.mark.cuda

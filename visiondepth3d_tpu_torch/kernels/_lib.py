@@ -8,7 +8,8 @@ No fast math: the statistics kernels rely on IEEE float32 division.
 
 Every launcher takes raw device pointers, sizes and PyTorch's current CUDA
 stream, and returns the ``cudaError_t`` of its launch; ``check`` raises on a
-nonzero code. ``launch_counts`` counts the launches of each kernel wrapper.
+nonzero code. ``launch_counts`` counts the launches of each kernel wrapper;
+``device_ops`` counts the device operations one call enqueues.
 """
 
 from __future__ import annotations
@@ -89,10 +90,12 @@ def _declare(L: ctypes.CDLL) -> ctypes.CDLL:
         "vd3d_stereo_warp": [p, p, p, p, p, p, p, i, i, i, p],
         "vd3d_feather_heal": [p, p, p, p, p, p, p, i, i, i, f, f, f, i, i, i, p],
         "vd3d_quantile_pair": [p, i, i, ll, f, f, p, p, p],
-        "vd3d_subject_stats": [p, i, i, ll, p, p, p, p, p],
+        "vd3d_subject_stats": [p, i, i, ll, p, p],
         "vd3d_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, i, p],
         "vd3d_dof_grade": [p, p, p, p, p, p, i, i, p, p, i, f, f, f, f, f, i, i, p],
         "vd3d_attention": [p, p, p, p, i, i, i, i, f, i, p],
+        "vd3d_subject_cluster": [],
+        "vd3d_empty": [p],
     }
     for name, args in sigs.items():
         fn = getattr(L, name)
@@ -114,6 +117,39 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels, memsets, copies) one call of fn()
+    enqueues. fn() is captured once into a CUDA graph, which is never
+    replayed, and the graph's nodes of those types are counted through the
+    driver API: a count that needs no profiler."""
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed ({rc})")
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    call(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind, count = ctypes.c_int(0), 0
+    for node in nodes[:n.value]:
+        call(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+             "cuGraphNodeGetType")
+        # CU_GRAPH_NODE_TYPE_KERNEL 0, _MEMCPY 1, _MEMSET 2
+        count += kind.value in (0, 1, 2)
+    del graph
+    torch.cuda.empty_cache()
+    return count
 
 
 def require_cuda(what: str, *tensors) -> None:

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the wgmma kernels (attention.cu,
-// conv.cu): mbarriers, TMA and bulk copies into shared memory, ldmatrix,
-// wgmma shared-memory descriptors and instructions, and the host-side
-// tensor-map encoder.
+// Hopper (sm_90a) building blocks of the TMA-fed kernels (attention.cu,
+// conv.cu, dof.cu): mbarriers, TMA and bulk copies into shared memory,
+// ldmatrix, wgmma shared-memory descriptors and instructions, and the
+// host-side tensor-map encoders.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: no driver library is linked
@@ -69,6 +69,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// a box of a rank-2 tensor map into shared memory (no swizzle: the box
+// lands as dense rows); coordinates innermost first, zeros outside the tensor
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// orders this thread's earlier shared-memory accesses before later
+// asynchronous (TMA) writes to the same buffer
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
@@ -285,6 +302,23 @@ inline bool encode_map_4d(CUtensorMap* map, const void* base, const cuuint64_t (
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A rank-2 tensor map ([rows, row_elems], row pitch in bytes a multiple of
+// 16) of float32 or bfloat16, no swizzle, zero fill outside the tensor.
+inline bool encode_map_2d(CUtensorMap* map, const void* base, bool bf16, cuuint64_t row_elems,
+                          cuuint64_t rows, cuuint64_t pitch, cuuint32_t box_elems,
+                          cuuint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {row_elems, rows};
+  const cuuint64_t strides[1] = {pitch};
+  const cuuint32_t box[2] = {box_elems, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+            const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -57,19 +57,25 @@ def subject_stats_torch(crop: torch.Tensor):
 def subject_stats_cuda(crop: torch.Tensor):
     """The kernel: crop [h, w] float32 on a CUDA device, usually a strided
     view into the depth map (the row stride is passed, nothing is copied).
-    -> (hist [64], count, median), float32 on the device."""
+    One launch of one thread-block cluster writes one [66] float32 tensor:
+    -> (hist [64], count, median), views of it on the device."""
     require_cuda("subject_stats_cuda", crop)
     rows, cols, ld = _matrix_view("subject_stats_cuda", crop)
-    qhist = torch.empty(QHIST_BINS, dtype=torch.int32, device=crop.device)
-    hist64 = torch.empty(SUBJECT_BINS, dtype=torch.int32, device=crop.device)
-    hist = torch.empty(SUBJECT_BINS, dtype=torch.float32, device=crop.device)
-    stats = torch.empty(2, dtype=torch.float32, device=crop.device)
-    rc = lib().vd3d_subject_stats(crop.data_ptr(), rows, cols, ld, qhist.data_ptr(),
-                                  hist64.data_ptr(), hist.data_ptr(), stats.data_ptr(),
+    if rows * cols > 2**31 - 2**13:  # int32 item indices, 4 x 1024 of them ahead
+        raise ValueError(f"subject_stats_cuda: {rows} x {cols} values exceed the kernel's "
+                         f"int32 indexing")
+    out = torch.empty(SUBJECT_BINS + 2, dtype=torch.float32, device=crop.device)
+    rc = lib().vd3d_subject_stats(crop.data_ptr(), rows, cols, ld, out.data_ptr(),
                                   stream_of(crop))
     check(rc, "subject_stats_cuda")
     launch_counts["subject_stats"] += 1
-    return hist, stats[0], stats[1]
+    return out[:SUBJECT_BINS], out[SUBJECT_BINS], out[SUBJECT_BINS + 1]
+
+
+def cluster_size() -> int:
+    """The CTAs of subject_stats_cuda's cluster on this card (16, or 8 where
+    a 16-CTA cluster cannot be scheduled)."""
+    return lib().vd3d_subject_cluster()
 
 
 def subject_stats(crop: torch.Tensor):
