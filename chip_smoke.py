@@ -54,6 +54,10 @@ Phases, each printed on its own line; any failure exits nonzero:
   9. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
      render (also with --dof_strength 2) / depth / tools ...
 
+Optional, run only when named: (k2shapes) K2 built at other strip widths,
+rows per step and CTAs per SM, each checked and timed against the default
+at the render's shapes.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 nothing of the JAX package.
@@ -105,6 +109,7 @@ DOF_KERNELS = ("dof_grade",)
 DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
 ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "parity", "cli")
+OPTIONAL_PHASES = ("k2shapes",)  # run only when named
 H, W = 1080, 1920
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit): HBM bytes/s,
@@ -134,8 +139,8 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-HAND_KERNELS = ("stereo_warp_kernel", "feather_heal_kernel", "hist_kernel",
-                "qpair_replay_kernel", "subject_stats_kernel", "conv3x3_wgmma_kernel",
+HAND_KERNELS = ("stereo_warp_kernel", "feather_heal_kernel", "quantile_pair_kernel",
+                "subject_stats_kernel", "conv3x3_wgmma_kernel",
                 "conv3x3_fma_kernel", "dof_grade_kernel", "attention_wgmma_kernel",
                 "attention_fma_kernel")
 
@@ -446,10 +451,12 @@ def phase_kernels(card: str) -> dict:
         plain = time_ms(lambda: postfx.feather_heal_torch(*args, **kw))
         line = record("feather_heal", dt, err, times, plain, 376 * H * W,
                       H * W * 17 * args[0].element_size())
+        expect(times["events"] == 1, f"feather_heal: {times['events']} device events per call")
         if dt == torch.float32:
             within = (diff <= 1e-4).float().mean().item()
             say(f"PHASE kernels feather_heal {dt} max_abs_err={err:.3e} "
-                f"within_1e-4={within:.6f} (need >= 0.9999) {line}")
+                f"within_1e-4={within:.6f} (need >= 0.9999: margin "
+                f"{1e6 * (within - 0.9999):.1f} per million values) {line}")
             expect(within >= 0.9999, f"feather_heal f32: {within} within 1e-4")
         else:
             mean = diff.mean().item()
@@ -459,9 +466,10 @@ def phase_kernels(card: str) -> dict:
     floor_note = (f"launch floor {floor['graph']:.4f} ms graph replay, {floor['host']:.4f} ms "
                   f"host loop")
 
-    # K3: the quantile pair, bit-exact, on a depth map and a constant map.
-    # Bound: one read of the map; 12 bisection steps of a compare and a
-    # count per pixel (24 operations).
+    # K3: the quantile pair, bit-exact, on a depth map and a constant map,
+    # one launch and one device operation per call. Bound: one read of the
+    # map; 12 bisection steps of a compare and a count per pixel (24
+    # operations).
     for name, x, qs in (("depth", depth, (0.02, 0.98)), ("stretch", depth, (0.05, 0.95)),
                         ("constant", torch.full((H, W), 0.37, device=dev), (0.02, 0.98))):
         got = stats.quantile_pair_cuda(x, *qs)
@@ -470,7 +478,9 @@ def phase_kernels(card: str) -> dict:
     times = kernel_times(lambda: stats.quantile_pair_cuda(depth, 0.02, 0.98), runs=100)
     plain = time_ms(lambda: stats.quantile_pair_torch(depth, 0.02, 0.98))
     line = record("quantile_pair", torch.float32, 0.0, times, plain, 24 * H * W, 4 * H * W + 8)
-    say(f"PHASE kernels quantile_pair bit-exact on 3 maps, max_abs_err=0 {line}; {floor_note}")
+    say(f"PHASE kernels quantile_pair bit-exact on 3 maps, max_abs_err=0, 1 device operation "
+        f"per call {line}; {floor_note}")
+    expect(times["events"] == 1, f"quantile_pair: {times['events']} device operations per call")
 
     # K4: subject statistics on the 60 % center crop (a strided view), and
     # on an unaligned view (start column 385, odd width: the scalar loads).
@@ -502,6 +512,96 @@ def phase_kernels(card: str) -> dict:
     phase_dof_kernel(card, results)
     phase_attention_kernel(card, results)
     return results
+
+
+# K2 shapes (strip width TW, rows per step RB, CTAs per SM the registers
+# are capped for) of the optional phase k2shapes; csrc/postfx.cu's defaults
+# are (128, 4, 2) in bf16 and (96, 4, 2) in f32
+K2_SHAPES = ((128, 4, 2), (96, 4, 2), (128, 4, 1), (96, 4, 1), (64, 4, 2), (128, 8, 1),
+             (96, 8, 1))
+
+
+def phase_k2_shapes(card: str, rounds: int = 5):
+    """K2 built at each of K2_SHAPES (the -D overrides of csrc/postfx.cu,
+    one shape for both image types, one nvcc each, all started together), checked against its plain
+    version and timed by graph replay at the render's shapes (1080p, both
+    eyes, blur_ksize 9, feather and heal), bf16 and f32. The shapes take
+    turns in `rounds` rounds, so a drift of the card's clock reaches every
+    shape alike; the median of the rounds is the shape's time."""
+    import ctypes
+
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import _lib, postfx
+
+    with tempfile.TemporaryDirectory(prefix="vd3d_k2shapes_") as td:
+        procs = {}
+        for shape in K2_SHAPES:
+            tw, rb, ctas = shape
+            so = Path(td) / f"k2_tw{tw}_rb{rb}_c{ctas}.so"
+            cmd = [_lib.find_nvcc(), *_lib.NVCC_FLAGS, f"-DVD3D_K2_TW_BF16={tw}",
+                   f"-DVD3D_K2_TW_F32={tw}", f"-DVD3D_K2_RB={rb}", f"-DVD3D_K2_CTAS={ctas}",
+                   "-o", str(so), str(_lib.CSRC / "postfx.cu")]
+            procs[shape] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+        libs = {}
+        pv, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        try:
+            for shape, (so, proc) in procs.items():
+                log = proc.communicate()[0]
+                expect(proc.returncode == 0, f"k2shapes {shape}: nvcc failed\n{log[-2000:]}")
+                for name, regs, spill in ptxas_kernels(log):
+                    say(f"  ptxas k2 {shape}: {name}: {regs}; {spill}")
+                fn = ctypes.CDLL(str(so)).vd3d_feather_heal  # stays mapped once the file is gone
+                fn.argtypes = [pv] * 7 + [i, i, i, f, f, f, i, i, i, pv]
+                fn.restype = ctypes.c_int
+                libs[shape] = fn
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    frame = smooth_frame(gen, H, W, dev)
+    depth = smooth_depth(gen, H, W, dev)
+    base = smooth_frame(gen, H, W, dev)
+    left = (base + 0.05 * torch.randn(H, W, 3, generator=gen).to(dev)).clamp(0, 1)
+    right = (base - 0.05 * torch.randn(H, W, 3, generator=gen).to(dev)).clamp(0, 1)
+    dl, dr = depth, torch.roll(depth, 7, dims=1)
+    for dt in (torch.bfloat16, torch.float32):
+        args = [t.to(dt).contiguous() for t in (left, right, frame, dl, dr)]
+        ref = postfx.feather_heal_torch(*args, blur_ksize=9)
+        runs, times = {}, {}
+        for shape, fn in libs.items():
+            ol, orr = torch.empty_like(args[0]), torch.empty_like(args[0])
+
+            def run(fn=fn, ol=ol, orr=orr):
+                rc = fn(*(t.data_ptr() for t in args), ol.data_ptr(), orr.data_ptr(), H, W, 9,
+                        10.0, 0.5, 0.05, 1, 1, int(dt == torch.bfloat16), _lib.stream_of(ol))
+                if rc:
+                    raise PhaseError(f"rc {rc}")
+            try:
+                run()
+            except PhaseError as e:
+                say(f"PHASE k2shapes TW={shape[0]} RB={shape[1]} ctas={shape[2]} {dt}: "
+                    f"launch refused ({e})")
+                continue
+            torch.cuda.synchronize()
+            diff = torch.cat([(a.float() - b.float()).abs().reshape(-1)
+                              for a, b in zip((ol, orr), ref)])
+            within, mean = (diff <= 1e-4).float().mean().item(), diff.mean().item()
+            expect(within >= 0.9999 if dt == torch.float32 else mean <= 2e-3,
+                   f"k2shapes {shape} {dt}: within 1e-4 {within}, mean |err| {mean}")
+            runs[shape], times[shape] = run, []
+        for _ in range(rounds):
+            for shape, run in runs.items():
+                times[shape].append(graph_ms(run, runs=50))
+        for shape, ts in times.items():
+            say(f"PHASE k2shapes TW={shape[0]} RB={shape[1]} ctas={shape[2]} {dt}: "
+                f"median {statistics.median(ts):.4f} ms of rounds "
+                f"{' '.join(f'{t:.4f}' for t in ts)} (graph replay) [{card}]")
 
 
 def phase_dof_kernel(card: str, results: dict):
@@ -1316,7 +1416,7 @@ def phase_cli(tmp: Path):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
-                    help=f"comma list of {','.join(ALL_PHASES)}")
+                    help=f"comma list of {','.join(ALL_PHASES + OPTIONAL_PHASES)}")
     args = ap.parse_args(argv)
     if not PKG.is_dir():
         print(f"chip_smoke: {PKG} not found; run from a checkout of the repo",
@@ -1330,7 +1430,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     phases = set(args.phases.split(",")) if args.phases != "all" else set(ALL_PHASES)
-    unknown = phases - set(ALL_PHASES)
+    unknown = phases - set(ALL_PHASES + OPTIONAL_PHASES)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
         return 2
@@ -1344,6 +1444,8 @@ def main(argv=None) -> int:
         card = phase_card()
         timed("build", phase_build)
         kernels = timed("kernels", phase_kernels, card) if "kernels" in phases else {}
+        if "k2shapes" in phases:
+            timed("k2shapes", phase_k2_shapes, card)
         counts = {}
         with tempfile.TemporaryDirectory(prefix="vd3d_smoke_") as td:
             tmp = Path(td)

@@ -113,7 +113,7 @@ def test_one_pass_schedule_within_bf16_gate(shape):
 
 
 def test_attention_dispatch_and_gate(monkeypatch):
-    """SDPA by default; the opt-in takes self-attention with 512 <= N <=
+    """SDPA by default; the opt-in takes self-attention with 512 <= N <
     4096 and <= 8 heads to K7 (its plain version for CPU tensors)."""
     calls = []
     plain = kattention.vmem_attention

@@ -8,14 +8,19 @@ in TPU interpret mode. Tolerances:
   cluster schedule (per-CTA counts, the slice merge, the 64-bin histogram
   from the 4096 right-closed bins and the edge counts, the replay as a
   count of the k where the bisection's predicate holds) is emulated in
-  numpy and held bit-identical too.
+  numpy and held bit-identical too, as is K3's grid schedule (each CTA
+  zeroing its share of the scratch, one band of rows per CTA, the global
+  flush, the last CTA's replay).
 - K1 (warp) float32: 1e-5. bfloat16: 1e-2, two bf16 steps near 1: the
   Pallas kernel accumulates its taps in bf16, the plain version in float32
   with one rounding at the end.
 - K2 (feather + heal) float32: 1e-5 wherever the heal mask cannot flip,
   i.e. away (3 px, the 5x5 + 3x3 reach) from pixels whose gray gradient
   lies within 2e-5 of the 0.05 threshold. bfloat16: mean 4e-3 (the Pallas
-  kernel and the XLA chain round every step to bf16).
+  kernel and the XLA chain round every step to bf16). The CUDA kernel's
+  strips (each image type's width), row segments and warm-up skips are
+  emulated in numpy from each CTA's own input windows and held to the same
+  f32 tolerance.
 - K5 (3x3 conv) float32: 2e-6 against flax ``nn.Conv`` and the Pallas
   kernel in its ``cat9`` form, the plain version's arithmetic (one K = 9C
   product; summation order only). bfloat16 against the float32 reference:
@@ -25,6 +30,9 @@ The CUDA cases carry the ``cuda`` marker and skip without a card.
 """
 
 from __future__ import annotations
+
+import functools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -191,6 +199,213 @@ def test_postfx_plain_matches_xla_chain_bf16():
     assert np.abs(_np(got) - _np(want)).mean() <= 4e-3
 
 
+# csrc/postfx.cu's schedule: strips of TW output columns (by image type),
+# segments of a multiple of RB rows, RB rows per step
+POSTFX_TW = {"bfloat16": 128, "float32": 96}
+POSTFX_RB = 4
+
+
+def _postfx_schedule(left, right, frame, dl, dr, k, tw, fs=10.0, hs=0.5, thr=0.05,
+                     feather=True, heal=True, segs=3):
+    """numpy emulation of csrc/postfx.cu:feather_heal_kernel with strips of
+    `tw` columns and `segs` row segments. Each CTA computes every stage over exactly the rows and
+    columns the kernel computes for it, from its staged input windows (zeros
+    outside the image, as TMA fills them), in the kernel's float32 order of
+    operations, and skips each stage's warm-up steps where the kernel does
+    (its need_* conditions). A value the CTA never computes is NaN and
+    poisons whatever reads it, so a finite output shows that the reach and
+    the skips cover the strip's and the segment's borders.
+    -> (left, right) float32 [H, W, 3]."""
+    f32 = np.float32
+    h, w = dl.shape
+    rb = POSTFX_RB
+    p, ka = k // 2, k - 1 - k // 2
+    warm = -(-(k + 6) // rb)
+    row_steps = -(-h // rb)
+    seg_steps = -(-row_steps // min(segs, row_steps))
+    seg_rows = seg_steps * rb
+    fs, hs, thr = f32(fs), f32(hs), f32(thr)
+    outs = [np.full((h, w, 3), np.nan, f32) for _ in range(2)]
+
+    def window(img, y0, ny, x0, nx):  # zeros outside the image
+        out = np.zeros((ny, nx) + img.shape[2:], f32)
+        ys, xs = np.arange(y0, y0 + ny), np.arange(x0, x0 + nx)
+        iy, ix = (ys >= 0) & (ys < h), (xs >= 0) & (xs < w)
+        out[np.ix_(iy, ix)] = img[np.ix_(ys[iy], xs[ix])]
+        return out
+
+    def shifted(a, dy, dx):  # a[y + dy, x + dx], NaN where that is not in a
+        out = np.full_like(a, np.nan)
+        ny, nx = a.shape[:2]
+        out[max(0, -dy):ny - max(0, dy), max(0, -dx):nx - max(0, dx)] = \
+            a[max(0, dy):ny - max(0, -dy), max(0, dx):nx - max(0, -dx)]
+        return out
+
+    def grad(g, ys, xs, gl, gu):
+        dx = np.where(xs[None, :] > 0, g - gl, f32(0))
+        dy = np.where(ys[:, None] > 0, g - gu, f32(0))
+        return np.sqrt(dx * dx + dy * dy)
+
+    def inside(ys, xs):
+        return ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :]
+
+    def skip(a, y0, first):  # NaN in the steps (rows y0 + j rb ..) ending before row `first`
+        a = a.copy()
+        for j in range(0, a.shape[0], rb):
+            if y0 + j + rb <= first:
+                a[j:j + rb] = np.nan
+        return a
+
+    for seg0 in range(0, h, seg_rows):
+        seg1 = min(seg0 + seg_rows, h)
+        n = (warm + seg_steps) * rb
+        r0 = seg0 - warm * rb  # output rows r0 .., healed r0 + 1 .., F r0 + 3 .., em F + ka ..
+        f0, h0 = r0 + 3, r0 + 1
+        e0 = f0 + ka
+        for x0 in range(0, w, tw):
+            cf = np.arange(-4, tw + 4)  # feathered, gray, mask, healed columns
+            xf = x0 + cf
+            yf, yh, yo = np.arange(f0, f0 + n), np.arange(h0, h0 + n), np.arange(r0, r0 + n)
+            fr = window(frame, f0 - 2, n + 2, x0 - 4, tw + 8)  # rows h0 .. = f0 - 2 ..
+            for eye, (img, dep) in enumerate(((left, dl), (right, dr))):
+                a = window(img, f0, n, x0 - 4, tw + 8)
+                o = fr[2:]
+                if feather:
+                    ce = np.arange(tw + 7 + k)  # em / V columns c = ce - 4 - p
+                    xe = x0 + ce - 4 - p
+                    ye = np.arange(e0, e0 + n)
+                    d = window(dep, e0 - 1, n + 1, x0 - 5 - p, tw + 8 + k)
+                    mag = grad(d[1:, 1:], ye, xe, d[1:, :-1], d[:-1, 1:])
+                    em = np.where(inside(ye, xe), np.clip(mag * fs, 0, 1), f32(0))
+                    em = skip(em, e0, seg0 - 4 - p)
+                    # V rows f0 ..: em rows f0 - p + t; em starts at e0 = f0 + ka
+                    emf = np.concatenate([np.full((k - 1, em.shape[1]), np.nan, f32), em])
+                    v = emf[0:n]
+                    for t in range(1, k):
+                        v = v + emf[t:t + n]
+                    b = v[:, 0:tw + 8]  # blend column c: V columns c - p + t, t < k
+                    for t in range(1, k):
+                        b = b + v[:, t:t + tw + 8]
+                    b = (b / f32(k * k))[..., None]
+                    outf = np.clip(a * (f32(1) - b) + o * b, 0, 1)
+                else:
+                    outf = a
+                outf = skip(outf, f0, seg0 - 4)
+                if not heal:
+                    res = shifted(outf, -3, 0)  # output rows r0 .. = f0 - 3 ..
+                else:
+                    g = ((outf[..., 0] + outf[..., 2]) + outf[..., 1]) * f32(1 / 3)
+                    mag = grad(g, yf, xf, shifted(g, 0, -1), shifted(g, -1, 0))
+                    miss = np.where(np.isnan(mag), np.nan, (mag > thr).astype(f32))
+                    miss = skip(np.where(inside(yf, xf), miss, f32(0)), f0, seg0 - 3)
+                    # healed rows h0 .. = f0 - 2 ..: the mask rows h0 - 2 .. h0 + 2
+                    mf = np.concatenate([np.full((4, tw + 8), np.nan, f32), miss])
+                    cnt = sum(shifted(mf[dy:dy + n], 0, dx) for dy in range(5)
+                              for dx in range(-2, 3))
+                    m = skip(np.minimum(cnt / f32(25), f32(1)), h0, seg0 - 1)
+                    t = (hs * m)[..., None]
+                    outh = shifted(outf, -2, 0)  # feathered rows h0 ..
+                    healed = skip(np.where(inside(yh, xf)[..., None],
+                                           (f32(1) - t) * outh + t * fr[:n], f32(0)), h0, seg0 - 1)
+                    # output rows r0 .. = h0 - 1 ..: healed rows y - 1 .. y + 1
+                    hh = np.concatenate([np.full((2, tw + 8, 3), np.nan, f32), healed])
+                    vs = (hh[0:n] + hh[1:n + 1]) + hh[2:n + 2]
+                    soft = ((shifted(vs, 0, -1) + vs) + shifted(vs, 0, 1)) / f32(9)
+                    mo = np.concatenate([np.full((1, tw + 8), np.nan, f32), m])[0:n]
+                    t = (f32(0.3) * mo)[..., None]
+                    res = np.clip((f32(1) - t) * hh[1:n + 1] + t * soft, 0, 1)
+                rows = slice(seg0 - r0, seg1 - r0)
+                cols = slice(4, 4 + min(tw, w - x0))
+                outs[eye][seg0:seg1, x0:x0 + min(tw, w - x0)] = res[rows, cols]
+    return tuple(outs)
+
+
+@pytest.mark.parametrize("dtype", sorted(POSTFX_TW))
+@pytest.mark.parametrize("mode", ["both", "feather_only", "heal_only"])
+@pytest.mark.parametrize("k", [1, 9, 15])
+def test_postfx_strip_schedule_matches_plain_and_pallas(k, mode, dtype):
+    """csrc/postfx.cu's strips (each image type's width) and row segments
+    (sizes that divide neither H nor W) emulated in numpy: every output is
+    computed from the CTA's own
+    windows, and agrees with feather_heal_torch and feather_heal_pallas
+    within test_postfx_plain_matches_pallas_f32's tolerances."""
+    feather, heal = mode != "heal_only", mode != "feather_only"
+    kw = dict(blur_ksize=k, feather_strength=10.0, heal_strength=0.5,
+              enable_feathering=feather, enable_healing=heal)
+    rng = np.random.default_rng(k)
+    for h, w, segs in ((40, 300, 3), (37, 260, 2)):
+        frame = _frame(h, w)
+        left = np.clip(frame + 0.1 * rng.standard_normal(frame.shape), 0, 1).astype(np.float32)
+        right = np.clip(frame - 0.1 * rng.standard_normal(frame.shape), 0, 1).astype(np.float32)
+        dl, dr = _depth(h, w), np.roll(_depth(h, w), 3, axis=1)
+        got = _postfx_schedule(left, right, frame, dl, dr, k, POSTFX_TW[dtype],
+                               feather=feather, heal=heal, segs=segs)
+        plain = postfx.feather_heal_torch(*(_t(a) for a in (left, right, frame, dl, dr)), **kw)
+        wants = [plain]
+        if h % 8 == 0:
+            with pltpu.force_tpu_interpret_mode():
+                wants.append(feather_heal_pallas(
+                    *(jnp.asarray(a) for a in (left, right, frame, dl, dr)), block_rows=8, **kw))
+        for e, (eye, d) in enumerate(((left, dl), (right, dr))):
+            assert np.isfinite(got[e]).all()
+            feathered = (np.asarray(jedges.feather_shift_edges(
+                jnp.asarray(eye), jnp.asarray(frame), jnp.asarray(d), k, 10.0))
+                if feather else eye)
+            ok = ~_near_threshold(feathered) if heal else np.ones((h, w), bool)
+            assert ok.mean() > 0.8
+            for want in wants:
+                err = np.abs(got[e] - _np(want[e])).max(axis=-1)
+                assert err[ok].max() <= 1e-5, err[ok].max()
+
+
+_DIV_CHECK = r"""
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+int main() {  // every float x in [0, 1024]: fma(fma(-q, c, x), r, q) == x / c
+  const float cs[] = {9.0f, 25.0f};
+  long long bad = 0;
+  for (float c : cs) {
+    const float r = 1.0f / c;
+    for (long long b = 0; b <= 0x44800000LL; ++b) {
+      const uint32_t u = (uint32_t)b;
+      float x;
+      std::memcpy(&x, &u, 4);
+      const float q = x * r;
+      const float got = std::fmaf(std::fmaf(-q, c, x), r, q), want = x / c;
+      uint32_t g, w;
+      std::memcpy(&g, &got, 4);
+      std::memcpy(&w, &want, 4);
+      bad += g != w;
+    }
+  }
+  std::printf("%lld\n", bad);
+  return 0;
+}
+"""
+
+
+def test_postfx_division_by_9_and_25_is_exact(tmp_path):
+    """csrc/postfx.cu divides by 9 (the 3x3 soften) and 25 (the 5x5 mask
+    mean) as a product by RN(1 / c) and one FMA correction; for these two
+    divisors that equals IEEE division for every float in [0, 1024], which
+    covers every sum the kernel divides. Checked exhaustively on the host,
+    whose float product, FMA and division round as the card's do."""
+    import shutil
+    import subprocess
+
+    gxx = shutil.which("g++")
+    if gxx is None or " fma" not in Path("/proc/cpuinfo").read_text():
+        pytest.skip("needs g++ and a host with FMA instructions")
+    src, exe = tmp_path / "div_check.cpp", tmp_path / "div_check"
+    src.write_text(_DIV_CHECK)
+    subprocess.run([gxx, "-O3", "-march=native", "-ffp-contract=off", "-o", str(exe),
+                    str(src)], check=True)
+    res = subprocess.run([str(exe)], capture_output=True, text=True, check=True)
+    assert res.stdout.strip() == "0"
+
+
 # ------------------------------------------------------- K3 quantile pair
 
 QPAIR_CASES = {
@@ -215,6 +430,84 @@ def test_quantile_pair_bit_identical(name, qs):
         with pltpu.force_tpu_interpret_mode():
             pallas = np.asarray(quantile_pair_pallas(jnp.asarray(x), q))
         np.testing.assert_array_equal(got, pallas)
+
+
+def _qpair_schedule(m: np.ndarray, r0: int, c0: int, rows: int, cols: int, ctas: int,
+                    qs) -> np.ndarray:
+    """numpy emulation of csrc/stats.cu:quantile_pair_kernel with `ctas`
+    CTAs on the view m[r0:r0 + rows, c0:c0 + cols] of a contiguous map
+    (16-byte aligned at its start): each CTA zeroes its share of the call's
+    uninitialised scratch (4097 bins and a ticket) and counts one contiguous
+    band of the row-major (row, column-group) grid into its own 4097-bin
+    histogram; after the grid barrier each adds its nonzero bins to the
+    global histogram, and the last CTA replays both bisections as the
+    number of k where the predicate holds. -> [2]."""
+    ld = m.shape[1]
+    vec = (r0 * ld + c0) % 4 == 0 and ld % 4 == 0 and cols % 4 == 0
+    g = 4 if vec else 1
+    groups = cols // g
+    n = rows * groups
+    f32 = np.float32
+    scratch = np.random.default_rng(ctas).integers(-2**31, 2**31, 4098)  # any contents
+    idx = np.arange(4098)
+    for b in range(ctas):  # thread t of CTA b: b 1024 + t, stride ctas 1024
+        scratch[(idx // 1024) % ctas == b] = 0
+    assert not scratch.any()  # the grid barrier: every share is zero
+    ghist = scratch[:4097]
+    for b in range(ctas):
+        items = np.arange(n * b // ctas, n * (b + 1) // ctas)
+        r, c = items // groups, items % groups
+        v = m[r0 + r[:, None], c0 + c[:, None] * g + np.arange(g)].ravel()
+        inner = (v > 0) & (v <= 1)
+        up = np.ceil(np.where(inner, v, f32(1)) * f32(4096)).astype(np.int64)
+        bins = np.where(inner, up - 1, np.where(v <= 0, 0, 4096))
+        hist = np.bincount(bins, minlength=4097)
+        nz = np.flatnonzero(hist)  # the flush: nonzero bins only
+        ghist[nz] += hist[nz]
+    assert ghist.sum() == rows * cols
+    frac = np.cumsum(ghist[:4095]).astype(f32) / f32(rows * cols)
+    out = []
+    for q in qs:
+        k = int((frac < f32(q)).sum())
+        out.append((f32(k) / f32(4096) + f32(k + 1) / f32(4096)) * f32(0.5))
+    return np.array(out, f32)
+
+
+QPAIR_VIEWS = {
+    **{name: (fn, None) for name, fn in QPAIR_CASES.items()},
+    # a row stride and start column that rule out the float4 loads
+    "unaligned_view": (lambda: _depth(50, 93, seed=4), (7, 1, 37, 61)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _qpair_references(name: str, qs: tuple) -> tuple:
+    """The JAX bisection, and quantile_pair_pallas where H is a multiple of
+    8, of one QPAIR_VIEWS view."""
+    fn, view = QPAIR_VIEWS[name]
+    m = fn()
+    r0, c0, rows, cols = view or (0, 0, *m.shape)
+    x = jnp.asarray(np.ascontiguousarray(m[r0:r0 + rows, c0:c0 + cols]))
+    q = jnp.asarray(qs, jnp.float32)
+    refs = [np.asarray(jq.bisect_quantile_01(x, q))]
+    if rows % 8 == 0:
+        with pltpu.force_tpu_interpret_mode():
+            refs.append(np.asarray(quantile_pair_pallas(x, q)))
+    return tuple(refs)
+
+
+@pytest.mark.parametrize("ctas", [1, 7, 132, 264])
+@pytest.mark.parametrize("name", sorted(QPAIR_VIEWS))
+def test_quantile_pair_grid_schedule_bit_identical(name, ctas):
+    fn, view = QPAIR_VIEWS[name]
+    m = fn()
+    r0, c0, rows, cols = view or (0, 0, *m.shape)
+    for qs in ((0.02, 0.98), (0.05, 0.95)):
+        got = _qpair_schedule(m, r0, c0, rows, cols, ctas, qs)
+        for ref in _qpair_references(name, qs):
+            np.testing.assert_array_equal(got, ref)
+        plain = stats.quantile_pair_torch(_t(m)[r0:r0 + rows, c0:c0 + cols], *qs)
+        np.testing.assert_array_equal(got, plain.numpy())
 
 
 # ------------------------------------------------------- K4 subject stats
@@ -314,6 +607,38 @@ def test_subject_cluster_schedule_bit_identical(name, cluster):
     p_hist, p_count, p_median = stats.subject_stats_torch(_t(m)[r0:r0 + rows, c0:c0 + cols])
     np.testing.assert_array_equal(hist, p_hist.numpy())
     assert count == p_count.item() and median == p_median.numpy()
+
+
+# ------------------------------------------------------- K7 route bound
+
+@pytest.mark.parametrize("n", [511, 512, 4095, 4096])
+def test_attention_route_bound_matches_jax(n, monkeypatch):
+    """With the USE_VMEM_KERNEL opt-in, self-attention takes K7 where the
+    JAX package's gate does (_FLASH_MIN_SEQ <= N < _FLASH_ALWAYS_SEQ, and N
+    within its kernel's MAX_RESIDENT_SEQ): from N = 4096 on the JAX package
+    always takes its flash library route, SDPA here. Both routes are spies,
+    so no N x N attention is computed."""
+    from visiondepth3d_tpu.ops import attention as jattention
+    from visiondepth3d_tpu.ops.pallas_attention import MAX_RESIDENT_SEQ
+    from visiondepth3d_tpu_torch.kernels import attention as kattention
+    from visiondepth3d_tpu_torch.ops import attention as tattention
+
+    routes = []
+
+    def spy(name):
+        def route(q, k, v):
+            routes.append(name)
+            return q
+        return route
+
+    monkeypatch.setattr(tattention, "USE_VMEM_KERNEL", True)
+    monkeypatch.setattr(kattention, "vmem_attention", spy("K7"))
+    monkeypatch.setattr(tattention.F, "scaled_dot_product_attention", spy("SDPA"))
+    q = torch.zeros(1, n, 2, 8)
+    tattention.multi_head_attention(q, q, q)
+    jax_k7 = (jattention._FLASH_MIN_SEQ <= n < jattention._FLASH_ALWAYS_SEQ
+              and n <= MAX_RESIDENT_SEQ)
+    assert routes == ["K7" if jax_k7 else "SDPA"]
 
 
 # ---------------------------------------------------------------- K5 conv
@@ -465,13 +790,24 @@ def test_cuda_warp_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_postfx_matches_plain(cuda, dtype):
-    h, w = 72, 200
+@pytest.mark.parametrize("k", [1, 9, 15])
+@pytest.mark.parametrize("mode", ["both", "feather_only", "heal_only"])
+@pytest.mark.parametrize("h,w", [(72, 200), (37, 1000), (21, 37)])
+def test_cuda_postfx_matches_plain(cuda, dtype, k, mode, h, w):
+    """K2 under the card gates at odd sizes (W = 1000 by TMA; W = 37, a
+    pitch TMA cannot take, by the threads), every blur size the presets
+    reach, feather-only and heal-only."""
     frame = _t(_frame(h, w), dtype).to(cuda)
-    left = (frame.float() + 0.05).clamp(0, 1).to(dtype)
-    d = _t(_depth(h, w), dtype).to(cuda)
-    got = postfx.feather_heal(left, left, frame, d, d, blur_ksize=9)
-    ref = postfx.feather_heal_torch(left, left, frame, d, d, blur_ksize=9)
+    rng = np.random.default_rng(k)
+    left = _t(np.clip(_frame(h, w) + 0.1 * rng.standard_normal((h, w, 3)), 0, 1), dtype).to(cuda)
+    right = _t(np.clip(_frame(h, w) - 0.1 * rng.standard_normal((h, w, 3)), 0, 1),
+               dtype).to(cuda)
+    dl = _t(_depth(h, w), dtype).to(cuda)
+    dr = _t(np.roll(_depth(h, w), 3, axis=1), dtype).to(cuda)
+    kw = dict(blur_ksize=k, enable_feathering=mode != "heal_only",
+              enable_healing=mode != "feather_only")
+    got = postfx.feather_heal(left, right, frame, dl, dr, **kw)
+    ref = postfx.feather_heal_torch(left, right, frame, dl, dr, **kw)
     diff = torch.cat([(g.float() - r.float()).abs().reshape(-1) for g, r in zip(got, ref)])
     if dtype == torch.float32:
         assert (diff <= 1e-4).float().mean().item() >= 0.9999
@@ -498,7 +834,48 @@ def test_cuda_stats_match_plain(cuda):
     crop = m[21:86, 36:156]
     stats.subject_stats(crop)
     assert device_ops(lambda: stats.subject_stats(crop)) == 1
-    assert device_ops(lambda: stats.quantile_pair(m, 0.02, 0.98)) == 3
+    assert device_ops(lambda: stats.quantile_pair(m, 0.02, 0.98)) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_quantile_pair_maps_repeats_graphs_and_streams(cuda):
+    """K3 bit-exact on a strided view (start column 1, odd width: scalar
+    loads), a constant map, values outside [0, 1], a 1x1 map and the 1080p
+    depth map; then five calls on different maps in a row, ten replays of
+    one captured CUDA graph, and calls overlapping on two streams: no call
+    depends on what an earlier or concurrent one left behind."""
+    m = _t(_depth(108, 192)).to(cuda)
+    maps = [m[21:86, 1:150], torch.full((32, 128), 0.37, device=cuda),
+            _t(QPAIR_CASES["outside_01"]()).to(cuda), m[40:41, 50:51],
+            _t(_depth(1080, 1920, seed=5)).to(cuda)]
+    for qs in ((0.02, 0.98), (0.05, 0.95)):
+        for x in maps:
+            assert torch.equal(stats.quantile_pair(x, *qs), stats.quantile_pair_torch(x, *qs))
+    outs = [stats.quantile_pair(x, 0.02, 0.98) for x in maps]
+    for x, got in zip(maps, outs):
+        assert torch.equal(got, stats.quantile_pair_torch(x, 0.02, 0.98))
+    big = torch.empty_like(maps[-1])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # the first call of this shape may be captured
+        captured = stats.quantile_pair(big, 0.02, 0.98)
+    for i in range(10):
+        big.copy_(_t(_depth(1080, 1920, seed=6 + i)).to(cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, stats.quantile_pair_torch(big, 0.02, 0.98))
+    pair = [_t(_depth(1080, 1920, seed=20 + i)).to(cuda) for i in range(2)]
+    wants = [stats.quantile_pair_torch(x, 0.05, 0.95) for x in pair]
+    streams = [torch.cuda.Stream(cuda) for _ in pair]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, (x, st) in enumerate(zip(pair, streams)):
+            with torch.cuda.stream(st):
+                got[i].append(stats.quantile_pair(x, 0.05, 0.95))
+    torch.cuda.synchronize()
+    for outs_i, want in zip(got, wants):
+        for out in outs_i:
+            assert torch.equal(out, want)
 
 
 @pytest.mark.cuda

@@ -8,24 +8,37 @@
 // Every bisection midpoint is a multiple of 2^-12, so those counts are
 // prefix sums of one histogram with 4096 right-closed bins,
 // bin = ceil(x * 4096) - 1, and the 12 decisions replay exactly, in IEEE
-// float32 as the bisection takes them: the results are bit-identical.
+// float32 as the bisection takes them: the results are bit-identical. The
+// bisection's predicate fl(count(x <= k / 4096) / n) < q only falls as k
+// grows, so its 12 decisions end at lo = K / 4096, K the number of k in
+// 1 .. 4095 where it holds: 1024 threads count those k at once.
 // Bound: one read of the map (device memory bytes). Nothing returns to the
 // host.
 //
-// K3 builds that histogram grid-wide (shared-memory counts per block, then
-// int32 atomics into a zeroed device buffer) and replays it in a one-block
-// kernel: a memset and two kernels per call.
+// Both kernels walk their part of the map's row-major (row, column-group)
+// grid with no division per element, four columns per float4 load where
+// the view allows it, and take ceil(x * 4096) by a round-up add (no
+// conversion unit), one shared atomic per value (grouping equal bins with
+// __match_any_sync was slower on the card).
+//
+// K3 runs twice per frame on the whole 1080x1920 map (2.07M values), so it
+// needs the whole card in one launch, one device operation per call. It is
+// a cooperative launch of one CTA per SM (sized once, before any capture):
+// - each CTA zeroes its share of the call's global histogram and ticket
+//   (a scratch the wrapper allocates per call, uninitialised: no memset),
+//   and counts one contiguous band of rows into a shared-memory histogram;
+// - a grid barrier orders the zeroing before any flush; each CTA then adds
+//   its nonzero bins to the global histogram (int32 atomics) and takes a
+//   ticket (__threadfence, atomicAdd); the last one reads the histogram
+//   back and replays both bisections. Nothing outlives the call, so calls
+//   on any streams may overlap.
 //
 // K4 runs three times per frame on a 648x1152 crop (0.9 us of bytes), so
 // its launches and fixed costs, not its bytes, set its time. It is one
 // launch of one thread-block cluster (16 CTAs, or 8 where 16 cannot be
 // scheduled):
-// - each CTA counts its share of the crop's (row, column-group) grid into
-//   a shared-memory 4096-bin histogram, walking rows and columns with no
-//   division per element, four columns per float4 load where the view
-//   allows it, ceil(x * 4096) by a round-up add (no conversion unit), one
-//   shared atomic per value (grouping equal bins with __match_any_sync was
-//   slower on the card);
+// - each CTA counts its share of the crop into a shared-memory 4096-bin
+//   histogram of the valid values;
 // - the 64-bin floor(x * 64) histogram is not counted separately: its bin
 //   i is the right-closed bins 64 i .. 64 i + 63 plus the values exactly
 //   on i / 64 minus those exactly on (i + 1) / 64, and only those rare
@@ -34,9 +47,7 @@
 //   the cluster's shared memories (distributed shared memory), scans it,
 //   writes its 64-bin values and stores the scanned slice and its total
 //   into CTA 0's shared memory;
-// - after a second barrier CTA 0 replays the bisection alone: its
-//   predicate falls monotonically in k, so the 12 decisions end at the
-//   number of k where it holds, which 1024 threads count at once.
+// - after a second barrier CTA 0 replays the bisection alone, as K3 does.
 // No global scratch, no memset, no global atomic: one device event.
 
 #include <cooperative_groups.h>
@@ -48,104 +59,14 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int QBINS = 4096;       // the 12-step bisection grid
-constexpr int QHIST = QBINS + 1;  // K3: + one bin above 1 (and NaN), never counted
+constexpr int QHIST = QBINS + 1;  // K3: + one bin above 1 (and NaN), never read
 constexpr int SUBJECT_BINS = 64;
-constexpr int ITERS = 12;
-constexpr int HIST_THREADS = 256;
-constexpr int SCAN_THREADS = 1024;  // QBINS / 4 bins per thread
+constexpr int Q_THREADS = 1024;  // QBINS / 4 bins per thread in the replay
 constexpr int SUBJ_THREADS = 1024;
 constexpr int SUBJ_WARPS = SUBJ_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ int qbin(float v) {
-  if (!(v <= 1.0f)) return QBINS;
-  if (v <= 0.0f) return 0;
-  return (int)ceilf(v * (float)QBINS) - 1;  // v * 4096 is exact
-}
-
-// ------------------------------------------------------------------ K3
-
-__global__ void __launch_bounds__(HIST_THREADS)
-hist_kernel(const float* __restrict__ x, int rows, int cols, long long ld,
-            int* __restrict__ qhist) {
-  __shared__ int sq[QHIST];
-  for (int i = threadIdx.x; i < QHIST; i += HIST_THREADS) sq[i] = 0;
-  __syncthreads();
-  const long long n = (long long)rows * cols;
-  const long long stride = (long long)gridDim.x * HIST_THREADS;
-  for (long long i = (long long)blockIdx.x * HIST_THREADS + threadIdx.x; i < n;
-       i += stride) {
-    const long long r = i / cols;
-    atomicAdd(&sq[qbin(x[r * ld + (i - r * cols)])], 1);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < QHIST; i += HIST_THREADS)
-    if (sq[i]) atomicAdd(&qhist[i], sq[i]);
-}
-
-// cum[b] = sum of qhist[0..b] for b < QBINS; one block of SCAN_THREADS.
-__device__ void prefix_sums(const int* __restrict__ qhist, int* cum, int* part) {
-  const int t = threadIdx.x;
-  int local[4];
-  int s = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    s += qhist[4 * t + j];
-    local[j] = s;
-  }
-  part[t] = s;
-  __syncthreads();
-  for (int off = 1; off < SCAN_THREADS; off <<= 1) {
-    const int v = t >= off ? part[t - off] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  const int base = t > 0 ? part[t - 1] : 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) cum[4 * t + j] = base + local[j];
-  __syncthreads();
-}
-
-// The bisection's decisions: count(x <= k/4096) is cum[k - 1].
-__device__ float bisect(const int* cum, float q, float count) {
-  float lo = 0.0f, hi = 1.0f;
-  for (int it = 0; it < ITERS; ++it) {
-    const float mid = (lo + hi) * 0.5f;
-    const int k = (int)(mid * (float)QBINS);  // exact: mid is k / 4096
-    if ((float)cum[k - 1] / count < q) lo = mid;
-    else hi = mid;
-  }
-  return (lo + hi) * 0.5f;
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-qpair_replay_kernel(const int* __restrict__ qhist, float q0, float q1, float n,
-                    float* __restrict__ out) {
-  __shared__ int cum[QBINS];
-  __shared__ int part[SCAN_THREADS];
-  prefix_sums(qhist, cum, part);
-  if (threadIdx.x == 0) out[0] = bisect(cum, q0, n);
-  if (threadIdx.x == 1) out[1] = bisect(cum, q1, n);
-}
-
-int hist_grid(long long n) {
-  const long long per_block = (long long)HIST_THREADS * 16;
-  long long g = (n + per_block - 1) / per_block;
-  return (int)(g < 1 ? 1 : (g > 1024 ? 1024 : g));
-}
-
-// ------------------------------------------------------------------ K4
-
-struct SubjectSmem {
-  int hist[QBINS];              // this CTA's right-closed counts of valid values
-  int edge[SUBJECT_BINS + 1];   // valid values exactly on j / 64
-  int wtot[SUBJ_WARPS];
-  int ends64[QBINS / 8 / 64];   // the slice's prefix at each 64-bin group's end
-  // CTA 0 only, written by every CTA before the second cluster barrier:
-  int cum[QBINS];               // each slice's own prefix sums
-  int total[16];                // each slice's count
-};
+// ------------------------------------------------- shared by K3 and K4
 
 __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 #pragma unroll
@@ -156,31 +77,24 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
   return v;
 }
 
-// One value into the CTA's counts when it lies in the valid band
-// 0.05 < v < 0.95. ceil(v * 4096) by a round-up add at 2^23 (whole numbers
-// are exact there) keeps the conversion unit out of the loop.
-__device__ __forceinline__ void count_value(float v, SubjectSmem& sm) {
-  if (!(v > 0.05f && v < 0.95f)) return;
-  const float t = v * (float)QBINS;                 // exact
-  const float up = __fadd_ru(t, 8388608.0f);        // 2^23 + ceil(t)
-  const int c = __float_as_int(up) - 0x4B000000;    // ceil(t): 205 .. 3892
-  atomicAdd(&sm.hist[c - 1], 1);
-  // on a 64-bin edge: t is whole and a multiple of 64
-  if ((c & 63) == 0 && __fsub_rn(up, 8388608.0f) == t) atomicAdd(&sm.edge[c >> 6], 1);
-}
+// 2^23 + ceil(t) for 0 <= t < 2^23: a round-up add at 2^23 (whole numbers
+// are exact there) keeps the conversion unit out of the loop
+__device__ __forceinline__ float ceil_biased(float t) { return __fadd_ru(t, 8388608.0f); }
+__device__ __forceinline__ int unbias(float up) { return __float_as_int(up) - 0x4B000000; }
 
-// This CTA's part of the crop: items [begin, end) of the row-major grid of
+// This CTA's part of the map: items [begin, end) of the row-major grid of
 // `groups` column groups (4 columns with VEC, else 1) per row. Each thread
-// steps by SUBJ_THREADS items, carrying its row pointer and column.
-template <bool VEC>
-__device__ void count_part(const float* __restrict__ x, int groups, long long ld, int begin,
-                           int end, SubjectSmem& sm) {
+// steps by THREADS items, carrying its row pointer and column, and hands
+// every value to count(v).
+template <int THREADS, bool VEC, typename Count>
+__device__ __forceinline__ void count_part(const float* __restrict__ x, int groups,
+                                           long long ld, int begin, int end, Count count) {
   int i = begin + (int)threadIdx.x;
   if (i >= end) return;
   int r = i / groups;
   int c = i - r * groups;
   const float* row = x + r * ld;
-  const int dr = SUBJ_THREADS / groups, dc = SUBJ_THREADS - dr * groups;
+  const int dr = THREADS / groups, dc = THREADS - dr * groups;
   const long long step_ld = (long long)dr * ld;
   auto load = [&](float (&v)[4]) {
     if constexpr (VEC) {
@@ -198,21 +112,169 @@ __device__ void count_part(const float* __restrict__ x, int groups, long long ld
   };
   constexpr int G = VEC ? 4 : 1;
   // four loads in flight before any is counted
-  for (; i + 3 * SUBJ_THREADS < end; i += 4 * SUBJ_THREADS) {
+  for (; i + 3 * THREADS < end; i += 4 * THREADS) {
     float v[4][4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) load(v[u]);
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
-      for (int g = 0; g < G; ++g) count_value(v[u][g], sm);
+      for (int g = 0; g < G; ++g) count(v[u][g]);
   }
-  for (; i < end; i += SUBJ_THREADS) {
+  for (; i < end; i += THREADS) {
     float v[4];
     load(v);
 #pragma unroll
-    for (int g = 0; g < G; ++g) count_value(v[g], sm);
+    for (int g = 0; g < G; ++g) count(v[g]);
   }
+}
+
+// ------------------------------------------------------------------ K3
+
+// x <= k / 4096 holds for every k >= bin + 1: values <= 0 in bin 0, values
+// above 1 (and NaN) in bin 4096, which no k reads
+__device__ __forceinline__ int qbin(float v) {
+  const int b = unbias(ceil_biased(v * (float)QBINS)) - 1;  // v * 4096 is exact
+  return !(v <= 1.0f) ? QBINS : (v <= 0.0f ? 0 : b);
+}
+
+// out[0], out[1]: the bisection quantiles q0, q1 of the [rows, cols] view.
+// scratch: QHIST int32 counts and a ticket, any contents on entry.
+// Launched cooperatively: every CTA is resident.
+template <bool VEC>
+__global__ void __launch_bounds__(Q_THREADS)
+quantile_pair_kernel(const float* __restrict__ x, int rows, int cols, long long ld, float q0,
+                     float q1, int* __restrict__ scratch, float* __restrict__ out) {
+  __shared__ int hist[QHIST];
+  __shared__ int wtot[Q_THREADS / 32][2];
+  __shared__ int is_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* ghist = scratch;
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(scratch + QHIST);
+
+  for (int i = blockIdx.x * Q_THREADS + tid; i <= QHIST; i += gridDim.x * Q_THREADS)
+    scratch[i] = 0;
+  for (int i = tid; i < QHIST; i += Q_THREADS) hist[i] = 0;
+  __syncthreads();
+  const int groups = VEC ? cols / 4 : cols;
+  const long long n = (long long)rows * groups;  // <= 2^31 - 2^13: the wrapper checks
+  count_part<Q_THREADS, VEC>(x, groups, ld, (int)(n * blockIdx.x / gridDim.x),
+                             (int)(n * (blockIdx.x + 1) / gridDim.x),
+                             [&](float v) { atomicAdd(&hist[qbin(v)], 1); });
+  cg::this_grid().sync();  // every CTA's share of the scratch is zero
+  // a contiguous band of a depth map touches a fraction of the bins
+  for (int i = tid; i < QHIST; i += Q_THREADS)
+    if (hist[i]) atomicAdd(&ghist[i], hist[i]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+
+  // the last CTA: every count is in ghist (in L2, where the atomics left
+  // it); cum over bins 4 tid .. 4 tid + 3 is count(x <= k / 4096) at k - 1.
+  __threadfence();
+  const int4 h4 = __ldcg(reinterpret_cast<const int4*>(ghist) + tid);
+  const int hv[4] = {h4.x, h4.y, h4.z, h4.w};
+  int cum[4], s = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s += hv[j];
+    cum[j] = s;
+  }
+  // block scan: within the warp, then over the 32 warp totals
+  const int incl = warp_inclusive_scan(s, lane);
+  if (lane == 31) wtot[warp][0] = incl;
+  __syncthreads();
+  if (warp == 0) wtot[lane][1] = warp_inclusive_scan(wtot[lane][0], lane) - wtot[lane][0];
+  __syncthreads();
+  const int base = wtot[warp][1] + incl - s;
+  const float count = (float)((long long)rows * cols);
+  int h0 = 0, h1 = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k1 = 4 * tid + j;  // k - 1
+    const float frac = (float)(base + cum[j]) / count;
+    h0 += k1 < QBINS - 1 && frac < q0;
+    h1 += k1 < QBINS - 1 && frac < q1;
+  }
+  h0 = __reduce_add_sync(FULL, h0);
+  h1 = __reduce_add_sync(FULL, h1);
+  __syncthreads();  // wtot is read
+  if (lane == 0) {
+    wtot[warp][0] = h0;
+    wtot[warp][1] = h1;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int K0 = __reduce_add_sync(FULL, wtot[lane][0]);
+    const int K1 = __reduce_add_sync(FULL, wtot[lane][1]);
+    if (lane == 0) {
+      out[0] = ((float)K0 / (float)QBINS + (float)(K0 + 1) / (float)QBINS) * 0.5f;
+      out[1] = ((float)K1 / (float)QBINS + (float)(K1 + 1) / (float)QBINS) * 0.5f;
+    }
+  }
+}
+
+// CTAs of one call: one per SM (two per SM measured slower: more partial
+// histograms to flush), at most one per Q_THREADS items; every CTA must be
+// resident, as a cooperative launch requires. 0 where the card cannot be
+// queried or cannot hold one CTA per SM.
+int qpair_grid(long long items) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, n = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quantile_pair_kernel<true>,
+                                                      Q_THREADS, 0) != cudaSuccess ||
+        per_sm < 1)
+      return 0;
+    sms = n;
+  }
+  const long long g = (items + Q_THREADS - 1) / Q_THREADS;
+  return (int)(g < 1 ? 1 : (g > sms ? sms : g));
+}
+
+template <bool VEC>
+int launch_qpair(const float* x, int rows, int cols, long long ld, float q0, float q1,
+                 int* scratch, float* out, int grid, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(Q_THREADS, 1, 1);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e =
+      cudaLaunchKernelEx(&cfg, quantile_pair_kernel<VEC>, x, rows, cols, ld, q0, q1, scratch, out);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ K4
+
+struct SubjectSmem {
+  int hist[QBINS];              // this CTA's right-closed counts of valid values
+  int edge[SUBJECT_BINS + 1];   // valid values exactly on j / 64
+  int wtot[SUBJ_WARPS];
+  int ends64[QBINS / 8 / 64];   // the slice's prefix at each 64-bin group's end
+  // CTA 0 only, written by every CTA before the second cluster barrier:
+  int cum[QBINS];               // each slice's own prefix sums
+  int total[16];                // each slice's count
+};
+
+// One value into the CTA's counts when it lies in the valid band
+// 0.05 < v < 0.95.
+__device__ __forceinline__ void count_value(float v, SubjectSmem& sm) {
+  if (!(v > 0.05f && v < 0.95f)) return;
+  const float t = v * (float)QBINS;   // exact
+  const float up = ceil_biased(t);
+  const int c = unbias(up);           // ceil(t): 205 .. 3892
+  atomicAdd(&sm.hist[c - 1], 1);
+  // on a 64-bin edge: t is whole and a multiple of 64
+  if ((c & 63) == 0 && __fsub_rn(up, 8388608.0f) == t) atomicAdd(&sm.edge[c >> 6], 1);
 }
 
 // out[0..63]: the 64-bin histogram, out[64]: the valid count, out[65]: the
@@ -233,8 +295,9 @@ subject_stats_kernel(const float* __restrict__ x, int rows, int cols, long long 
   __syncthreads();
   const int groups = VEC ? cols / 4 : cols;
   const int n = rows * groups;  // <= 2^31 - 2^13: the wrapper checks
-  count_part<VEC>(x, groups, ld, (int)((long long)n * rank / C),
-                  (int)((long long)n * (rank + 1) / C), sm);
+  count_part<SUBJ_THREADS, VEC>(x, groups, ld, (int)((long long)n * rank / C),
+                                (int)((long long)n * (rank + 1) / C),
+                                [&](float v) { count_value(v, sm); });
   cluster.sync();  // every CTA's counts are final
 
   // this CTA's slice of bins summed over the cluster and scanned, into
@@ -359,18 +422,20 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
+// x: a [rows, cols] float32 view with row stride ld (elements); out: 2
+// float32; scratch: QHIST + 1 int32 of this call (overwritten).
+// rows * cols <= 2^31 - 2^13.
 extern "C" int vd3d_quantile_pair(const void* x, int rows, int cols, long long ld,
-                                  float q0, float q1, void* qhist, void* out,
+                                  float q0, float q1, void* scratch, void* out,
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)rows * cols;
-  cudaError_t e = cudaMemsetAsync(qhist, 0, QHIST * sizeof(int), s);
-  if (e != cudaSuccess) return (int)e;
-  hist_kernel<<<hist_grid(n), HIST_THREADS, 0, s>>>((const float*)x, rows, cols, ld,
-                                                    (int*)qhist);
-  qpair_replay_kernel<<<1, SCAN_THREADS, 0, s>>>((const int*)qhist, q0, q1,
-                                                 (float)n, (float*)out);
-  return (int)cudaGetLastError();
+  const bool vec = ((size_t)x % 16) == 0 && ld % 4 == 0 && cols % 4 == 0;
+  const int grid = qpair_grid((long long)rows * (vec ? cols / 4 : cols));
+  if (grid == 0) return (int)cudaErrorInvalidConfiguration;
+  const float* xf = (const float*)x;
+  return vec ? launch_qpair<true>(xf, rows, cols, ld, q0, q1, (int*)scratch, (float*)out, grid, s)
+             : launch_qpair<false>(xf, rows, cols, ld, q0, q1, (int*)scratch, (float*)out, grid,
+                                   s);
 }
 
 // x: a [rows, cols] float32 view with row stride ld (elements); out: 66

@@ -2,9 +2,12 @@
 
 ``feather_heal`` dispatches on the tensors' device: a CUDA tensor launches
 the kernel, a CPU tensor runs ``feather_heal_torch``. Both compute in
-float32 and return the image type. The heal mask is a threshold on a
-gradient, so a pixel whose gradient sits at the threshold can flip between
-the two when their sums round differently; compare where the masks agree.
+float32 and return the image type, and the kernel rounds each step as the
+plain version's tensor ops round it on the card (its gray mean grouped as
+PyTorch's CUDA mean), so the two take the same heal-mask decisions there.
+The mask is a threshold on a gradient: against other implementations (the
+CPU's mean, the JAX package) a pixel whose gradient sits at the threshold
+can flip, so compare those where the masks agree.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 from ..ops import edges
 from ._lib import check, launch_counts, lib, require_cuda, stream_of
 
-MAX_BLUR_KSIZE = 15  # the kernel's shared-memory halo holds 5 + 15 // 2 rows
+MAX_BLUR_KSIZE = 15  # the kernel's edge-mask ring holds 4 + 15 - 1 rows
 
 
 def feather_heal_torch(left, right, frame, dleft, dright, blur_ksize: int = 7,

@@ -5,6 +5,11 @@ plain versions.
 CUDA tensor launches the kernel, a CPU tensor runs the plain version. The
 two agree bit for bit: both take the bisection's decisions on exact counts.
 Results stay on the device.
+
+K3's kernel keeps its global histogram and ticket in a scratch tensor of
+the call, which the kernel zeroes itself before a grid barrier: no memset
+and no state between calls, so calls may overlap on several streams and be
+captured into a CUDA graph at any time.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from ._lib import check, launch_counts, lib, require_cuda, stream_of
 
 QHIST_BINS = 4097  # 4096 right-closed bins + one above 1
 SUBJECT_BINS = 64
+MAX_ITEMS = 2**31 - 2**13  # the kernels' int32 item indices, 4 x 1024 of them ahead
 
 
 def quantile_pair_torch(x: torch.Tensor, q0: float, q1: float) -> torch.Tensor:
@@ -25,13 +31,14 @@ def quantile_pair_torch(x: torch.Tensor, q0: float, q1: float) -> torch.Tensor:
 
 def quantile_pair_cuda(x: torch.Tensor, q0: float, q1: float) -> torch.Tensor:
     """The kernel: x [H, W] float32 on a CUDA device (rows may be strided,
-    columns contiguous). -> [2] float32 on the device."""
+    columns contiguous). One launch, one device operation. -> [2] float32
+    on the device."""
     require_cuda("quantile_pair_cuda", x)
     rows, cols, ld = _matrix_view("quantile_pair_cuda", x)
-    qhist = torch.empty(QHIST_BINS, dtype=torch.int32, device=x.device)
+    scratch = torch.empty(QHIST_BINS + 1, dtype=torch.int32, device=x.device)
     out = torch.empty(2, dtype=torch.float32, device=x.device)
     rc = lib().vd3d_quantile_pair(x.data_ptr(), rows, cols, ld, float(q0), float(q1),
-                                  qhist.data_ptr(), out.data_ptr(), stream_of(x))
+                                  scratch.data_ptr(), out.data_ptr(), stream_of(x))
     check(rc, "quantile_pair_cuda")
     launch_counts["quantile_pair"] += 1
     return out
@@ -61,9 +68,6 @@ def subject_stats_cuda(crop: torch.Tensor):
     -> (hist [64], count, median), views of it on the device."""
     require_cuda("subject_stats_cuda", crop)
     rows, cols, ld = _matrix_view("subject_stats_cuda", crop)
-    if rows * cols > 2**31 - 2**13:  # int32 item indices, 4 x 1024 of them ahead
-        raise ValueError(f"subject_stats_cuda: {rows} x {cols} values exceed the kernel's "
-                         f"int32 indexing")
     out = torch.empty(SUBJECT_BINS + 2, dtype=torch.float32, device=crop.device)
     rc = lib().vd3d_subject_stats(crop.data_ptr(), rows, cols, ld, out.data_ptr(),
                                   stream_of(crop))
@@ -89,10 +93,13 @@ def subject_stats(crop: torch.Tensor):
 
 def _matrix_view(what: str, x: torch.Tensor) -> tuple[int, int, int]:
     """(rows, cols, row stride) of a 2-D float32 view with unit column
-    stride; raises on anything else."""
+    stride and at most MAX_ITEMS values; raises on anything else."""
     if x.ndim != 2 or x.dtype != torch.float32:
         raise TypeError(f"{what}: expected a 2-D float32 tensor, got "
                         f"{x.dtype} {tuple(x.shape)}")
     if x.stride(1) != 1:
         raise ValueError(f"{what}: columns must be contiguous")
+    if x.numel() > MAX_ITEMS:
+        raise ValueError(f"{what}: {x.shape[0]} x {x.shape[1]} values exceed the kernel's "
+                         f"int32 indexing")
     return x.shape[0], x.shape[1], x.stride(0)
