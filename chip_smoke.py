@@ -26,7 +26,8 @@ Phases, each printed on its own line; any failure exits nonzero:
      192-channel buffer, output written into a slice of it), K6 (DOF +
      grade) at 1080p, both eyes, dof_strength 2 and 5, all in focus and all
      out of focus, K7 (attention) at the depth model's shapes
-     [16|8|2, 1370, 6, 64] and a padded [2, 270, 3, 64];
+     [16|8|2, 1370, 6, 64], ViT-B's and ViT-L's [8, 1370, 12|16, 64] and a
+     padded [2, 270, 3, 64];
   4. (render) the render path: a synthetic 1920x1080 y4m clip of 64 frames
      through render_stereo_video with the benchmark configuration (Depth
      Anything V2-Small, random weights from a seed, 518^2, bf16, fast head;
@@ -49,10 +50,28 @@ Phases, each printed on its own line; any failure exits nonzero:
      kernels (none in the ESRGAN trunk);
   8. (parity) kernels against plain versions over whole paths, on the CPU
      (plain versions) and on the card: a 256x144 render without and with
-     depth of field, the depth route with the attention opt-in, and a 128x72
-     frame-tools run;
-  9. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
-     render (also with --dof_strength 2) / depth / tools ...
+     depth of field and in each other output format, the depth route with
+     the attention opt-in, and a 128x72 frame-tools run;
+  9. (surface) the render configuration of phase 4 in the other output
+     formats (Half-SBS, VR, Red-Cyan Anaglyph in both channel conventions,
+     Passive Interlaced; 16 frames each, K1-K4 launches gated per frame,
+     fps and the profiler's device time printed), a clip whose frames 5-9
+     are black with skip_blank_frames (those frames' two halves equal bit
+     for bit, their neighbours' not), a letterboxed clip (138 black rows at
+     top and bottom) with auto_crop_black_bars, and a 48-frame render
+     cancelled after its second chunk and resumed, byte-identical to an
+     unbroken render;
+ 10. (catalog) Depth Anything V2-Large (random weights from seed 0, 518^2,
+     bf16, fast head) through the fused 1080p Full-SBS render (32 frames,
+     chunks of 16; fps, device time, busy share, K1-K4 launches gated per
+     frame); V2-Base and V2-Large through the depth route with the K7
+     opt-in (16 frames, batch 8: 12 and 24 K7 launches per model call); one
+     518^2 frame through V2-Large in float32 on the CPU and on the card
+     (TF32 off), the route's u8 depth within a mean of 1 u8;
+ 11. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
+     render (also with --dof_strength 2, --format "Red-Cyan Anaglyph",
+     --preset best3d --dry-run, and --control FILE with 'cancel' written
+     once frames come out) / depth / tools ...
 
 Optional, run only when named: (k2shapes) K2 built at other strip widths,
 rows per step and CTAs per SM, each checked and timed against the default
@@ -67,7 +86,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import filecmp
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -108,7 +129,8 @@ RENDER_KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats
 DOF_KERNELS = ("dof_grade",)
 DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
-ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "parity", "cli")
+ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "surface",
+              "catalog", "parity", "cli")
 OPTIONAL_PHASES = ("k2shapes",)  # run only when named
 H, W = 1080, 1920
 
@@ -147,16 +169,28 @@ HAND_KERNELS = ("stereo_warp_kernel", "feather_heal_kernel", "quantile_pair_kern
 _PREDICTORS: dict = {}
 
 
-def da_predictor(device: str = "cuda", dtype: str = "bfloat16"):
-    """Depth Anything V2-Small at 518^2, fast head, random weights from
-    seed 0: one instance per (device, dtype), shared by the phases."""
-    if (device, dtype) not in _PREDICTORS:
-        from visiondepth3d_tpu_torch.depth.registry import load_predictor
+def da_predictor(device: str = "cuda", dtype: str = "bfloat16",
+                 model: str = "depth-anything-v2-small"):
+    """A catalog model (Depth Anything V2-Small unless named) at 518^2,
+    fast head, random weights from seed 0: one instance per (model,
+    device, dtype), shared by the phases."""
+    key = (model, device, dtype)
+    if key not in _PREDICTORS:
+        from visiondepth3d_tpu_torch.depth.registry import CATALOG, load_predictor
 
-        _PREDICTORS[device, dtype] = load_predictor(
-            "depth-anything-v2-small", None, inference_size=518, seed=0, dtype=dtype,
-            device=device, fast_head=True)
-    return _PREDICTORS[device, dtype]
+        expect(model in CATALOG, f"{model} is not in the port's catalog")
+        _PREDICTORS[key] = load_predictor(model, None, inference_size=518, seed=0,
+                                          dtype=dtype, device=device, fast_head=True)
+    return _PREDICTORS[key]
+
+
+def drop_predictors(model: str):
+    """Free a model's predictors (the catalog phase's large ones)."""
+    import torch
+
+    for key in [k for k in _PREDICTORS if k[0] == model]:
+        del _PREDICTORS[key]
+    torch.cuda.empty_cache()
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -669,9 +703,10 @@ def phase_dof_kernel(card: str, results: dict):
 
 
 # K7 at the depth route's shapes: [B, N, H, D] and type. B 8 is the depth
-# route's batch, 16 the render's chunk; [2, 270, 3, 64] pads 270 keys to
-# whole 64-key tiles.
+# route's batch, 16 the render's chunk; H 6, 12 and 16 are ViT-S, ViT-B and
+# ViT-L; [2, 270, 3, 64] pads 270 keys to whole 64-key tiles.
 ATTN_SHAPES = (((16, 1370, 6, 64), "bfloat16"), ((8, 1370, 6, 64), "bfloat16"),
+               ((8, 1370, 12, 64), "bfloat16"), ((8, 1370, 16, 64), "bfloat16"),
                ((2, 1370, 6, 64), "float32"), ((2, 270, 3, 64), "bfloat16"),
                ((2, 270, 3, 64), "float32"))
 
@@ -863,7 +898,9 @@ def conv_dense_block_views(card: str, dt, gen):
     torch.cuda.empty_cache()
 
 
-def write_clip(path, w, h, n, fps=24.0):
+def write_clip(path, w, h, n, fps=24.0, blank=(), bars=0):
+    """A synthetic clip: gradients and a moving box; the frames in ``blank``
+    all black, ``bars`` black rows at the top and the bottom of each."""
     import numpy as np
 
     from visiondepth3d_tpu_torch.io import Y4MWriter
@@ -877,7 +914,25 @@ def write_clip(path, w, h, n, fps=24.0):
             f[..., 2] = 100
             x0 = w // 8 + (w // 64) * i % (w // 2)
             f[h // 4: h // 2, x0: x0 + w // 6] = (240, 50, 50)
+            if bars:
+                f[:bars] = 0
+                f[h - bars:] = 0
+            if i in blank:
+                f[:] = 0
             wr.write(f)
+
+
+def read_planes(path):
+    """A y4m's (Y, U, V) planes, each stacked over the frames."""
+    import numpy as np
+
+    from visiondepth3d_tpu_torch.io import Y4MPlaneReader
+
+    with Y4MPlaneReader(str(path)) as rd:
+        frames = []
+        while (f := rd.read()) is not None:
+            frames.append(f)
+    return tuple(np.stack(p) for p in zip(*frames))
 
 
 def read_clip(path):
@@ -1162,8 +1217,8 @@ def ssim_gray(a, b) -> float:
 
 def phase_parity(card: str, tmp: Path):
     """The same small runs on the CPU (plain versions) and on the card: the
-    render without and with depth of field (K1-K4, and K6), and the depth
-    route with the attention opt-in (K7)."""
+    render without and with depth of field (K1-K4, and K6) and in each other
+    output format, and the depth route with the attention opt-in (K7)."""
     import numpy as np
     import torch
 
@@ -1182,8 +1237,9 @@ def phase_parity(card: str, tmp: Path):
     clip = tmp / "small.y4m"
     write_clip(clip, 256, 144, 4)
 
-    def render(device, params, out):
-        cfg = RenderConfig(preserve_original_aspect=True, chunk_size=4, device=device)
+    def render(device, params, out, fmt="Full-SBS", bgr=False):
+        cfg = RenderConfig(output_format=fmt, anaglyph_bgr_convention=bgr,
+                           preserve_original_aspect=True, chunk_size=4, device=device)
         render_stereo_video(clip, None, out, params, cfg,
                             predictor=da_predictor(device, "float32"))
 
@@ -1202,6 +1258,12 @@ def phase_parity(card: str, tmp: Path):
          RENDER_KERNELS + DOF_KERNELS, (4, 144, 512, 3)),
         ("depth K7", depth_route, DEPTH_KERNELS, (4, 144, 256, 3)),
     )
+    # the other output formats (preserve-aspect geometry of a 256x144 clip)
+    shapes = {"Half-SBS": (4, 144, 256, 3), "VR": (4, 1600, 2880, 3),
+              "Red-Cyan Anaglyph": (4, 144, 256, 3), "Passive Interlaced": (4, 144, 256, 3)}
+    cases += tuple((f"render {fmt}{' BGR' if bgr else ''}",
+                    lambda dev, out, fmt=fmt, bgr=bgr: render(dev, base, out, fmt, bgr),
+                    RENDER_KERNELS, shapes[fmt]) for fmt, bgr in SURFACE_FORMATS)
     for name, run, kernels, shape in cases:
         outs = {}
         for device in ("cpu", "cuda"):
@@ -1375,6 +1437,247 @@ def phase_tools_parity(tmp: Path):
     expect(mean <= 1.0 and ssim >= 0.99, "CPU and card tools runs disagree")
 
 
+# the surface phase's formats: (format, anaglyph BGR convention)
+SURFACE_FORMATS = (("Half-SBS", False), ("VR", False), ("Red-Cyan Anaglyph", False),
+                   ("Red-Cyan Anaglyph", True), ("Passive Interlaced", False))
+# K1-K4 launches per rendered frame on every format
+PER_FRAME = {"stereo_warp": 1, "feather_heal": 1, "quantile_pair": 2, "subject_stats": 3}
+
+
+def counted_render(clip, out, params, cfg, predictor, n_frames: int, what: str, **kw):
+    """One render with the launch counts zeroed just before it and read just
+    after; K1-K4 gated per frame, no other kernel. Returns (wall s, progress)."""
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import render_stereo_video
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    prog = render_stereo_video(clip, None, out, params, cfg, predictor=predictor, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    want = {k: (PER_FRAME.get(k, 0) * n_frames) for k in counts}
+    expect(counts == want, f"{what}: launches {counts}, want {want} ({n_frames} frames)")
+    return wall, prog
+
+
+def phase_surface(card: str, tmp: Path):
+    """The render configuration of phase render in the other output formats,
+    with blank frames, with a black-bar crop, and cancelled and resumed."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.io import blackdetect, open_video
+    from visiondepth3d_tpu_torch.pipeline.geometry import resolve_geometry
+    from visiondepth3d_tpu_torch.pipeline.resume import checkpoint_path
+    from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import (RenderConfig,
+                                                                  _detect_black_bars_host)
+    from visiondepth3d_tpu_torch.stereo.params import StereoParams
+
+    pred = da_predictor()
+    params = StereoParams(enable_healing=True, image_dtype="bfloat16")
+    base = RenderConfig(output_format="Full-SBS", output_height=1080, chunk_size=16,
+                        device="cuda")
+    n = 16
+    clip = tmp / "surface_1080p.y4m"
+    write_clip(clip, W, H, n)
+    for fmt, bgr in SURFACE_FORMATS:
+        cfg = dataclasses.replace(base, output_format=fmt, anaglyph_bgr_convention=bgr)
+        tag = fmt.replace(" ", "_") + ("_bgr" if bgr else "")
+        out = tmp / f"surface_{tag}.y4m"
+        counted_render(warm_clip(tmp), tmp / "surface_warm.y4m", params, cfg, pred, 16,
+                       f"{tag} warm-up")
+        wall, _ = counted_render(clip, out, params, cfg, pred, n, tag)
+        geom = resolve_geometry(W, H, fmt, 1080)
+        ow, oh, frames = read_clip(out)
+        expect((ow, oh) == (geom.out_w, geom.out_h) and frames is not None
+               and frames.shape[0] == n and float(frames.std()) > 1.0,
+               f"{tag}: output {ow}x{oh} with {0 if frames is None else frames.shape[0]} "
+               f"frames, want {geom.out_w}x{geom.out_h} x {n}, not flat")
+        prof = device_profile(lambda: counted_render(clip, tmp / "surface_prof.y4m", params,
+                                                     cfg, pred, n, f"{tag} profiled"))
+        say(f"PHASE surface {fmt}{' (BGR convention)' if bgr else ''}: {n} frames 1920x1080 "
+            f"-> {ow}x{oh}, {n / wall:.2f} fps end to end, launches per frame "
+            f"{json.dumps(PER_FRAME)}; profiled run: {fmt_profile(prof, 1e3 * wall)} [{card}]")
+        del frames
+
+    # blank frames 5-9 in Full-SBS: both eyes carry the same source
+    blank_clip = tmp / "blank_1080p.y4m"
+    write_clip(blank_clip, W, H, n, blank=range(5, 10))
+    cfg = dataclasses.replace(base, skip_blank_frames=True)
+    wall, _ = counted_render(blank_clip, tmp / "blank_sbs.y4m", params, cfg, pred, n,
+                             "blank frames")
+    detector = "ffmpeg blackdetect" if blackdetect.ff.have_ffmpeg() else "frame scan"
+    blank = set(blackdetect.detect_blank_frames(str(blank_clip), 24.0))  # the render's cache
+    expect(set(range(5, 10)) <= blank, f"blank frames detected {sorted(blank)}, want 5-9")
+    planes = read_planes(tmp / "blank_sbs.y4m")
+    equal = [all(np.array_equal(p[i, :, : p.shape[2] // 2], p[i, :, p.shape[2] // 2:])
+                 for p in planes) for i in range(n)]
+    expect(all(equal[i] == (i in blank) for i in range(n)),
+           f"halves equal on frames {[i for i in range(n) if equal[i]]}, blank {sorted(blank)}")
+    expect(not equal[4] and not equal[max(blank) + 1],
+           "the frames before and after the blank run have equal halves")
+    say(f"PHASE surface blank frames: {n} frames Full-SBS, blank {sorted(blank)} ({detector}): "
+        f"left half == right half bit for bit (Y, U, V) on exactly those frames, "
+        f"{n / wall:.2f} fps [{card}]")
+    del planes
+
+    # letterbox: 138 black rows top and bottom, cropped before the aspect crop
+    bars_clip = tmp / "bars_1080p.y4m"
+    write_clip(bars_clip, W, H, n, bars=138)
+    with open_video(bars_clip) as rd:
+        top, bottom = _detect_black_bars_host(rd.read())
+    expect((top, bottom) == (138, 138), f"black bars detected {(top, bottom)}, want (138, 138)")
+    geom = resolve_geometry(W, H, "Full-SBS", 1080, crop_black_top=top, crop_black_bottom=bottom)
+    cfg = dataclasses.replace(base, auto_crop_black_bars=True)
+    counted_render(bars_clip, tmp / "bars_sbs.y4m", params, cfg, pred, n, "black-bar crop")
+    y = read_planes(tmp / "bars_sbs.y4m")[0]
+    rows = y[:, :, : W].mean(axis=(0, 2))  # the left eye's rows
+    expect(y.shape == (n, geom.out_h, geom.out_w) and rows[:8].min() > 10
+           and rows[-8:].min() > 10,
+           f"black-bar crop: output {y.shape}, top rows {rows[:8].min():.1f} bottom rows "
+           f"{rows[-8:].min():.1f} (want luma > 10: the bars cropped away)")
+    say(f"PHASE surface black bars: detected (top, bottom) = ({top}, {bottom}) on the first "
+        f"frame; crop x {geom.crop_x} y {geom.crop_y} {geom.crop_w}x{geom.crop_h} -> "
+        f"{geom.out_w}x{geom.out_h}; output rows nearest the bars: luma "
+        f"{rows[:8].min():.1f} / {rows[-8:].min():.1f} [{card}]")
+    del y
+
+    # resume: cancelled after its second chunk, continued from the sidecar
+    n_resume = 48
+    res_clip = tmp / "resume_1080p.y4m"
+    write_clip(res_clip, W, H, n_resume)
+    cfg = dataclasses.replace(base, checkpoint_every_chunks=1)
+    counted_render(res_clip, tmp / "resume_full.y4m", params, cfg, pred, n_resume, "unbroken")
+    calls = {"n": 0}
+
+    def cancel():
+        calls["n"] += 1
+        return calls["n"] > 2
+
+    part = tmp / "resume_part.y4m"
+    counted_render(res_clip, part, params, cfg, pred, 32, "cancelled", cancel_check=cancel)
+    expect(checkpoint_path(part).exists(), "the cancelled render left no checkpoint")
+    _, prog = counted_render(res_clip, part, params, dataclasses.replace(cfg, resume=True),
+                             pred, 16, "resumed")
+    same = filecmp.cmp(part, tmp / "resume_full.y4m", shallow=False)
+    if not same:
+        a, b = read_planes(part)[0], read_planes(tmp / "resume_full.y4m")[0]
+        diff = [i for i in range(min(len(a), len(b))) if not np.array_equal(a[i], b[i])]
+        raise PhaseError(f"resumed render differs from the unbroken one: {len(a)} vs {len(b)} "
+                         f"frames, Y differs on frames {diff[:8]}")
+    expect(prog.frames_done == n_resume and not checkpoint_path(part).exists(),
+           f"resumed render: {prog.frames_done} frames, checkpoint left behind")
+    say(f"PHASE surface resume: {n_resume}-frame Full-SBS render cancelled after 2 chunks "
+        f"(32 frames, checkpoint every chunk), resumed from frame 32: byte-identical to the "
+        f"unbroken render ({os.path.getsize(part)} bytes) [{card}]")
+    torch.cuda.empty_cache()
+
+
+def phase_catalog(card: str, tmp: Path):
+    """Depth Anything V2-Large through the fused 1080p render; V2-Base and
+    V2-Large through the depth route with the K7 opt-in; V2-Large in float32
+    on the CPU against the card."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
+                                                                 make_depth_batch_fn,
+                                                                 render_depth_video_file)
+    from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import RenderConfig
+    from visiondepth3d_tpu_torch.stereo.params import StereoParams
+
+    large = "depth-anything-v2-large"
+    pred = da_predictor("cuda", "bfloat16", large)
+    params = StereoParams(enable_healing=True, image_dtype="bfloat16")
+    cfg = RenderConfig(output_format="Full-SBS", output_height=1080, chunk_size=16,
+                       device="cuda")
+    n = 32
+    clip = tmp / "catalog_1080p.y4m"
+    write_clip(clip, W, H, n)
+    counted_render(warm_clip(tmp), tmp / "catalog_warm.y4m", params, cfg, pred, 16,
+                   "V2-Large warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    walls = [counted_render(clip, tmp / "catalog_sbs.y4m", params, cfg, pred, n,
+                            "V2-Large render")[0] for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    ow, oh, out = read_clip(tmp / "catalog_sbs.y4m")
+    expect((ow, oh) == (2 * W, H) and out.shape[0] == n, f"V2-Large output {ow}x{oh}")
+    halves = float(abs(out[:, :, :W].astype(int) - out[:, :, W:].astype(int)).mean())
+    expect(halves > 0.1, f"V2-Large render: identical halves (mean |L-R| {halves})")
+    del out
+    prof = device_profile(lambda: counted_render(clip, tmp / "catalog_prof.y4m", params, cfg,
+                                                 pred, n, "V2-Large profiled"))
+    per_frame = "not measured" if prof is None else f"{prof['device_ms'] / n:.3f} ms"
+    say(f"PHASE catalog render: DA-V2-Large (24 layers, 1024 wide, 16 heads) 518^2 bf16 fast "
+        f"head, {n} frames 1920x1080 -> {ow}x{oh} Full-SBS, chunks of 16, 2 runs: "
+        f"{', '.join(f'{n / w:.2f}' for w in walls)} fps end to end, device time per frame "
+        f"{per_frame}, launches per frame {json.dumps(PER_FRAME)}, mean |L-R| {halves:.2f}, "
+        f"peak allocated {peak / 2**30:.3f} GiB; profiled run: "
+        f"{fmt_profile(prof, 1e3 * min(walls))} [{card}]")
+
+    # the depth route at ViT-B and ViT-L widths with the K7 opt-in
+    dclip = tmp / "catalog_depth_1080p.y4m"
+    n_depth = 16
+    write_clip(dclip, W, H, n_depth)
+    dcfg = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda")
+    try:
+        attn_ops.USE_VMEM_KERNEL = True
+        for model in ("depth-anything-v2-base", large):
+            dpred = da_predictor("cuda", "bfloat16", model)
+            layers = dpred.cfg.backbone.num_layers
+            render_depth_video_file(warm_clip(tmp), tmp / "catalog_depth_warm.y4m", dcfg,
+                                    predictor=dpred)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = render_depth_video_file(dclip, tmp / "catalog_depth.y4m", dcfg, predictor=dpred)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            calls = -(-n_depth // dcfg.batch_size)
+            want = {k: (layers * calls if k == "vmem_attention" else 0) for k in counts}
+            expect(got == n_depth and counts == want,
+                   f"{model} depth route: {got} frames, launches {counts}, want {want}")
+            ow, oh, dout = read_clip(tmp / "catalog_depth.y4m")
+            expect((ow, oh) == (W, H) and float(dout[..., 0].std()) > 1.0,
+                   f"{model} depth output {ow}x{oh} flat or misshapen")
+            say(f"PHASE catalog depth {model}: {n_depth} frames 1920x1080, 518^2 bf16 fast "
+                f"head, batch 8, K7 opt-in ({dpred.cfg.backbone.num_heads} heads): "
+                f"{n_depth / wall:.2f} fps, K7 launches {counts['vmem_attention']} "
+                f"({layers} per model call x {calls}) [{card}]")
+            if model != large:
+                drop_predictors(model)
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+
+    # one 518^2 frame through V2-Large in float32: CPU against the card
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        frame = (smooth_frame(torch.Generator().manual_seed(11), 518, 518, "cpu") * 255
+                 ).round().to(torch.uint8)[None]
+        depth = {}
+        for device in ("cpu", "cuda"):
+            fpred = da_predictor(device, "float32", large)
+            fn = make_depth_batch_fn(fpred, DepthConfig(device=device), (518, 518))
+            depth[device] = fn(frame.to(device)).cpu().numpy().astype(np.int16)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        drop_predictors(large)
+    d = float(np.abs(depth["cpu"] - depth["cuda"]).mean())
+    expect(depth["cpu"].std() > 1.0 and d <= 1.0,
+           f"V2-Large float32 depth: CPU vs card mean |d| {d:.4f} u8 (need <= 1)")
+    say(f"PHASE catalog parity: DA-V2-Large 518^2 float32 (TF32 off), one frame, CPU vs card "
+        f"after the depth route's u8 rounding: mean |d| {d:.4f} u8 (need <= 1), max "
+        f"{int(np.abs(depth['cpu'] - depth['cuda']).max())} [{card}]")
+
+
+
 def phase_cli(tmp: Path):
     clip = tmp / "small.y4m"
     out = tmp / "cli_sbs.y4m"
@@ -1401,6 +1704,61 @@ def phase_cli(tmp: Path):
                f"frames")
         say(f"PHASE cli: vd3d-torch {sub} {' '.join(extra)} -> {w}x{h}, {frames.shape[0]} "
             f"frames")
+    # the new render flags: an anaglyph, a builtin preset's dry run, and a
+    # control file that cancels once the first frames are in the output
+    out = tmp / "cli_anaglyph.y4m"
+    cmd = [sys.executable, "-m", "visiondepth3d_tpu_torch", "render", "--input", str(clip),
+           "--allow-random", "--device", "cuda", "--output", str(out), "--preserve-aspect",
+           "--chunk-size", "4", "--format", "Red-Cyan Anaglyph"]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    expect(res.returncode == 0, f"anaglyph CLI rc={res.returncode}: {res.stderr[-2000:]}")
+    w, h, frames = read_clip(out)
+    expect((w, h) == (256, 144) and frames is not None and frames.shape[0] == 4,
+           f"anaglyph CLI output {w}x{h} with {0 if frames is None else frames.shape[0]} frames")
+    say(f"PHASE cli: vd3d-torch render --format 'Red-Cyan Anaglyph' -> {w}x{h}, "
+        f"{frames.shape[0]} frames")
+    cmd = [sys.executable, "-m", "visiondepth3d_tpu_torch", "render", "--input", str(clip),
+           "--preset", "best3d", "--dry-run", "--device", "cuda"]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    expect(res.returncode == 0, f"dry-run CLI rc={res.returncode}: {res.stderr[-2000:]}")
+    dry = json.loads(res.stdout)
+    expect(dry["params"]["fg_shift"] == 12.0 and dry["params"]["blur_ksize"] == 9.0
+           and dry["output"].endswith("_Full-SBS.y4m"), f"dry-run JSON {res.stdout[:400]}")
+    say(f"PHASE cli: vd3d-torch render --preset best3d --dry-run -> {len(dry['params'])} "
+        f"parameters (fg_shift {dry['params']['fg_shift']}), output {Path(dry['output']).name}")
+    long_clip, ctl, out = tmp / "cli_long.y4m", tmp / "cli_control", tmp / "cli_control.y4m"
+    n_long = 64
+    write_clip(long_clip, 256, 144, n_long)
+    ctl.write_text("run")
+    cmd = [sys.executable, "-m", "visiondepth3d_tpu_torch", "render", "--input",
+           str(long_clip), "--allow-random", "--device", "cuda", "--output", str(out),
+           "--preserve-aspect", "--chunk-size", "1", "--control", str(ctl)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=ROOT)
+    try:
+        header, record = 0, 6 + 512 * 144 * 3 // 2
+        deadline = time.time() + 600
+        while proc.poll() is None and time.time() < deadline:
+            if out.exists() and not header:
+                with open(out, "rb") as f:
+                    line = f.readline()
+                header = len(line) if line.endswith(b"\n") else 0
+            if header and os.path.getsize(out) >= header + record:
+                ctl.write_text("cancel")  # the first frame is out
+                break
+            time.sleep(0.002)
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    expect(proc.returncode == 0, f"control CLI rc={proc.returncode}: {err[-2000:]}")
+    w, h, frames = read_clip(out)
+    got = 0 if frames is None else frames.shape[0]
+    expect((w, h) == (512, 144) and 1 <= got < n_long,
+           f"control CLI output {w}x{h} with {got} frames, want 1..{n_long - 1} (cancelled)")
+    say(f"PHASE cli: vd3d-torch render --control FILE: 'cancel' written once the first frame "
+        f"was in the output; stopped after {got} of {n_long} frames -> {w}x{h}")
     out = tmp / "cli_tools.y4m"
     cmd = [sys.executable, "-m", "visiondepth3d_tpu_torch", "tools", "--input", str(clip),
            "--output", str(out), "--esrgan", "--rife", "--allow-random-weights",
@@ -1457,6 +1815,9 @@ def main(argv=None) -> int:
                 if name in phases:
                     run_counts = timed(name, fn, card, tmp)
                     counts.update({k: run_counts[k] for k in path_kernels})
+            for name, fn in (("surface", phase_surface), ("catalog", phase_catalog)):
+                if name in phases:
+                    timed(name, fn, card, tmp)
             if "parity" in phases:
                 timed("parity", phase_parity, card, tmp)
                 timed("parity tools", phase_tools_parity, tmp)

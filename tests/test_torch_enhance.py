@@ -351,10 +351,17 @@ def test_tools_cli_cpu(tmp_path):
     assert rc == 0
     fps, frames = _read(out)
     assert frames.shape == (5, 24, 32, 3) and abs(fps - 48.0) < 1e-3
-    for flag in (["--mesh", "dp=2"], ["--control", str(tmp_path / "ctl")]):
-        with pytest.raises(NotImplementedError):
-            cli_main(["tools", "--input", str(src), "--rife", "--allow-random-weights",
-                      "--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError):
+        cli_main(["tools", "--input", str(src), "--rife", "--allow-random-weights",
+                  "--device", "cpu", "--mesh", "dp=2"])
+    # --control is ported: 'cancel' stops before the first chunk
+    (tmp_path / "ctl").write_text("cancel")
+    out = tmp_path / "cancelled.y4m"
+    assert cli_main(["tools", "--input", str(src), "--output", str(out), "--rife",
+                     "--allow-random-weights", "--device", "cpu", "--control",
+                     str(tmp_path / "ctl")]) == 0
+    with Y4MReader(str(out)) as rd:
+        assert rd.count() == 0
 
 
 def test_entry_points_default_to_the_card(tmp_path):

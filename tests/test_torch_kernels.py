@@ -931,3 +931,27 @@ def test_cuda_conv_on_dense_block_slices(cuda, dtype, k):
         assert err.max().item() <= 1e-4 * scale
     else:
         assert err.max().item() <= 8e-3 * scale and err.mean().item() <= 1e-3 * scale
+
+
+# ---------------------------------------------------------------- K7 attention
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [12, 16])
+def test_cuda_vmem_attention_vit_widths(cuda, dtype, heads):
+    """K7 at the head counts of ViT-B (12) and ViT-L (16), which the depth
+    route's opt-in now sends to it, at 1370 tokens (518^2 / 14^2 + 1):
+    against its plain version under the gates of the depth route's card
+    case (float32 max <= 1e-5; bf16 max <= 1.6e-2, mean <= 1e-3)."""
+    from visiondepth3d_tpu_torch.kernels import attention as kattention
+
+    gen = torch.Generator().manual_seed(heads)
+    q, k, v = (torch.randn(2, 1370, heads, 64, generator=gen).to(cuda, dtype) for _ in range(3))
+    got = kattention.vmem_attention(q, k, v)
+    ref = kattention.vmem_attention_torch(q, k, v)
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        assert err.max().item() <= 1.6e-2 and err.mean().item() <= 1e-3

@@ -334,6 +334,16 @@ def test_formats(name):
     _run(FORMATS[name])
 
 
-def test_unported_format_raises():
-    with pytest.raises(NotImplementedError):
-        tformats.format_3d_output(torch.zeros(4, 4, 3), torch.zeros(4, 4, 3), "VR")
+def test_unknown_format_packs_like_jax():
+    """A format name outside FORMATS does not raise: as in the JAX package,
+    the eyes are letterboxed and put side by side (the Full-SBS layout)."""
+    a, b = _frame(), _frame(seed=5)
+    want = jformats.format_3d_output(*jformats.pack_per_eye(jnp.asarray(a), jnp.asarray(b),
+                                                            "Over-Under", 64, 48),
+                                     "Over-Under")
+    got = tformats.format_3d_output(*tformats.pack_per_eye(torch.from_numpy(a),
+                                                           torch.from_numpy(b),
+                                                           "Over-Under", 64, 48),
+                                    "Over-Under")
+    assert tuple(got.shape) == (48, 128, 3)
+    _check(got, want, F32)

@@ -107,13 +107,28 @@ def test_cli_render_cpu(clip, tmp_path):
     assert np.abs(frames[:, :, :64].astype(int) - frames[:, :, 64:].astype(int)).mean() > 0
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "dp=2"], ["--skip-blank-frames"],
-                                  ["--auto-crop-black-bars"], ["--format", "VR"],
-                                  ["--format", "Passive Interlaced"]])
-def test_cli_unported_features_raise(clip, tmp_path, flag):
-    with pytest.raises(NotImplementedError):
-        cli_main(["render", "--input", str(clip), "--allow-random", "--device", "cpu",
-                  "--output", str(tmp_path / "x.y4m"), "--inference-size", str(SIZE), *flag])
+# the render flags that raised before they were ported, and the output each
+# gives now; --mesh other than off still raises
+CLI_FEATURES = {"mesh": (["--mesh", "dp=2"], None),
+                "skip_blank_frames": (["--skip-blank-frames"], (6, 48, 128, 3)),
+                "auto_crop_black_bars": (["--auto-crop-black-bars"], (6, 48, 128, 3)),
+                "vr": (["--format", "VR"], (6, 1600, 2880, 3)),
+                "interlaced": (["--format", "Passive Interlaced"], (6, 48, 64, 3))}
+
+
+@pytest.mark.parametrize("feature", sorted(CLI_FEATURES))
+def test_cli_render_features(clip, tmp_path, feature):
+    flag, shape = CLI_FEATURES[feature]
+    argv = ["render", "--input", str(clip), "--allow-random", "--device", "cpu", "--output",
+            str(tmp_path / "x.y4m"), "--inference-size", str(SIZE), "--preserve-aspect",
+            "--chunk-size", "4", *flag]
+    if shape is None:
+        with pytest.raises(NotImplementedError):
+            cli_main(argv)
+        return
+    assert cli_main(argv) == 0
+    frames = _read(tmp_path / "x.y4m")
+    assert frames.shape == shape and frames.std() > 1.0
 
 
 def test_cli_render_dof_cpu(clip, tmp_path):
@@ -184,6 +199,21 @@ with tempfile.TemporaryDirectory() as td:
                            device="cpu")
         assert render_depth_video_file(td + "/in.y4m", td + "/depth.y4m", dcfg,
                                        predictor=big) == 3
+    # the render surface: a preset, blank frames, black bars, a cancelled
+    # render resumed, a batch pairing, the control file
+    from visiondepth3d_tpu_torch.config import load_builtin
+    from visiondepth3d_tpu_torch.pipeline.batch import pair_videos_with_depth
+    from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import render_stereo_video
+    from visiondepth3d_tpu_torch.utils.observability import make_control_check
+    params, rcfg = load_builtin("best3d")
+    rcfg.__dict__.update(device="cpu", preserve_original_aspect=True, chunk_size=1,
+                         skip_blank_frames=True, auto_crop_black_bars=True,
+                         checkpoint_every_chunks=1, output_format="Red-Cyan Anaglyph")
+    render_stereo_video(td + "/in.y4m", None, td + "/sbs.y4m", params, rcfg, predictor=pred,
+                        cancel_check=make_control_check(td + "/no-such-file"))
+    rcfg.resume = True
+    render_stereo_video(td + "/in.y4m", None, td + "/sbs.y4m", params, rcfg, predictor=pred)
+    assert pair_videos_with_depth(td, td, td) == []
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
 assert not bad, bad

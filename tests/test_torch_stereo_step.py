@@ -191,3 +191,54 @@ def test_unported_dof_raises():
         with pytest.raises(ValueError):
             stereo_frame_step(TParams(dof_strength=dof_strength, dof_backend="cuda"),
                               tinit(8, 8, "cpu"), frame, depth)
+
+
+BLANK_CASES = {"parity": ("parity", None), "shipped": ("shipped", None),
+               "shipped_half_sbs": ("shipped", (H, W // 2))}
+
+
+@pytest.mark.parametrize("case", sorted(BLANK_CASES))
+def test_blank_frame_passthrough(case):
+    """A chunk with blank frames (1 and 2 of 5) through render_chunk on both
+    sides, under the gates of test_stereo_step_matches_jax: every tracker
+    after the chunk, both eyes of every frame. The floating-window and focal
+    trackers must hold over the blank frames, the others still step (the
+    convergence EMA and the bar easer too); a blank frame's two eyes are
+    the warp-size source through the same side mask and sharpen, so they
+    are equal, and a Half-SBS warp (half the eye's width) makes the source
+    the resized frame."""
+    config, warp_hw = BLANK_CASES[case]
+    kw = dict(CONFIGS[config], warp_hw=warp_hw)
+    width = W if warp_hw is None else warp_hw[1]
+    jp = JParams(**kw).with_shift_bound(width)
+    tp = TParams(**{**kw, "warp_backend": kw.get("warp_backend", "auto")}).with_shift_bound(width)
+    frames, depths = (a[:5] for a in _clip(seed=3))
+    blanks = np.array([False, True, True, False, False])
+    if config == "parity":
+        with jax.disable_jit():
+            jt, jout = jrender_chunk(jp, jinit(H, W), jnp.asarray(frames), jnp.asarray(depths),
+                                     jnp.asarray(blanks))
+    else:
+        jt, jout = jax.jit(lambda t, f, d, b: jrender_chunk(jp, t, f, d, b))(
+            jinit(H, W), jnp.asarray(frames), jnp.asarray(depths), jnp.asarray(blanks))
+    tt, tout = render_chunk(tp, tinit(H, W, "cpu"), torch.from_numpy(frames),
+                            torch.from_numpy(depths), torch.from_numpy(blanks))
+    _check_trackers(config, jt, tt, "chunk end")
+    assert tout.left.shape == (5, H, width, 3)
+    for name in ("left", "right"):
+        a = np.asarray(getattr(jout, name), np.float32)
+        b = getattr(tout, name).float().numpy()
+        for i in range(5):
+            _check_eye(config, a[i], b[i], (i, name))
+    for i in (1, 2):
+        torch.testing.assert_close(tout.left[i], tout.right[i], atol=0, rtol=0)
+    assert (tout.left[0] - tout.right[0]).abs().max() > 0.01
+    # the frozen trackers against a run without blanks: frame 0 alone moves them
+    t1, _ = render_chunk(tp, tinit(H, W, "cpu"), torch.from_numpy(frames[:1]),
+                         torch.from_numpy(depths[:1]))
+    t3, _ = render_chunk(tp, tinit(H, W, "cpu"), torch.from_numpy(frames[:3]),
+                         torch.from_numpy(depths[:3]), torch.from_numpy(blanks[:3]))
+    for name in ("fw_offset", "fw_counter", "focal", "focal_init"):
+        torch.testing.assert_close(getattr(t3, name), getattr(t1, name), atol=0, rtol=0)
+    assert not torch.equal(t3.conv_val, t1.conv_val)
+    assert not torch.equal(t3.prev_depth, t1.prev_depth)

@@ -1,30 +1,34 @@
-"""vd3d-torch command line: the ``render``, ``depth`` and ``tools``
-subcommands of ``vd3d``.
+"""vd3d-torch command line: the ``render``, ``depth``, ``tools`` and
+``models`` subcommands of ``vd3d``.
 
     vd3d-torch render --input clip.y4m --model depth-anything-v2-small \\
         --checkpoint model.safetensors --format Full-SBS --device cuda
     vd3d-torch render --input clip.y4m --allow-random --dof_strength 2
+    vd3d-torch render --input clip.y4m --depth clip_depth.y4m \\
+        --format "Red-Cyan Anaglyph" --preset best3d --control ctl.txt --resume
+    vd3d-torch render --batch-videos in/ --batch-depths depth/ --batch-out out/
     vd3d-torch depth --input clip.y4m --checkpoint model.safetensors \\
         --dtype bfloat16 --batch-size 8 [--tiled] [--bits 16]
     vd3d-torch tools --input clip.y4m --esrgan --esrgan-weights x4.onnx \\
         --rife --rife-weights rife.onnx --dtype bfloat16
-    python -m visiondepth3d_tpu_torch render|depth|tools ...
+    vd3d-torch models [--family dpt_dinov2]
+    python -m visiondepth3d_tpu_torch render|depth|tools|models ...
 
 The flags keep the JAX CLI's names and meaning, plus ``--device`` (default
 cuda; a missing card is an error, not a CPU fallback). Flags of features
-not ported yet (--mesh other than off, --skip-blank-frames,
---auto-crop-black-bars; depth --mesh other than auto/off, the diffusion
-and video-depth models; depth and tools --control) raise
-NotImplementedError.
+not ported yet (render --mesh other than off; depth --mesh other than
+auto/off, the diffusion and video-depth models) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 
 from ..pipeline.geometry import parse_timecode, resolve_clip_window
+from ..ops.formats import FORMATS
 from ..pipeline.stereo_pipeline import RenderConfig, render_stereo_video
 from ..stereo import StereoParams
 
@@ -50,10 +54,16 @@ def build_parser() -> argparse.ArgumentParser:
                                  description="VisionDepth3D on PyTorch/CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("render", help="render a 3D video (fused 2D->3D, or video + depth)")
-    p.add_argument("--input", required=True)
+    p.add_argument("--input", default=None)
+    p.add_argument("--batch-videos", default=None,
+                   help="directory of videos: batch mode; pairs <name> with <name>_depth "
+                        "in --batch-depths")
+    p.add_argument("--batch-depths", default=None)
+    p.add_argument("--batch-out", default=None)
     p.add_argument("--depth", default=None,
                    help="precomputed depth video; omit to run the fused route with --model")
-    p.add_argument("--model", default="depth-anything-v2-small")
+    p.add_argument("--model", default="depth-anything-v2-small",
+                   help="depth model of the fused route (vd3d-torch models)")
     p.add_argument("--checkpoint", default=None,
                    help="HF .safetensors weights for --model (fused route)")
     p.add_argument("--inference-size", type=parse_inference_size, default=None,
@@ -62,9 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fused route without --checkpoint (random weights; "
                         "shape and speed testing only)")
     p.add_argument("--output", default=None)
-    p.add_argument("--format", default="Full-SBS",
-                   choices=["Half-SBS", "Full-SBS", "VR", "Red-Cyan Anaglyph",
-                            "Passive Interlaced"])
+    p.add_argument("--format", default="Full-SBS", choices=list(FORMATS))
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--aspect", default="Default (16:9)")
     p.add_argument("--preserve-aspect", action="store_true")
@@ -77,11 +85,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-size", type=int, default=16)
     p.add_argument("--skip-blank-frames", action="store_true")
     p.add_argument("--auto-crop-black-bars", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="continue an interrupted render from <output>.resume.npz")
     p.add_argument("--mesh", default="off", help="only 'off' is ported")
+    p.add_argument("--preset", default=None,
+                   help="builtin preset name or path to a preset JSON")
+    p.add_argument("--control", default=None, metavar="FILE",
+                   help="polled between chunks: 'pause' suspends, 'run' (or empty) "
+                        "resumes, 'cancel' stops cleanly")
+    p.add_argument("--dry-run", action="store_true",
+                   help="print the resolved parameters as JSON and exit")
     p.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
     _add_param_flags(p)
     _add_depth_parser(sub)
     _add_tools_parser(sub)
+    mp = sub.add_parser("models", help="list the ported depth model catalog")
+    mp.add_argument("--family", default=None, help="only this family (dpt_dinov2)")
     return ap
 
 
@@ -97,7 +116,7 @@ def _add_depth_parser(sub):
     dp.add_argument("--input", required=True)
     dp.add_argument("--output", default=None)
     dp.add_argument("--control", default=None, metavar="FILE",
-                    help="suspend/resume/cancel control file (not ported yet)")
+                    help="suspend/resume/cancel control file, polled between batches")
     dp.add_argument("--model", default="depth-anything-v2-small")
     dp.add_argument("--inference-size", type=_depth_size, default=518, metavar="N|WxH|NAME",
                     help="square int, WxH, a named preset, or 'original' for the source "
@@ -132,8 +151,6 @@ def _add_depth_parser(sub):
 def cmd_depth(args) -> int:
     from ..pipeline.depth_pipeline import render_depth_video
 
-    if args.control:
-        raise NotImplementedError("vd3d-torch depth --control is not ported yet")
     if args.checkpoint is None and not args.allow_random_weights:
         print("vd3d-torch depth needs --checkpoint (or --allow-random-weights for testing)",
               file=sys.stderr)
@@ -148,7 +165,7 @@ def _add_tools_parser(sub):
     tp.add_argument("--input", required=True)
     tp.add_argument("--output", default=None)
     tp.add_argument("--control", default=None, metavar="FILE",
-                    help="suspend/resume/cancel control file (not ported yet)")
+                    help="suspend/resume/cancel control file, polled between chunks")
     tp.add_argument("--rife", action="store_true")
     tp.add_argument("--multiplier", type=int, default=2, choices=[2, 4, 8])
     tp.add_argument("--esrgan", action="store_true")
@@ -179,25 +196,76 @@ def _add_tools_parser(sub):
     tp.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
 
 
+def _control_check(args):
+    """The ``cancel_check`` of ``--control FILE``, or None."""
+    if not getattr(args, "control", None):
+        return None
+    from ..utils.observability import make_control_check
+
+    return make_control_check(args.control)
+
+
 def cmd_render(args) -> int:
+    from ..config.presets import load_builtin, load_preset, params_to_dict
+
+    if args.input is None and args.batch_videos is None:
+        print("render needs --input or --batch-videos", file=sys.stderr)
+        return 2
     for flag in ("start", "end"):
         value = getattr(args, flag)
         if value is not None and str(value).strip() and parse_timecode(value) is None:
             raise SystemExit(f"--{flag} {value!r}: not seconds or HH:MM:SS(.ms)")
+    if args.preset:
+        try:
+            params, cfg = load_builtin(args.preset)
+        except KeyError:
+            params, cfg = load_preset(args.preset)
+    else:
+        params, cfg = StereoParams(), RenderConfig()
     overrides = {f.name: getattr(args, f.name) for f in dataclasses.fields(StereoParams)
                  if getattr(args, f.name, None) is not None}
-    params = StereoParams(**overrides)
+    if overrides:
+        params = params.replace(**overrides)
     start_s, end_s = resolve_clip_window(args.start, args.end)
-    cfg = RenderConfig(
-        output_format=args.format, output_height=args.height, aspect=args.aspect,
+    cfg = dataclasses.replace(
+        cfg, output_format=args.format, output_height=args.height, aspect=args.aspect,
         preserve_original_aspect=args.preserve_aspect, codec=args.codec, crf=args.crf,
         fps=args.fps, start_s=start_s, end_s=end_s, chunk_size=args.chunk_size,
-        device=args.device, skip_blank_frames=args.skip_blank_frames,
-        auto_crop_black_bars=args.auto_crop_black_bars, mesh=args.mesh)
+        skip_blank_frames=args.skip_blank_frames,
+        auto_crop_black_bars=args.auto_crop_black_bars,
+        resume=args.resume or cfg.resume, device=args.device, mesh=args.mesh)
+    cancel_check = _control_check(args)
+
+    if args.batch_videos:
+        # the paired-queue batch of video + depth videos, one after another
+        from ..pipeline.batch import pair_videos_with_depth, run_batch
+
+        items = pair_videos_with_depth(args.batch_videos,
+                                       args.batch_depths or args.batch_videos,
+                                       args.batch_out or args.batch_videos)
+        if not items:
+            print("no video/depth pairs found", file=sys.stderr)
+            return 2
+        if args.dry_run:
+            print(json.dumps({"params": params_to_dict(params, cfg),
+                              "items": [dataclasses.asdict(i) for i in items]}, indent=2))
+            return 0
+        done = run_batch(items, params, cfg,
+                         progress_cb=lambda it: print(f"{it.status:9s} {it.input_path}",
+                                                      flush=True),
+                         cancel_check=cancel_check)
+        for it in done:
+            print(f"{it.status}: {it.input_path} ({it.frames} frames, {it.seconds:.1f} s)"
+                  + (f" - {it.error}" if it.error else ""))
+        return 0 if all(i.status == "done" for i in done) else 1
+
     output = args.output
     if output is None:
         tag = args.format.replace(" ", "").replace(":", "")
         output = f"{args.input.rsplit('.', 1)[0]}_{tag}.y4m"
+    if args.dry_run:
+        print(json.dumps({"params": params_to_dict(params, cfg), "output": output}, indent=2))
+        return 0
 
     predictor = None
     if args.depth is None:
@@ -214,8 +282,22 @@ def cmd_render(args) -> int:
         print(f"\r{p.frames_done} frames | {p.fps:.2f} fps", end="", flush=True)
 
     prog = render_stereo_video(args.input, args.depth, output, params, cfg,
-                               progress_cb=progress, predictor=predictor)
+                               progress_cb=progress, cancel_check=cancel_check,
+                               predictor=predictor)
     print(f"\nrendered {prog.frames_done} frames ({prog.fps:.2f} fps) -> {output}")
+    return 0
+
+
+def cmd_models(args) -> int:
+    """The ported entries of the depth model catalog, with their
+    recommended inference sizes and the reference names they cover."""
+    from ..depth.registry import CATALOG, inference_resolutions
+
+    for name, e in CATALOG.items():
+        if args.family and e.family != args.family:
+            continue
+        res = "/".join(str(r) for r in inference_resolutions(name))
+        print(f"{name:34s} {e.family:12s} sizes {res:20s} [{', '.join(e.reference_names)}]")
     return 0
 
 
@@ -227,8 +309,6 @@ def cmd_tools(args) -> int:
 
     if args.mesh not in (None, "off"):
         raise NotImplementedError("vd3d-torch tools --mesh is not ported yet (one device)")
-    if args.control:
-        raise NotImplementedError("vd3d-torch tools --control is not ported yet")
     cfg = EnhanceConfig(
         use_esrgan=args.esrgan, esrgan_scale=args.esrgan_scale or 4,
         pre_downscale=args.pre_downscale, keep_original_size=not args.upscaled_size,
@@ -256,14 +336,16 @@ def cmd_tools(args) -> int:
         print(f"\r{n} frames | {fps:.2f} fps", end="", flush=True)
 
     n = run_merged_pipeline(args.input, output, cfg, esrgan_params=esrgan_params,
-                            rife_params=rife_params, progress_cb=progress, device=args.device)
+                            rife_params=rife_params, progress_cb=progress,
+                            cancel_check=_control_check(args), device=args.device)
     print(f"\nenhanced {n} frames -> {output}")
     return 0
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return {"render": cmd_render, "depth": cmd_depth, "tools": cmd_tools}[args.cmd](args)
+    return {"render": cmd_render, "depth": cmd_depth, "tools": cmd_tools,
+            "models": cmd_models}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Media I/O of the port.
 
-The port's own copies of ``visiondepth3d_tpu/io/{y4m,video,ffmpeg,depth_io}.py``
+The port's own copies of ``visiondepth3d_tpu/io/{y4m,video,ffmpeg,depth_io,blackdetect}.py``
 and of the C++ y4m library (``native/vd3d_media.cpp``), which ``y4m.py``
 builds with g++ at first use into ``_build/``. Nothing here imports the JAX
 package.

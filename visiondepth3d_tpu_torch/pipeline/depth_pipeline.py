@@ -249,6 +249,11 @@ def render_depth_video(args) -> int:
     def progress(n, fps):
         print(f"\r{n} frames | {fps:.2f} fps", end="", flush=True)
 
-    n = render_depth_video_file(args.input, output, cfg, progress)
+    cancel_check = None
+    if getattr(args, "control", None):
+        from ..utils.observability import make_control_check
+
+        cancel_check = make_control_check(args.control)
+    n = render_depth_video_file(args.input, output, cfg, progress, cancel_check=cancel_check)
     print(f"\nDepth video complete: {n} frames -> {output}")
     return 0

@@ -4,10 +4,10 @@ Counterpart of ``visiondepth3d_tpu/stereo/step.py``. Stage order: temporal
 smooth, percentile-EMA normalization, shift smoother and dynamic parallax,
 curvature, subject estimate, Pop-Control shaping, shift map with edge-mask
 suppression, dual-eye warp, feather + heal, focal tracking and depth of
-field, color grade, floating-window bars, sharpen. ``render_chunk`` runs
-the step frame by frame over a chunk, carrying the trackers (a Python loop
-in place of ``lax.scan``); nothing in the loop reads a device value on the
-host.
+field, color grade, the blank-frame passthrough, floating-window bars,
+sharpen. ``render_chunk`` runs the step frame by frame over a chunk,
+carrying the trackers (a Python loop in place of ``lax.scan``); nothing in
+the loop reads a device value on the host.
 """
 
 from __future__ import annotations
@@ -123,7 +123,9 @@ def _dispatch_dof(p: StereoParams, left, right, depth_w, focal):
 def pixel_shift(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
                 depth: torch.Tensor, fg, mg, bg):
     """The DIBR core. frame: [H, W, 3], depth: [H, W].
-    Returns (trackers, left, right, shift_map, subject_depth)."""
+    Returns (trackers, left, right, shift_map, subject_depth, frame_w): the
+    last is the frame at the warp size in the image type, the source of the
+    blank-frame passthrough."""
     if p.warp_hw is not None and tuple(p.warp_hw) != tuple(frame.shape[:2]):
         frame = resize_bilinear(frame, tuple(p.warp_hw))
         depth = resize_bilinear(depth, tuple(p.warp_hw))
@@ -144,13 +146,17 @@ def pixel_shift(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
     frame_i = frame.to(img_dt)
     left, right, dleft, dright = _dispatch_warp(p, frame_i, shaped.to(img_dt), final_shift)
     left, right = _dispatch_postfx(p, left, right, frame_i, dleft, dright)
-    return t, left, right, final_shift, subject_depth
+    return t, left, right, final_shift, subject_depth, frame_i
 
 
 def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
-                      depth01: torch.Tensor):
+                      depth01: torch.Tensor, is_blank: torch.Tensor | None = None):
     """One frame through the stereo stage. frame: [H, W, 3] float RGB in
-    [0, 1]; depth01: [H, W] in [0, 1]. Returns (trackers, StereoFrameOut)."""
+    [0, 1]; depth01: [H, W] in [0, 1]; is_blank: an optional 0-d bool
+    tensor. A blank frame sends the warp-size source through both eyes and
+    keeps the floating-window and focal trackers at their input values; the
+    other trackers update as on any frame. Returns (trackers,
+    StereoFrameOut)."""
     t_in = t
 
     t, depth_s = trk.temporal_depth_smooth(t, depth01, alpha=0.5)
@@ -163,7 +169,7 @@ def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tenso
     ipd = 1.0 if p.ipd_factor == 0.0 else p.ipd_factor
     fg, mg, bg = fg * dyn * ipd, mg * dyn * ipd, bg * dyn * ipd
 
-    t, left, right, shift_map, subj = pixel_shift(p, t, frame, depth_n, fg, mg, bg)
+    t, left, right, shift_map, subj, frame_w = pixel_shift(p, t, frame, depth_n, fg, mg, bg)
     left = _maybe_quantize(left, p)
     right = _maybe_quantize(right, p)
 
@@ -185,6 +191,14 @@ def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tenso
                                         p.color_brightness)
     left = _maybe_quantize(left, p)
     right = _maybe_quantize(right, p)
+
+    if is_blank is not None:
+        # a device bool through torch.where: no host sync, and the kernels
+        # above ran as on any frame
+        left = torch.where(is_blank, frame_w, left)
+        right = torch.where(is_blank, frame_w, right)
+        t = t.replace(**{name: torch.where(is_blank, getattr(t_in, name), getattr(t, name))
+                         for name in ("fw_offset", "fw_counter", "focal", "focal_init")})
 
     # floating-window side masks: bar geometry at the warp-stage width
     width = left.shape[1]
@@ -209,12 +223,14 @@ def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tenso
 
 
 def render_chunk(p: StereoParams, t: trk.StereoTrackers, frames: torch.Tensor,
-                 depths: torch.Tensor):
-    """The stereo step over a [T, H, W, 3] chunk with [T, H, W] depths,
-    frame by frame (the trackers make the frames sequential). Returns
-    (trackers, StereoFrameOut with a leading T axis)."""
+                 depths: torch.Tensor, blanks: torch.Tensor | None = None):
+    """The stereo step over a [T, H, W, 3] chunk with [T, H, W] depths and
+    optional [T] bool ``blanks``, frame by frame (the trackers make the
+    frames sequential). Returns (trackers, StereoFrameOut with a leading T
+    axis)."""
     outs = []
     for i in range(frames.shape[0]):
-        t, out = stereo_frame_step(p, t, frames[i], depths[i])
+        t, out = stereo_frame_step(p, t, frames[i], depths[i],
+                                   None if blanks is None else blanks[i])
         outs.append(out)
     return t, StereoFrameOut(*(torch.stack(xs) for xs in zip(*outs)))
