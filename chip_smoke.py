@@ -26,8 +26,9 @@ Phases, each printed on its own line; any failure exits nonzero:
      192-channel buffer, output written into a slice of it), K6 (DOF +
      grade) at 1080p, both eyes, dof_strength 2 and 5, all in focus and all
      out of focus, K7 (attention) at the depth model's shapes
-     [16|8|2, 1370, 6, 64], ViT-B's and ViT-L's [8, 1370, 12|16, 64] and a
-     padded [2, 270, 3, 64];
+     [16|8|2, 1370, 6, 64], ViT-B's and ViT-L's [8, 1370, 12|16, 64], a
+     padded [2, 270, 3, 64], and DPT-Large's and DPT-Hybrid's 384^2
+     [8, 577, 16|12, 64] (bf16) and [2, 577, 16, 64] (f32);
   4. (render) the render path: a synthetic 1920x1080 y4m clip of 64 frames
      through render_stereo_video with the benchmark configuration (Depth
      Anything V2-Small, random weights from a seed, 518^2, bf16, fast head;
@@ -68,7 +69,19 @@ Phases, each printed on its own line; any failure exits nonzero:
      opt-in (16 frames, batch 8: 12 and 24 K7 launches per model call); one
      518^2 frame through V2-Large in float32 on the CPU and on the card
      (TF32 off), the route's u8 depth within a mean of 1 u8;
- 11. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
+ 11. (families) the other feed-forward families at their published widths
+     (random weights from seed 0, bf16, fast head where the family has one)
+     through the fused 1080p Full-SBS render, each at the first of its
+     recommended sizes: DPT-Large at 384^2 (32 frames, two timed runs: fps,
+     device time per frame, events, busy share, peak memory), then 16 frames
+     each of DPT-BEiT-Large-512 at 512^2, DPT-Hybrid at 384^2, ZoeDepth NYU
+     and NYU+KITTI at 384^2 and MiDaS v2.1-small at 384^2 (K1-K4 launches
+     gated per frame, no K7, the output's shape, its halves differing);
+     DPT-Large and DPT-Hybrid through the depth route with the K7 opt-in
+     (16 frames, batch 8: 24 and 12 K7 launches per model call at N = 577);
+     one frame of each of the six in float32 on the CPU and on the card
+     (TF32 off), the route's u8 depth within a mean of 1 u8 and not flat;
+ 12. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
      render (also with --dof_strength 2, --format "Red-Cyan Anaglyph",
      --preset best3d --dry-run, and --control FILE with 'cancel' written
      once frames come out) / depth / tools ...
@@ -130,7 +143,7 @@ DOF_KERNELS = ("dof_grade",)
 DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
 ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "surface",
-              "catalog", "parity", "cli")
+              "catalog", "families", "parity", "cli")
 OPTIONAL_PHASES = ("k2shapes",)  # run only when named
 H, W = 1080, 1920
 
@@ -170,16 +183,17 @@ _PREDICTORS: dict = {}
 
 
 def da_predictor(device: str = "cuda", dtype: str = "bfloat16",
-                 model: str = "depth-anything-v2-small"):
-    """A catalog model (Depth Anything V2-Small unless named) at 518^2,
-    fast head, random weights from seed 0: one instance per (model,
-    device, dtype), shared by the phases."""
-    key = (model, device, dtype)
+                 model: str = "depth-anything-v2-small", size: int = 518):
+    """A catalog model (Depth Anything V2-Small unless named) at size^2
+    (518 unless given), fast head where the family has one, random weights
+    from seed 0: one instance per (model, device, dtype, size), shared by
+    the phases."""
+    key = (model, device, dtype, size)
     if key not in _PREDICTORS:
         from visiondepth3d_tpu_torch.depth.registry import CATALOG, load_predictor
 
         expect(model in CATALOG, f"{model} is not in the port's catalog")
-        _PREDICTORS[key] = load_predictor(model, None, inference_size=518, seed=0,
+        _PREDICTORS[key] = load_predictor(model, None, inference_size=size, seed=0,
                                           dtype=dtype, device=device, fast_head=True)
     return _PREDICTORS[key]
 
@@ -704,11 +718,14 @@ def phase_dof_kernel(card: str, results: dict):
 
 # K7 at the depth route's shapes: [B, N, H, D] and type. B 8 is the depth
 # route's batch, 16 the render's chunk; H 6, 12 and 16 are ViT-S, ViT-B and
-# ViT-L; [2, 270, 3, 64] pads 270 keys to whole 64-key tiles.
+# ViT-L; [2, 270, 3, 64] pads 270 keys to whole 64-key tiles; N 577 is
+# DPT-Large's (16 heads) and DPT-Hybrid's (12) 384^2, whose last query and
+# key tile holds one valid row.
 ATTN_SHAPES = (((16, 1370, 6, 64), "bfloat16"), ((8, 1370, 6, 64), "bfloat16"),
                ((8, 1370, 12, 64), "bfloat16"), ((8, 1370, 16, 64), "bfloat16"),
                ((2, 1370, 6, 64), "float32"), ((2, 270, 3, 64), "bfloat16"),
-               ((2, 270, 3, 64), "float32"))
+               ((2, 270, 3, 64), "float32"), ((8, 577, 16, 64), "bfloat16"),
+               ((8, 577, 12, 64), "bfloat16"), ((2, 577, 16, 64), "float32"))
 
 
 def phase_attention_kernel(card: str, results: dict):
@@ -1576,18 +1593,90 @@ def phase_surface(card: str, tmp: Path):
     torch.cuda.empty_cache()
 
 
-def phase_catalog(card: str, tmp: Path):
-    """Depth Anything V2-Large through the fused 1080p render; V2-Base and
-    V2-Large through the depth route with the K7 opt-in; V2-Large in float32
-    on the CPU against the card."""
-    import numpy as np
+def k7_depth_route(card: str, tmp: Path, phase: str, model: str, size: int):
+    """A catalog model (bf16, fast head, random weights from seed 0) at
+    size^2 through the depth route with the K7 opt-in over a 16-frame 1080p
+    clip, batch 8: K7 launched once per ViT layer and model call, no other
+    kernel; the output's shape checked and not flat."""
     import torch
 
     from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
     from visiondepth3d_tpu_torch.ops import attention as attn_ops
     from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
-                                                                 make_depth_batch_fn,
                                                                  render_depth_video_file)
+
+    dclip = tmp / "k7_depth_1080p.y4m"
+    n_depth = 16
+    if not dclip.exists():
+        write_clip(dclip, W, H, n_depth)
+    dcfg = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda")
+    dpred = da_predictor("cuda", "bfloat16", model, size)
+    layers, heads = dpred.cfg.backbone.num_layers, dpred.cfg.backbone.num_heads
+    patch = dpred.cfg.backbone.patch_size
+    try:
+        attn_ops.USE_VMEM_KERNEL = True
+        render_depth_video_file(warm_clip(tmp), tmp / "k7_depth_warm.y4m", dcfg,
+                                predictor=dpred)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = render_depth_video_file(dclip, tmp / "k7_depth.y4m", dcfg, predictor=dpred)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+    counts = dict(launch_counts)
+    calls = -(-n_depth // dcfg.batch_size)
+    want = {k: (layers * calls if k == "vmem_attention" else 0) for k in counts}
+    expect(got == n_depth and counts == want,
+           f"{model} depth route: {got} frames, launches {counts}, want {want}")
+    ow, oh, dout = read_clip(tmp / "k7_depth.y4m")
+    expect((ow, oh) == (W, H) and float(dout[..., 0].std()) > 1.0,
+           f"{model} depth output {ow}x{oh} flat or misshapen")
+    say(f"PHASE {phase} depth {model}: {n_depth} frames 1920x1080, {size}^2 bf16 fast "
+        f"head, batch 8, K7 opt-in ({heads} heads, N = {(size // patch) ** 2 + 1}): "
+        f"{n_depth / wall:.2f} fps, K7 launches {counts['vmem_attention']} "
+        f"({layers} per model call x {calls}) [{card}]")
+
+
+def float32_parity(card: str, phase: str, label: str, model: str, size: int):
+    """One size^2 frame through a catalog model in float32 (TF32 off) on the
+    CPU and on the card: the depth route's u8 depth within a mean of 1 u8,
+    and not flat. Frees the model's predictors."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import DepthConfig, make_depth_batch_fn
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        frame = (smooth_frame(torch.Generator().manual_seed(11), size, size, "cpu") * 255
+                 ).round().to(torch.uint8)[None]
+        depth = {}
+        for device in ("cpu", "cuda"):
+            fpred = da_predictor(device, "float32", model, size)
+            fn = make_depth_batch_fn(fpred, DepthConfig(device=device), (size, size))
+            depth[device] = fn(frame.to(device)).cpu().numpy().astype(np.int16)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        drop_predictors(model)
+    d = float(np.abs(depth["cpu"] - depth["cuda"]).mean())
+    std = float(depth["cpu"].std())
+    expect(std > 1.0 and d <= 1.0,
+           f"{label} float32 depth: CPU vs card mean |d| {d:.4f} u8 (need <= 1), depth std "
+           f"{std:.2f} u8 (need > 1: not flat)")
+    say(f"PHASE {phase} parity {label}: {size}^2 float32 (TF32 off), one frame, CPU vs "
+        f"card after the depth route's u8 rounding: mean |d| {d:.4f} u8 (need <= 1), max "
+        f"{int(np.abs(depth['cpu'] - depth['cuda']).max())}, depth std {std:.2f} u8 [{card}]")
+
+
+def phase_catalog(card: str, tmp: Path):
+    """Depth Anything V2-Large through the fused 1080p render; V2-Base and
+    V2-Large through the depth route with the K7 opt-in; V2-Large in float32
+    on the CPU against the card."""
+    import torch
+
     from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import RenderConfig
     from visiondepth3d_tpu_torch.stereo.params import StereoParams
 
@@ -1621,61 +1710,76 @@ def phase_catalog(card: str, tmp: Path):
         f"{fmt_profile(prof, 1e3 * min(walls))} [{card}]")
 
     # the depth route at ViT-B and ViT-L widths with the K7 opt-in
-    dclip = tmp / "catalog_depth_1080p.y4m"
-    n_depth = 16
-    write_clip(dclip, W, H, n_depth)
-    dcfg = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda")
-    try:
-        attn_ops.USE_VMEM_KERNEL = True
-        for model in ("depth-anything-v2-base", large):
-            dpred = da_predictor("cuda", "bfloat16", model)
-            layers = dpred.cfg.backbone.num_layers
-            render_depth_video_file(warm_clip(tmp), tmp / "catalog_depth_warm.y4m", dcfg,
-                                    predictor=dpred)
-            torch.cuda.synchronize()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            got = render_depth_video_file(dclip, tmp / "catalog_depth.y4m", dcfg, predictor=dpred)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = dict(launch_counts)
-            calls = -(-n_depth // dcfg.batch_size)
-            want = {k: (layers * calls if k == "vmem_attention" else 0) for k in counts}
-            expect(got == n_depth and counts == want,
-                   f"{model} depth route: {got} frames, launches {counts}, want {want}")
-            ow, oh, dout = read_clip(tmp / "catalog_depth.y4m")
-            expect((ow, oh) == (W, H) and float(dout[..., 0].std()) > 1.0,
-                   f"{model} depth output {ow}x{oh} flat or misshapen")
-            say(f"PHASE catalog depth {model}: {n_depth} frames 1920x1080, 518^2 bf16 fast "
-                f"head, batch 8, K7 opt-in ({dpred.cfg.backbone.num_heads} heads): "
-                f"{n_depth / wall:.2f} fps, K7 launches {counts['vmem_attention']} "
-                f"({layers} per model call x {calls}) [{card}]")
-            if model != large:
-                drop_predictors(model)
-    finally:
-        attn_ops.USE_VMEM_KERNEL = False
-
+    for model in ("depth-anything-v2-base", large):
+        k7_depth_route(card, tmp, "catalog", model, 518)
+        drop_predictors(model)
     # one 518^2 frame through V2-Large in float32: CPU against the card
-    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        frame = (smooth_frame(torch.Generator().manual_seed(11), 518, 518, "cpu") * 255
-                 ).round().to(torch.uint8)[None]
-        depth = {}
-        for device in ("cpu", "cuda"):
-            fpred = da_predictor(device, "float32", large)
-            fn = make_depth_batch_fn(fpred, DepthConfig(device=device), (518, 518))
-            depth[device] = fn(frame.to(device)).cpu().numpy().astype(np.int16)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-        drop_predictors(large)
-    d = float(np.abs(depth["cpu"] - depth["cuda"]).mean())
-    expect(depth["cpu"].std() > 1.0 and d <= 1.0,
-           f"V2-Large float32 depth: CPU vs card mean |d| {d:.4f} u8 (need <= 1)")
-    say(f"PHASE catalog parity: DA-V2-Large 518^2 float32 (TF32 off), one frame, CPU vs card "
-        f"after the depth route's u8 rounding: mean |d| {d:.4f} u8 (need <= 1), max "
-        f"{int(np.abs(depth['cpu'] - depth['cuda']).max())} [{card}]")
+    float32_parity(card, "catalog", "DA-V2-Large", large, 518)
 
+
+# the families phase: catalog name, inference size (the first of the
+# family's recommended sizes), frames of its fused render
+FAMILY_RENDERS = (("dpt-large", 384, 32), ("dpt-beit-large-512", 512, 16),
+                  ("midas-v3-hybrid", 384, 16), ("zoedepth-nyu", 384, 16),
+                  ("zoedepth-nyu-kitti", 384, 16), ("midas-v2", 384, 16))
+# the families whose ViT runs K7 under the opt-in, at 384^2 (N = 577)
+FAMILY_K7 = ("dpt-large", "midas-v3-hybrid")
+
+
+def family_render(card: str, tmp: Path, model: str, size: int, n: int, runs: int) -> dict:
+    """One family's predictor (bf16, random weights from seed 0) through the
+    fused 1080p Full-SBS render: a warm-up chunk, `runs` timed runs and one
+    profiled run, K1-K4 gated per frame and no other kernel (no K7) in each;
+    the output's shape and its two halves checked."""
+    import torch
+
+    from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import RenderConfig
+    from visiondepth3d_tpu_torch.stereo.params import StereoParams
+
+    pred = da_predictor("cuda", "bfloat16", model, size)
+    params = StereoParams(enable_healing=True, image_dtype="bfloat16")
+    cfg = RenderConfig(output_format="Full-SBS", output_height=1080, chunk_size=16,
+                       device="cuda")
+    clip = tmp / f"families_{n}_1080p.y4m"
+    if not clip.exists():
+        write_clip(clip, W, H, n)
+    counted_render(warm_clip(tmp), tmp / "families_warm.y4m", params, cfg, pred, 16,
+                   f"{model} warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    walls = [counted_render(clip, tmp / "families_sbs.y4m", params, cfg, pred, n,
+                            f"{model} render")[0] for _ in range(runs)]
+    peak = torch.cuda.max_memory_allocated()
+    ow, oh, out = read_clip(tmp / "families_sbs.y4m")
+    expect((ow, oh) == (2 * W, H) and out.shape[0] == n,
+           f"{model} render: output {ow}x{oh} with {out.shape[0]} frames, want "
+           f"{2 * W}x{H} x {n}")
+    halves = float(abs(out[:, :, :W].astype(int) - out[:, :, W:].astype(int)).mean())
+    expect(halves > 0.1, f"{model} render: identical halves (mean |L-R| {halves})")
+    del out
+    prof = device_profile(lambda: counted_render(clip, tmp / "families_prof.y4m", params,
+                                                 cfg, pred, n, f"{model} profiled"))
+    per_frame = "not measured" if prof is None else f"{prof['device_ms'] / n:.3f} ms"
+    say(f"PHASE families render {model}: {size}^2 (snapped {pred._size[0]}x{pred._size[1]}) "
+        f"bf16 fast head, {n} frames 1920x1080 -> {ow}x{oh} Full-SBS, chunks of 16, "
+        f"{runs} run(s): {', '.join(f'{n / w:.2f}' for w in walls)} fps end to end, device "
+        f"time per frame {per_frame}, launches per frame {json.dumps(PER_FRAME)} (no K7), "
+        f"mean |L-R| {halves:.2f}, peak allocated {peak / 2**30:.3f} GiB; profiled run: "
+        f"{fmt_profile(prof, 1e3 * min(walls))} [{card}]")
+    return {"walls": walls, "prof": prof}
+
+
+def phase_families(card: str, tmp: Path):
+    """The feed-forward families at their published widths: each through the
+    fused 1080p render; DPT-Large and DPT-Hybrid through the depth route with
+    the K7 opt-in (every ViT layer at N = 577); one float32 frame of each on
+    the CPU against the card."""
+    for model, size, n in FAMILY_RENDERS:
+        family_render(card, tmp, model, size, n, runs=2 if model == "dpt-large" else 1)
+        if model in FAMILY_K7:
+            k7_depth_route(card, tmp, "families", model, size)
+        drop_predictors(model)
+    for model, size, _ in FAMILY_RENDERS:
+        float32_parity(card, "families", model, model, size)
 
 
 def phase_cli(tmp: Path):
@@ -1815,7 +1919,8 @@ def main(argv=None) -> int:
                 if name in phases:
                     run_counts = timed(name, fn, card, tmp)
                     counts.update({k: run_counts[k] for k in path_kernels})
-            for name, fn in (("surface", phase_surface), ("catalog", phase_catalog)):
+            for name, fn in (("surface", phase_surface), ("catalog", phase_catalog),
+                             ("families", phase_families)):
                 if name in phases:
                     timed(name, fn, card, tmp)
             if "parity" in phases:

@@ -1,7 +1,8 @@
-"""The port's ``dpt_dinov2`` catalog and its depth heads.
+"""The port's depth catalog and the Depth Anything heads.
 
-- Each of the ten catalog names resolves to the JAX entry's family, config,
-  upstream id and reference names, and ``load_predictor`` builds it.
+- Each catalog name resolves to the JAX entry's family, config, upstream id
+  and reference names, and ``load_predictor`` builds it at its family's
+  tiny config (the JAX registry test's ``TINY_BY_FAMILY``).
 - At a tiny config (4 layers of width 32: transformers needs four distinct
   ``out_indices``), the exact head (relative) and the metric head (indoor
   20 m and outdoor 80 m ``max_depth``) are held against transformers'
@@ -29,7 +30,12 @@ from visiondepth3d_tpu_torch.depth import configs as tconfigs
 from visiondepth3d_tpu_torch.depth import registry as tregistry
 from visiondepth3d_tpu_torch.depth.convert import load_hf_state_dict
 from visiondepth3d_tpu_torch.depth.dpt import DepthAnything
+from visiondepth3d_tpu_torch.depth.dpt_beit import DPT_BEIT_TINY
+from visiondepth3d_tpu_torch.depth.dpt_classic import DPT_TINY
+from visiondepth3d_tpu_torch.depth.dpt_hybrid import DPT_HYBRID_TINY
+from visiondepth3d_tpu_torch.depth.midas_v2 import MIDAS_V2_TINY
 from visiondepth3d_tpu_torch.depth.model import DepthPredictor
+from visiondepth3d_tpu_torch.depth.zoedepth import ZOE_NK_TINY, ZOE_TINY
 
 HEADS = {"relative": ("relative", 1.0), "metric_indoor": ("metric", 20.0),
          "metric_outdoor": ("metric", 80.0)}
@@ -39,9 +45,19 @@ def _as_dict(cfg):
     return dataclasses.asdict(cfg)
 
 
+# the port's tiny config of each ported family, with the input size that
+# gives a whole patch grid
+TINY_BY_FAMILY = {"dpt_dinov2": (tconfigs.DA_TINY, 28), "dpt_classic": (DPT_TINY, 64),
+                  "dpt_beit": (DPT_BEIT_TINY, 64), "dpt_hybrid": (DPT_HYBRID_TINY, 64),
+                  "zoedepth": (ZOE_TINY, 64), "zoedepth_nk": (ZOE_NK_TINY, 64),
+                  "dpt_vit": (MIDAS_V2_TINY, 64)}
+
+
 def test_catalog_matches_jax():
-    jax_entries = {n: e for n, e in jregistry.CATALOG.items() if e.family == "dpt_dinov2"}
-    assert len(jax_entries) == 10
+    jax_entries = {n: e for n, e in jregistry.CATALOG.items()
+                   if e.family in tregistry.PORTED_FAMILIES}
+    assert len(jax_entries) == 16
+    assert set(tregistry.PORTED_FAMILIES) == set(TINY_BY_FAMILY)
     assert set(tregistry.CATALOG) == set(jax_entries)
     for name, je in jax_entries.items():
         te = tregistry.CATALOG[name]
@@ -53,29 +69,35 @@ def test_catalog_matches_jax():
 
 @pytest.mark.parametrize("name", sorted(tregistry.CATALOG))
 def test_load_predictor_takes_every_entry(name):
-    """Every name builds; its config is the entry's (the model's widths are
-    swapped for the tiny ones so each build takes a moment)."""
+    """Every name builds; its config is the entry's family's (the model's
+    widths are swapped for the tiny ones so each build takes a moment)."""
     entry = tregistry.CATALOG[name]
-    tiny = dataclasses.replace(tconfigs.DA_TINY,
-                               depth_estimation_type=entry.config.depth_estimation_type,
-                               max_depth=entry.config.max_depth)
-    pred = tregistry.load_predictor(name, None, inference_size=28, config=tiny, device="cpu")
-    out = pred(torch.rand(1, 30, 40, 3))
-    assert out.shape == (1, 28, 28) and torch.isfinite(out).all()
-    if entry.config.depth_estimation_type == "metric":
+    tiny, size = TINY_BY_FAMILY[entry.family]
+    if entry.family == "dpt_dinov2":
+        tiny = dataclasses.replace(tiny, depth_estimation_type=entry.config.depth_estimation_type,
+                                   max_depth=entry.config.max_depth)
+    pred = tregistry.load_predictor(name, None, inference_size=size, config=tiny, device="cpu")
+    out = pred(torch.rand(2, 30, 40, 3))
+    assert out.shape == (2, size, size) and torch.isfinite(out).all()
+    if getattr(entry.config, "depth_estimation_type", None) == "metric":
         assert 0 <= out.min() and out.max() <= entry.config.max_depth
 
 
-def test_unported_family_names_the_ported_ones():
-    with pytest.raises(KeyError, match="dpt_dinov2"):
-        tregistry.load_predictor("dpt-large", device="cpu")
+@pytest.mark.parametrize("name", ["depth-pro", "video-depth-anything", "marigold",
+                                  "depthcrafter"])
+def test_unported_family_names_the_ported_ones(name):
+    with pytest.raises(KeyError, match="dpt_dinov2, dpt_classic, dpt_beit"):
+        tregistry.load_predictor(name, device="cpu")
 
 
-def test_models_cli_lists_the_family(capsys):
-    assert cli_main(["models", "--family", "dpt_dinov2"]) == 0
+@pytest.mark.parametrize("family", sorted(TINY_BY_FAMILY))
+def test_models_cli_lists_the_family(family, capsys):
+    assert cli_main(["models", "--family", family]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    assert [ln.split()[0] for ln in lines] == list(tregistry.CATALOG)
-    assert all("dpt_dinov2" in ln and "518/392" in ln for ln in lines)
+    want = [n for n, e in tregistry.CATALOG.items() if e.family == family]
+    assert [ln.split()[0] for ln in lines] == want
+    sizes = "/".join(str(r) for r in jregistry.inference_resolutions(want[0]))
+    assert all(family in ln and sizes in ln for ln in lines)
 
 
 def _hf_model(kind: str, max_depth: float):

@@ -11,7 +11,10 @@
         --dtype bfloat16 --batch-size 8 [--tiled] [--bits 16]
     vd3d-torch tools --input clip.y4m --esrgan --esrgan-weights x4.onnx \\
         --rife --rife-weights rife.onnx --dtype bfloat16
-    vd3d-torch models [--family dpt_dinov2]
+    vd3d-torch render --input clip.y4m --model dpt-large --inference-size 384 \\
+        --allow-random
+    vd3d-torch depth --input clip.y4m --model zoedepth-nyu --allow-random-weights
+    vd3d-torch models [--family dpt_classic]
     python -m visiondepth3d_tpu_torch render|depth|tools|models ...
 
 The flags keep the JAX CLI's names and meaning, plus ``--device`` (default
@@ -65,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="depth-anything-v2-small",
                    help="depth model of the fused route (vd3d-torch models)")
     p.add_argument("--checkpoint", default=None,
-                   help="HF .safetensors weights for --model (fused route)")
+                   help="upstream weights for --model (fused route): HF .safetensors; "
+                        "midas-v2 also the isl-org .pt or .onnx")
     p.add_argument("--inference-size", type=parse_inference_size, default=None,
                    metavar="N|WxH|NAME")
     p.add_argument("--allow-random", action="store_true",
@@ -100,7 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_depth_parser(sub)
     _add_tools_parser(sub)
     mp = sub.add_parser("models", help="list the ported depth model catalog")
-    mp.add_argument("--family", default=None, help="only this family (dpt_dinov2)")
+    mp.add_argument("--family", default=None,
+                    help="only this family (dpt_dinov2, dpt_classic, dpt_beit, zoedepth, "
+                         "zoedepth_nk, dpt_hybrid, dpt_vit)")
     return ap
 
 
@@ -125,7 +131,9 @@ def _add_depth_parser(sub):
     dp.add_argument("--invert", action="store_true")
     dp.add_argument("--bits", type=int, default=8, choices=[8, 16])
     dp.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
-    dp.add_argument("--checkpoint", default=None, help="HF .safetensors weights for --model")
+    dp.add_argument("--checkpoint", default=None,
+                    help="upstream weights for --model: HF .safetensors; midas-v2 also the "
+                         "isl-org .pt or .onnx")
     dp.add_argument("--steps", type=int, default=2, help="diffusion denoise steps (not ported)")
     dp.add_argument("--window", type=int, default=24,
                     help="DepthCrafter sliding-window size (not ported)")

@@ -31,19 +31,23 @@ class PatchEmbeddings(nn.Module):
         return self.projection(x).flatten(2).transpose(1, 2)
 
 
-def interpolate_pos_embed(pos: torch.Tensor, grid_hw: tuple[int, int]) -> torch.Tensor:
-    """Re-grid [1, 1 + N, C] position embeddings to a (gh, gw) patch grid."""
+def interpolate_pos_embed(pos: torch.Tensor, grid_hw: tuple[int, int],
+                          resize=resize_bicubic) -> torch.Tensor:
+    """Re-grid [1, 1 + N, C] position embeddings to a (gh, gw) patch grid
+    (bicubic unless ``resize`` says otherwise; align_corners False)."""
     n = pos.shape[1] - 1
     side = int(round(n ** 0.5))
     gh, gw = grid_hw
     if (gh, gw) == (side, side):
         return pos
-    grid = resize_bicubic(pos[0, 1:].reshape(side, side, -1), (gh, gw),
-                          align_corners=False, channel_last=True)
+    grid = resize(pos[0, 1:].reshape(side, side, -1), (gh, gw), align_corners=False,
+                  channel_last=True)
     return torch.cat([pos[:, :1], grid.reshape(1, gh * gw, -1)], dim=1)
 
 
 class Embeddings(nn.Module):
+    pos_resize = staticmethod(resize_bicubic)  # the position embeddings' regrid
+
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         side = cfg.image_size // cfg.patch_size
@@ -55,7 +59,7 @@ class Embeddings(nn.Module):
     def forward(self, pixels, grid_hw):
         x = self.patch_embeddings(pixels)
         x = torch.cat([self.cls_token.expand(x.shape[0], -1, -1), x], dim=1)
-        return x + interpolate_pos_embed(self.position_embeddings, grid_hw)
+        return x + interpolate_pos_embed(self.position_embeddings, grid_hw, self.pos_resize)
 
 
 class _SelfAttention(nn.Module):
@@ -66,10 +70,15 @@ class _SelfAttention(nn.Module):
         self.value = nn.Linear(c, c)
 
 
-class _SelfOutput(nn.Module):
-    def __init__(self, c: int):
+class _Dense(nn.Module):
+    """HF's holders of one Linear ``dense`` (``output``, ``intermediate``)."""
+
+    def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.dense = nn.Linear(c, c)
+        self.dense = nn.Linear(cin, cout)
+
+    def forward(self, x):
+        return self.dense(x)
 
 
 class Attention(nn.Module):
@@ -77,7 +86,7 @@ class Attention(nn.Module):
         super().__init__()
         self.num_heads = cfg.num_heads
         self.attention = _SelfAttention(cfg.hidden_size)
-        self.output = _SelfOutput(cfg.hidden_size)
+        self.output = _Dense(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, x):  # [B, T, C]
         b, n, c = x.shape
@@ -87,7 +96,7 @@ class Attention(nn.Module):
             return t.reshape(b, n, self.num_heads, c // self.num_heads)
 
         out = multi_head_attention(heads(a.query(x)), heads(a.key(x)), heads(a.value(x)))
-        return self.output.dense(out.reshape(b, n, c))
+        return self.output(out.reshape(b, n, c))
 
 
 class LayerScale(nn.Module):

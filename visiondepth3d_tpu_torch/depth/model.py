@@ -1,9 +1,11 @@
 """Depth model wrapper: preprocessing, forward, per-batch normalization.
 
 Counterpart of ``visiondepth3d_tpu/depth/model.py``: batches of frames in,
-batches of depth maps out, at a fixed inference size snapped to the ViT
-patch multiple. The public layout is the JAX package's: frames
-[B, H, W, 3] float RGB in [0, 1], depth [B, h, w].
+batches of depth maps out, at a fixed inference size snapped to the
+backbone's patch multiple. The public layout is the JAX package's: frames
+[B, H, W, 3] float RGB in [0, 1], depth [B, h, w]. Any family's model fits:
+an ``nn.Module`` with a ``cfg`` that maps normalized [B, 3, H, W] pixels to
+[B, h, w] depth (or a tuple holding it, picked by ``select``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from .dpt import DepthAnything
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+# HF's IMAGENET_STANDARD statistics (ZoeDepth's processor)
+STANDARD_MEAN = (0.5, 0.5, 0.5)
+STANDARD_STD = (0.5, 0.5, 0.5)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -35,18 +40,33 @@ def snap_hw(size, multiple: int) -> tuple[int, int]:
     return snap(h, multiple), snap(w, multiple)
 
 
+def patch_multiple(cfg) -> int:
+    """The size multiple a config's backbone takes: ``cfg.backbone``'s patch,
+    else ``cfg.base.backbone``'s (ZoeDepth-NK nests its trunk)."""
+    bb = getattr(cfg, "backbone", None)
+    if bb is None:
+        bb = getattr(getattr(cfg, "base", None), "backbone", None)
+    if bb is None:
+        raise ValueError(f"{type(cfg).__name__} names no backbone: pass snap_multiple")
+    return bb.patch_size
+
+
 class DepthPredictor:
     """A depth model at a fixed inference size on one device.
 
-    ``model``: a ``DepthAnything`` with its weights loaded. A bfloat16
-    predictor casts the weights once here, not per call. ``device``: the
-    CUDA card unless the caller passes "cpu"; without a card the default
-    raises.
+    ``model``: any family's model with its weights loaded (it carries its
+    ``cfg``). A bfloat16 predictor casts the weights once here, not per
+    call. ``device``: the CUDA card unless the caller passes "cpu"; without
+    a card the default raises. ``mean``/``std``: the family's input
+    statistics. ``select``: the index of the depth in a model that returns
+    a tuple (ZoeDepth-NK: (depth, domain_logits)). ``snap_multiple``: the
+    size multiple where it is not the backbone's patch (MiDaS v2: 32).
     """
 
-    def __init__(self, model: DepthAnything, inference_size: int | tuple = 518,
+    def __init__(self, model: nn.Module, inference_size: int | tuple = 518,
                  dtype: str = "float32", device=DEFAULT_DEVICE,
-                 mean: tuple = IMAGENET_MEAN, std: tuple = IMAGENET_STD):
+                 mean: tuple = IMAGENET_MEAN, std: tuple = IMAGENET_STD,
+                 select: int | None = None, snap_multiple: int | None = None):
         if dtype not in _DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {tuple(_DTYPES)}")
         self.dtype = dtype
@@ -54,7 +74,9 @@ class DepthPredictor:
         self.cfg = model.cfg
         self.model = model.to(device=self.device, dtype=_DTYPES[dtype]).eval()
         self.inference_size = inference_size
-        self._size = snap_hw(inference_size, self.cfg.backbone.patch_size)  # (h, w)
+        self.select = select
+        multiple = snap_multiple if snap_multiple is not None else patch_multiple(self.cfg)
+        self._size = snap_hw(inference_size, multiple)  # (h, w)
         self._mean = torch.tensor(mean, dtype=_DTYPES[dtype], device=self.device)
         self._std = torch.tensor(std, dtype=_DTYPES[dtype], device=self.device)
 
@@ -65,6 +87,8 @@ class DepthPredictor:
         x = resize_bilinear(x, self._size, channel_last=True)
         x = (x - self._mean) / self._std
         depth = self.model(x.permute(0, 3, 1, 2))
+        if self.select is not None:
+            depth = depth[self.select]
         return depth.float()
 
     def predict_01(self, frames01: torch.Tensor, out_hw: tuple[int, int] | None = None):
@@ -96,13 +120,19 @@ def _flax_fan_in(module: nn.Module, module_name: str, p: torch.Tensor) -> int:
 
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights with the JAX package's init rule
-    (``init_random_model_args``): LayerNorm scales and layer-scale gains 1,
-    biases 0, everything else N(0, fan_in^-1/2). Drawn on the CPU from
-    ``generator``, so one seed gives the same weights on every device."""
+    (``init_random_model_args``): LayerNorm and GroupNorm scales and DINOv2
+    layer-scale gains 1, BEiT's gains (``lambda_1``/``lambda_2``) at the
+    layer's ``layerscale_value``, biases 0, everything else (bias tables,
+    class tokens and position embeddings included) N(0, fan_in^-1/2).
+    Drawn on the CPU from ``generator``, so one seed gives the same weights
+    on every device."""
     with torch.no_grad():
         for module_name, module in model.named_modules():
             for leaf, p in module.named_parameters(recurse=False):
-                if leaf == "lambda1" or (isinstance(module, nn.LayerNorm) and leaf == "weight"):
+                if leaf in ("lambda_1", "lambda_2"):
+                    p.fill_(module.layerscale_value)
+                elif leaf == "lambda1" or (isinstance(module, (nn.LayerNorm, nn.GroupNorm))
+                                           and leaf == "weight"):
                     p.fill_(1.0)
                 elif leaf == "bias":
                     p.zero_()
@@ -112,8 +142,12 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+def build_random_model(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Any family's model with seeded random weights (tests, benchmarks)."""
+    return init_random_(model, torch.Generator().manual_seed(seed))
+
+
 def build_random(cfg: DPTConfig, seed: int = 0, fast_head: bool = False) -> DepthAnything:
     """A DepthAnything with seeded random weights (tests, benchmarks)."""
-    return init_random_(DepthAnything(cfg, fast_head=fast_head),
-                        torch.Generator().manual_seed(seed))
+    return build_random_model(DepthAnything(cfg, fast_head=fast_head), seed)
 

@@ -1,10 +1,18 @@
-"""Depth model catalog of the port: the ``dpt_dinov2`` family.
+"""Depth model catalog of the port: the feed-forward families that fit the
+plain predictor.
 
-Counterpart of ``visiondepth3d_tpu/depth/registry.py`` for the ViT/DINOv2
-+ DPT family: Depth Anything V1/V2 Small/Base/Large, Distill-Any-Depth
-Small/Large and the two metric Depth Anything V2 models, each entry with
-its config, upstream checkpoint id and the reference dropdown names it
-covers. The other families of the JAX catalog are not ported yet.
+Counterpart of ``visiondepth3d_tpu/depth/registry.py``, each entry with its
+family, config, upstream checkpoint id and the reference dropdown names it
+covers:
+- ``dpt_dinov2``: Depth Anything V1/V2 Small/Base/Large, Distill-Any-Depth
+  Small/Large and the two metric Depth Anything V2 models;
+- ``dpt_classic``: DPT-Large (Intel/dpt-large);
+- ``dpt_beit``: DPT-BEiT-Large-512 (MiDaS v3.1);
+- ``dpt_hybrid``: DPT-Hybrid (MiDaS 3.0);
+- ``zoedepth`` / ``zoedepth_nk``: ZoeDepth NYU and NYU+KITTI (metric);
+- ``dpt_vit``: MiDaS v2.1-small (the JAX catalog's family name).
+Depth Pro, Video Depth Anything and the diffusion models are not ported
+yet: ``load_predictor`` refuses them, naming the ported families.
 """
 
 from __future__ import annotations
@@ -13,11 +21,16 @@ import dataclasses
 
 import torch
 
-from ..device import DEFAULT_DEVICE
+from ..device import DEFAULT_DEVICE, resolve_device
 from . import configs
 from .convert import load_hf_state_dict, load_safetensors
 from .dpt import DepthAnything
-from .model import DepthPredictor, build_random
+from .dpt_beit import DPT_BEIT_LARGE_512
+from .dpt_classic import DPT_LARGE
+from .dpt_hybrid import DPT_HYBRID
+from .midas_v2 import MIDAS_V2_SMALL
+from .model import STANDARD_MEAN, STANDARD_STD, DepthPredictor, build_random_model
+from .zoedepth import ZoeDepthConfig, ZoeDepthNKConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +42,8 @@ class ModelEntry:
     reference_names: tuple = ()
 
 
-PORTED_FAMILIES = ("dpt_dinov2",)
+PORTED_FAMILIES = ("dpt_dinov2", "dpt_classic", "dpt_beit", "zoedepth", "zoedepth_nk",
+                   "dpt_hybrid", "dpt_vit")
 
 CATALOG: dict[str, ModelEntry] = {e.name: e for e in (
     ModelEntry("depth-anything-v2-small", "dpt_dinov2", configs.DA_V2_SMALL,
@@ -58,10 +72,30 @@ CATALOG: dict[str, ModelEntry] = {e.name: e for e in (
     ModelEntry("depth-anything-v2-metric-outdoor", "dpt_dinov2", configs.DA_V2_METRIC_OUTDOOR,
                "depth-anything/Depth-Anything-V2-Metric-Outdoor-Large-hf",
                ("V2-Metric-Outdoor-Large",)),
+    # Manojb/dpt-large is a mirror of Intel/dpt-large
+    ModelEntry("dpt-large", "dpt_classic", DPT_LARGE, "Intel/dpt-large",
+               ("DPT-Large", "Manojb - DPT-Large")),
+    ModelEntry("dpt-beit-large-512", "dpt_beit", DPT_BEIT_LARGE_512,
+               "Intel/dpt-beit-large-512", ("dpt-beit-large-512",)),
+    ModelEntry("zoedepth-nyu", "zoedepth", ZoeDepthConfig(), "Intel/zoedepth-nyu",
+               ("ZoeDepth",)),
+    ModelEntry("zoedepth-nyu-kitti", "zoedepth_nk", ZoeDepthNKConfig(),
+               "Intel/zoedepth-nyu-kitti", ("ZoeDepth",)),
+    ModelEntry("midas-v3-hybrid", "dpt_hybrid", DPT_HYBRID, "Intel/dpt-hybrid-midas",
+               ("DPT-Hybrid (MiDaS 3.0)",)),
+    ModelEntry("midas-v2", "dpt_vit", MIDAS_V2_SMALL, "qualcomm/Midas-V2", ("Midas-V2",)),
 )}
 
-# recommended square inference sizes per family (/14 patch)
-_FAMILY_RESOLUTIONS = {"dpt_dinov2": (518, 392, 266, 700, 924)}
+# recommended square inference sizes per family; the first is the default
+_FAMILY_RESOLUTIONS = {
+    "dpt_dinov2": (518, 392, 266, 700, 924),  # /14 patch
+    "dpt_classic": (384, 256, 512),  # /16 patch
+    "dpt_beit": (512, 384, 256),
+    "dpt_hybrid": (384, 256, 512),
+    "zoedepth": (384, 512),
+    "zoedepth_nk": (384, 512),
+    "dpt_vit": (384, 256),  # snapped to 32
+}
 
 
 def inference_resolutions(name: str) -> tuple:
@@ -100,24 +134,65 @@ def parse_inference_size(spec) -> int | tuple[int, int]:
                          f"{sorted(INFERENCE_RESOLUTIONS)}") from None
 
 
+def _family_model(family: str, cfg, fast_head: bool):
+    """(model, unused HF keys, predictor options) of a family."""
+    if family == "dpt_dinov2":
+        from .convert import UNUSED_HF_KEYS
+
+        return DepthAnything(cfg, fast_head=fast_head), UNUSED_HF_KEYS, {}
+    if family == "dpt_classic":
+        from .dpt_classic import UNUSED_HF_KEYS, DPTClassic
+
+        return DPTClassic(cfg, fast_head=fast_head), UNUSED_HF_KEYS, {}
+    if family == "dpt_beit":
+        from .dpt_beit import UNUSED_HF_KEYS, DPTBEiT
+
+        return DPTBEiT(cfg, fast_head=fast_head), UNUSED_HF_KEYS, {}
+    if family == "dpt_hybrid":
+        from .dpt_hybrid import UNUSED_HF_KEYS, DPTHybrid
+
+        return DPTHybrid(cfg, fast_head=fast_head), UNUSED_HF_KEYS, {}
+    if family in ("zoedepth", "zoedepth_nk"):
+        from .zoedepth import UNUSED_HF_KEYS, ZoeDepth, ZoeDepthNK
+
+        nk = family == "zoedepth_nk"
+        return ((ZoeDepthNK if nk else ZoeDepth)(cfg), UNUSED_HF_KEYS,
+                dict(mean=STANDARD_MEAN, std=STANDARD_STD, select=0 if nk else None))
+    if family == "dpt_vit":
+        from .midas_v2 import MidasNetSmall
+
+        return MidasNetSmall(cfg), (), dict(snap_multiple=32)
+    raise NotImplementedError(f"family {family} is not ported")
+
+
 def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518,
                    seed: int = 0, dtype: str = "float32", device=DEFAULT_DEVICE,
                    fast_head: bool = False, config=None) -> DepthPredictor:
     """A predictor for a catalog entry on ``device`` (the CUDA card unless
-    the caller passes "cpu"; without a card the default raises).
+    the caller passes "cpu"; without a card the default raises before any
+    model is built).
 
-    checkpoint: an HF ``.safetensors`` file, an HF-keyed state dict, or None
-    for seeded random weights (shape and speed testing only).
+    checkpoint: the upstream weights (HF ``.safetensors``; for MiDaS v2 the
+    isl-org ``.pt``, ``.safetensors`` or ``.onnx``), a state dict with the
+    upstream keys, or None for seeded random weights (shape and speed
+    testing only). ``fast_head`` goes to the DPT families that take it
+    (Depth Anything, DPT-Large, DPT-BEiT, DPT-Hybrid).
     config: overrides the catalog config (tiny configs in tests).
     """
     if name not in CATALOG:
         raise KeyError(f"model {name!r} is not ported: the port has the "
-                       f"{', '.join(PORTED_FAMILIES)} family ({', '.join(CATALOG)})")
-    cfg = config if config is not None else CATALOG[name].config
+                       f"{', '.join(PORTED_FAMILIES)} families ({', '.join(CATALOG)})")
+    resolve_device(device)
+    entry = CATALOG[name]
+    cfg = config if config is not None else entry.config
+    model, unused, options = _family_model(entry.family, cfg, fast_head)
     if checkpoint is None:
-        model = build_random(cfg, seed, fast_head=fast_head)
+        build_random_model(model, seed)
+    elif entry.family == "dpt_vit":
+        from .midas_v2 import convert_midas_small
+
+        load_hf_state_dict(model, convert_midas_small(checkpoint, cfg), unused)
     else:
         state = checkpoint if isinstance(checkpoint, dict) else load_safetensors(checkpoint)
-        state = {k: v.to(torch.float32) for k, v in state.items()}
-        model = load_hf_state_dict(DepthAnything(cfg, fast_head=fast_head), state)
-    return DepthPredictor(model, inference_size, dtype=dtype, device=device)
+        load_hf_state_dict(model, {k: v.to(torch.float32) for k, v in state.items()}, unused)
+    return DepthPredictor(model, inference_size, dtype=dtype, device=device, **options)

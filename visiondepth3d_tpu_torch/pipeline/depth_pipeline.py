@@ -10,8 +10,8 @@ on the device. The letterbox tracker crops black bars before inference and
 the writer reinserts them with a neutral fill.
 
 Not ported yet, and refused with NotImplementedError: the diffusion
-(Marigold, DepthCrafter; ROADMAP Queue 1 item 9) and Video Depth Anything
-(item 7) routes, and multi-device meshes.
+(Marigold, DepthCrafter; ROADMAP Queue 1 item 3) and Video Depth Anything
+(item 2) routes, and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ from ..ops.resize import resize_bilinear
 from ..ops.tiling import tiled_apply_batch
 
 # the JAX catalog's models whose depth routes are not ported: (family, ROADMAP item)
-_UNPORTED_ROUTES = {"marigold": ("diffusion", 9), "depthcrafter": ("diffusion", 9),
-                    "video-depth-anything": ("vda", 7)}
+_UNPORTED_ROUTES = {"marigold": ("diffusion", 3), "depthcrafter": ("diffusion", 3),
+                    "video-depth-anything": ("vda", 2)}
 
 
 @dataclasses.dataclass
