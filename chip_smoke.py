@@ -27,8 +27,12 @@ Phases, each printed on its own line; any failure exits nonzero:
      grade) at 1080p, both eyes, dof_strength 2 and 5, all in focus and all
      out of focus, K7 (attention) at the depth model's shapes
      [16|8|2, 1370, 6, 64], ViT-B's and ViT-L's [8, 1370, 12|16, 64], a
-     padded [2, 270, 3, 64], and DPT-Large's and DPT-Hybrid's 384^2
-     [8, 577, 16|12, 64] (bf16) and [2, 577, 16, 64] (f32);
+     padded [2, 270, 3, 64], DPT-Large's and DPT-Hybrid's 384^2
+     [8, 577, 16|12, 64] (bf16) and [2, 577, 16, 64] (f32), and the new
+     depth routes' shapes (bf16): Depth Pro's patch encoder at 1536^2 over
+     8 frames [280, 577, 16, 64] (35 windows a frame), VDA-Small's 32-frame
+     window [32, 1370, 6, 64], Marigold's UNet level 2 at 1080p
+     [2, 2040, 20, 64] (34 x 60 latents, batch 2);
   4. (render) the render path: a synthetic 1920x1080 y4m clip of 64 frames
      through render_stereo_video with the benchmark configuration (Depth
      Anything V2-Small, random weights from a seed, 518^2, bf16, fast head;
@@ -81,7 +85,22 @@ Phases, each printed on its own line; any failure exits nonzero:
      (16 frames, batch 8: 24 and 12 K7 launches per model call at N = 577);
      one frame of each of the six in float32 on the CPU and on the card
      (TF32 off), the route's u8 depth within a mean of 1 u8 and not flat;
- 12. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
+ 12. (routes) the models whose depth routes are ported last, at their
+     published widths (random weights from seed 0, bf16): Depth Pro at
+     1536^2 through the fused 1080p Full-SBS render (16 frames, chunks of
+     16; fps, device time per frame, events, busy share, peak memory; K1-K4
+     gated per frame, no K7) and through the depth route with the K7
+     opt-in (8 frames, batch 8: 72 K7 launches, 24 layers of each of the
+     three ViTs); VDA-Small at 518^2 through its depth route over a
+     56-frame 1080p clip (two 32-frame windows) with SDPA and with K7 (12
+     launches a window); Marigold (SD2 UNet, SD VAE) through its depth
+     route over a 4-frame 1080p clip, batch 2, 4 DDIM steps, ensemble 1
+     (a 135-row latent), with SDPA and with K7 (5 launches a UNet call, at
+     the 34 x 60 level), with the SDPA backend of the VAE's [2, 32400, 1,
+     512] mid attention; then one frame of each model in float32 on the
+     CPU (plain versions) and on the card (TF32 off), the route's u8 depth
+     within a mean of 1 u8 (Marigold with the same noise on both sides);
+ 13. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
      render (also with --dof_strength 2, --format "Red-Cyan Anaglyph",
      --preset best3d --dry-run, and --control FILE with 'cancel' written
      once frames come out) / depth / tools ...
@@ -143,7 +162,7 @@ DOF_KERNELS = ("dof_grade",)
 DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
 ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "surface",
-              "catalog", "families", "parity", "cli")
+              "catalog", "families", "routes", "parity", "cli")
 OPTIONAL_PHASES = ("k2shapes",)  # run only when named
 H, W = 1080, 1920
 
@@ -720,12 +739,17 @@ def phase_dof_kernel(card: str, results: dict):
 # route's batch, 16 the render's chunk; H 6, 12 and 16 are ViT-S, ViT-B and
 # ViT-L; [2, 270, 3, 64] pads 270 keys to whole 64-key tiles; N 577 is
 # DPT-Large's (16 heads) and DPT-Hybrid's (12) 384^2, whose last query and
-# key tile holds one valid row.
+# key tile holds one valid row. The routes phase's: Depth Pro's patch
+# encoder over 8 frames at 1536^2 (35 windows of 577 tokens each), VDA's
+# 32-frame window at 518^2, Marigold's UNet level 2 (34 x 60 latents, 20
+# heads) at 1080p with batch 2.
 ATTN_SHAPES = (((16, 1370, 6, 64), "bfloat16"), ((8, 1370, 6, 64), "bfloat16"),
                ((8, 1370, 12, 64), "bfloat16"), ((8, 1370, 16, 64), "bfloat16"),
                ((2, 1370, 6, 64), "float32"), ((2, 270, 3, 64), "bfloat16"),
                ((2, 270, 3, 64), "float32"), ((8, 577, 16, 64), "bfloat16"),
-               ((8, 577, 12, 64), "bfloat16"), ((2, 577, 16, 64), "float32"))
+               ((8, 577, 12, 64), "bfloat16"), ((2, 577, 16, 64), "float32"),
+               ((280, 577, 16, 64), "bfloat16"), ((32, 1370, 6, 64), "bfloat16"),
+               ((2, 2040, 20, 64), "bfloat16"))
 
 
 def phase_attention_kernel(card: str, results: dict):
@@ -1593,11 +1617,13 @@ def phase_surface(card: str, tmp: Path):
     torch.cuda.empty_cache()
 
 
-def k7_depth_route(card: str, tmp: Path, phase: str, model: str, size: int):
+def k7_depth_route(card: str, tmp: Path, phase: str, model: str, size: int,
+                   n_depth: int = 16, per_call: int | None = None):
     """A catalog model (bf16, fast head, random weights from seed 0) at
-    size^2 through the depth route with the K7 opt-in over a 16-frame 1080p
-    clip, batch 8: K7 launched once per ViT layer and model call, no other
-    kernel; the output's shape checked and not flat."""
+    size^2 through the depth route with the K7 opt-in over an n_depth-frame
+    1080p clip, batch 8: K7 launched ``per_call`` times per model call (once
+    per ViT layer unless given), no other kernel; the output's shape checked
+    and not flat."""
     import torch
 
     from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1605,14 +1631,17 @@ def k7_depth_route(card: str, tmp: Path, phase: str, model: str, size: int):
     from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
                                                                  render_depth_video_file)
 
-    dclip = tmp / "k7_depth_1080p.y4m"
-    n_depth = 16
+    dclip = tmp / f"k7_depth_{n_depth}_1080p.y4m"
     if not dclip.exists():
         write_clip(dclip, W, H, n_depth)
     dcfg = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda")
     dpred = da_predictor("cuda", "bfloat16", model, size)
-    layers, heads = dpred.cfg.backbone.num_layers, dpred.cfg.backbone.num_heads
-    patch = dpred.cfg.backbone.patch_size
+    if per_call is None:
+        bb = dpred.cfg.backbone
+        per_call = bb.num_layers
+        what = f"{bb.num_heads} heads, N = {(size // bb.patch_size) ** 2 + 1}"
+    else:
+        what = f"{per_call} launches per model call"
     try:
         attn_ops.USE_VMEM_KERNEL = True
         render_depth_video_file(warm_clip(tmp), tmp / "k7_depth_warm.y4m", dcfg,
@@ -1627,16 +1656,15 @@ def k7_depth_route(card: str, tmp: Path, phase: str, model: str, size: int):
         attn_ops.USE_VMEM_KERNEL = False
     counts = dict(launch_counts)
     calls = -(-n_depth // dcfg.batch_size)
-    want = {k: (layers * calls if k == "vmem_attention" else 0) for k in counts}
+    want = {k: (per_call * calls if k == "vmem_attention" else 0) for k in counts}
     expect(got == n_depth and counts == want,
            f"{model} depth route: {got} frames, launches {counts}, want {want}")
     ow, oh, dout = read_clip(tmp / "k7_depth.y4m")
     expect((ow, oh) == (W, H) and float(dout[..., 0].std()) > 1.0,
            f"{model} depth output {ow}x{oh} flat or misshapen")
     say(f"PHASE {phase} depth {model}: {n_depth} frames 1920x1080, {size}^2 bf16 fast "
-        f"head, batch 8, K7 opt-in ({heads} heads, N = {(size // patch) ** 2 + 1}): "
-        f"{n_depth / wall:.2f} fps, K7 launches {counts['vmem_attention']} "
-        f"({layers} per model call x {calls}) [{card}]")
+        f"head, batch 8, K7 opt-in ({what}): {n_depth / wall:.2f} fps, K7 launches "
+        f"{counts['vmem_attention']} ({per_call} per model call x {calls}) [{card}]")
 
 
 def float32_parity(card: str, phase: str, label: str, model: str, size: int):
@@ -1726,11 +1754,13 @@ FAMILY_RENDERS = (("dpt-large", 384, 32), ("dpt-beit-large-512", 512, 16),
 FAMILY_K7 = ("dpt-large", "midas-v3-hybrid")
 
 
-def family_render(card: str, tmp: Path, model: str, size: int, n: int, runs: int) -> dict:
+def family_render(card: str, tmp: Path, model: str, size: int, n: int, runs: int,
+                  halves_gate: bool = True, phase: str = "families") -> dict:
     """One family's predictor (bf16, random weights from seed 0) through the
     fused 1080p Full-SBS render: a warm-up chunk, `runs` timed runs and one
     profiled run, K1-K4 gated per frame and no other kernel (no K7) in each;
-    the output's shape and its two halves checked."""
+    the output's shape and its two halves checked (with ``halves_gate``
+    off, the depth of the clip's first frame instead: finite, not flat)."""
     import torch
 
     from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import RenderConfig
@@ -1754,12 +1784,23 @@ def family_render(card: str, tmp: Path, model: str, size: int, n: int, runs: int
            f"{model} render: output {ow}x{oh} with {out.shape[0]} frames, want "
            f"{2 * W}x{H} x {n}")
     halves = float(abs(out[:, :, :W].astype(int) - out[:, :, W:].astype(int)).mean())
-    expect(halves > 0.1, f"{model} render: identical halves (mean |L-R| {halves})")
+    if halves_gate:
+        expect(halves > 0.1, f"{model} render: identical halves (mean |L-R| {halves})")
+    else:
+        first = read_clip(clip)[2][:1]
+        d01 = pred.predict_01(torch.from_numpy(first).cuda().float() / 255.0, out_hw=(H, W))
+        std = float(d01.std())
+        expect(bool(torch.isfinite(d01).all()) and std > 1e-2,
+               f"{model} depth of the first frame: std {std} (need > 1e-2), finite")
+        say(f"PHASE {phase} render {model}: the first frame's depth in [0, 1] std {std:.4f} "
+            f"(need > 1e-2), row-mean std {float(d01[0].mean(1).std()):.4f}, column-mean "
+            f"std {float(d01[0].mean(0).std()):.4f}; mean |L-R| {halves:.3f} u8 not gated "
+            f"[{card}]")
     del out
     prof = device_profile(lambda: counted_render(clip, tmp / "families_prof.y4m", params,
                                                  cfg, pred, n, f"{model} profiled"))
     per_frame = "not measured" if prof is None else f"{prof['device_ms'] / n:.3f} ms"
-    say(f"PHASE families render {model}: {size}^2 (snapped {pred._size[0]}x{pred._size[1]}) "
+    say(f"PHASE {phase} render {model}: {size}^2 (snapped {pred._size[0]}x{pred._size[1]}) "
         f"bf16 fast head, {n} frames 1920x1080 -> {ow}x{oh} Full-SBS, chunks of 16, "
         f"{runs} run(s): {', '.join(f'{n / w:.2f}' for w in walls)} fps end to end, device "
         f"time per frame {per_frame}, launches per frame {json.dumps(PER_FRAME)} (no K7), "
@@ -1780,6 +1821,267 @@ def phase_families(card: str, tmp: Path):
         drop_predictors(model)
     for model, size, _ in FAMILY_RENDERS:
         float32_parity(card, "families", model, model, size)
+
+
+class no_tf32:
+    """TF32 off for matmuls and convolutions inside the block."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def timed_route(card: str, what: str, run, want_k7: int, n: int, out: Path, out_hw,
+                per: str = "fps") -> dict:
+    """One depth route run with the launch counts zeroed just before it and
+    read just after (K7 gated at ``want_k7``, no other kernel), its peak
+    memory, then one profiled run; the output's shape checked, not flat."""
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: (want_k7 if k == "vmem_attention" else 0) for k in counts}
+    expect(got == n and counts == want, f"{what}: {got} frames, launches {counts}, want {want}")
+    ow, oh, frames = read_clip(out)
+    expect((oh, ow) == tuple(out_hw) and frames.shape[0] == n and float(frames.std()) > 1.0,
+           f"{what}: output {ow}x{oh} with {frames.shape[0]} frames, flat or misshapen")
+    prof = device_profile(run)
+    rate = f"{n / wall:.2f} fps" if per == "fps" else f"{wall / n:.3f} s per frame"
+    dev = "not measured" if prof is None else f"{prof['device_ms'] / n:.3f} ms"
+    say(f"PHASE routes {what}: {n} frames -> {ow}x{oh}, {rate} end to end, device time per "
+        f"frame {dev}, K7 launches {counts['vmem_attention']}, peak allocated "
+        f"{peak / 2**30:.3f} GiB; profiled run: {fmt_profile(prof, 1e3 * wall)} [{card}]")
+    return {"wall": wall, "prof": prof, "out": frames[..., 0]}
+
+
+def route_parity(card: str, label: str, run_on) -> None:
+    """The same one-frame route in float32 on the CPU (plain versions) and
+    on the card (TF32 off): ``run_on(device)`` returns the route's u8 depth;
+    mean |d| <= 1 u8, not flat."""
+    import numpy as np
+
+    with no_tf32():
+        depth = {dev: run_on(dev).astype(np.int16) for dev in ("cpu", "cuda")}
+    d = float(np.abs(depth["cpu"] - depth["cuda"]).mean())
+    std = float(depth["cpu"].std())
+    expect(std > 1.0 and d <= 1.0, f"{label} float32 route: CPU vs card mean |d| {d:.4f} u8 "
+                                   f"(need <= 1), depth std {std:.2f} u8 (need > 1)")
+    say(f"PHASE routes parity {label}: float32 (TF32 off), one frame, CPU vs card after the "
+        f"route's u8 rounding: mean |d| {d:.4f} u8 (need <= 1), max "
+        f"{int(np.abs(depth['cpu'] - depth['cuda']).max())}, depth std {std:.2f} u8 [{card}]")
+
+
+def marigold_k7_per_call(cfg, latent_hw) -> int:
+    """Self-attentions the K7 opt-in takes in one UNet call: every spatial
+    transformer at a level whose token count is in [512, 4096) (down
+    ``layers_per_block``, up ``layers_per_block + 1``; the mid block at the
+    deepest level)."""
+    h, w = latent_hw
+    total, last = 0, len(cfg.block_out_channels) - 1
+    for level in range(last + 1):
+        n = h * w
+        if 512 <= n < 4096:
+            if cfg.with_attn[level]:
+                total += 2 * cfg.layers_per_block + 1
+            if level == last:
+                total += 1  # the mid block's
+        h, w = -(-h // 2), -(-w // 2)  # the stride-2 conv (padding 1)
+    return total
+
+
+def phase_routes(card: str, tmp: Path):
+    """Depth Pro (render and K7 depth route), VDA-Small and Marigold (their
+    depth routes with SDPA and with K7) at the published widths, then one
+    float32 frame of each on the CPU against the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.depth.diffusion import build_random_marigold
+    from visiondepth3d_tpu_torch.depth.model import STANDARD_MEAN as STANDARD
+    from visiondepth3d_tpu_torch.depth.registry import CATALOG, load_predictor
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
+                                                                 make_depth_batch_fn,
+                                                                 render_depth_video_file)
+
+    # Depth Pro: the fused render (K1-K4, no K7), then the depth route on K7
+    dp = "depth-pro"
+    # its random depth has little large-scale structure, so the eyes barely
+    # differ (0.01 u8 on the CPU as on the card): the depth is gated instead
+    family_render(card, tmp, dp, 1536, 16, runs=1, halves_gate=False, phase="routes")
+    vits = [da_predictor("cuda", "bfloat16", dp, 1536).cfg.patch_model.num_layers] * 3
+    k7_depth_route(card, tmp, "routes", dp, 1536, n_depth=8, per_call=sum(vits))
+    drop_predictors(dp)
+
+    # float32 on the CPU against the card: the published widths with 12 of
+    # each ViT's 24 layers (the hooks 11 and 5 kept; the full depth costs
+    # the CPU about a minute), one model moved to the card
+    from visiondepth3d_tpu_torch.depth.model import DepthPredictor
+
+    full = CATALOG[dp].config
+    vit = dataclasses.replace(full.patch_model, num_layers=12)
+    cut = dataclasses.replace(full, patch_model=vit, image_model=vit, fov_model=vit)
+    dp_cpu = load_predictor(dp, None, inference_size=1536, seed=0, device="cpu", config=cut)
+    dp_card = DepthPredictor(copy.deepcopy(dp_cpu.model), 1536, device="cuda",
+                             mean=STANDARD, std=STANDARD, select=0, snap_multiple=1536)
+
+    def depth_pro_one_frame(dev):
+        frame = (smooth_frame(torch.Generator().manual_seed(11), 1536, 1536, "cpu") * 255
+                 ).round().to(torch.uint8)[None]
+        fn = make_depth_batch_fn(dp_cpu if dev == "cpu" else dp_card, DepthConfig(device=dev),
+                                 (1536, 1536))
+        return fn(frame.to(dev)).cpu().numpy()[0]
+
+    route_parity(card, "Depth Pro (12 of 24 layers)", depth_pro_one_frame)
+    del dp_cpu, dp_card
+    torch.cuda.empty_cache()
+
+    # VDA-Small: two 32-frame windows (32, then 8 carried + 24)
+    vda = "video-depth-anything"
+    n = 56
+    clip = tmp / "vda_1080p.y4m"
+    write_clip(clip, W, H, n)
+    pred = load_predictor(vda, None, inference_size=518, seed=0, dtype="bfloat16",
+                          device="cuda")
+    cfg = DepthConfig(model=vda, inference_size=518, dtype="bfloat16", device="cuda")
+    windows = 2
+    k7_per_window = pred.cfg.base.backbone.num_layers  # every ViT layer at N = 1370
+    outs = {}
+    try:
+        for mode in ("sdpa", "K7"):
+            attn_ops.USE_VMEM_KERNEL = mode == "K7"
+            render_depth_video_file(warm_clip(tmp), tmp / "vda_warm.y4m", cfg, predictor=pred)
+            out = tmp / f"vda_{mode}.y4m"
+            res = timed_route(card, f"VDA-Small 518^2 bf16 {mode}", lambda: render_depth_video_file(
+                clip, out, cfg, predictor=pred), windows * k7_per_window if mode == "K7" else 0,
+                n, out, (H, W))
+            outs[mode] = res["out"]
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+    d = float(np.abs(outs["sdpa"].astype(np.int16) - outs["K7"].astype(np.int16)).mean())
+    say(f"PHASE routes VDA-Small: bf16 outputs SDPA vs K7 mean |d| {d:.4f} u8 [{card}]")
+    del pred, outs
+    torch.cuda.empty_cache()
+
+    def vda_one_frame(dev):
+        one = tmp / "vda_one.y4m"
+        if not one.exists():
+            write_clip(one, 960, 540, 1)
+        p = load_predictor(vda, None, inference_size=518, seed=0, device=dev)
+        out = tmp / f"vda_one_{dev}.y4m"
+        render_depth_video_file(one, out, DepthConfig(model=vda, inference_size=518, device=dev),
+                                predictor=p)
+        return read_clip(out)[2][..., 0]
+
+    route_parity(card, "VDA-Small", vda_one_frame)
+
+    # Marigold: 4 frames, batch 2, 4 DDIM steps: a 135 x 240 latent at 1080p
+    mg = "marigold"
+    n, steps, batch = 4, 4, 2
+    clip = tmp / "marigold_1080p.y4m"
+    write_clip(clip, W, H, n)
+    warm = tmp / "marigold_warm.y4m"
+    write_clip(warm, W, H, batch)
+    pipe = build_random_marigold(0, steps=steps, dtype="bfloat16", device="cuda")
+    cfg = DepthConfig(model=mg, batch_size=batch, dtype="bfloat16", device="cuda", steps=steps)
+    per_call = marigold_k7_per_call(pipe.unet_cfg, (H // 8, W // 8))
+    want_k7 = per_call * steps * -(-n // batch)
+    outs = {}
+    try:
+        for mode in ("sdpa", "K7"):
+            attn_ops.USE_VMEM_KERNEL = mode == "K7"
+            render_depth_video_file(warm, tmp / "marigold_warm_out.y4m", cfg, predictor=pipe)
+            out = tmp / f"marigold_{mode}.y4m"
+            res = timed_route(card, f"Marigold 1080p bf16 {steps} steps {mode}",
+                              lambda: render_depth_video_file(clip, out, cfg, predictor=pipe),
+                              want_k7 if mode == "K7" else 0, n, out, (H, W), per="s")
+            outs[mode] = res["out"]
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+    d = float(np.abs(outs["sdpa"].astype(np.int16) - outs["K7"].astype(np.int16)).mean())
+    say(f"PHASE routes Marigold: K7 {per_call} launches per UNet call x {steps} steps x "
+        f"{-(-n // batch)} batches; bf16 outputs SDPA vs K7 mean |d| {d:.4f} u8 [{card}]")
+    sdpa_backend_of_vae_mid(card)
+    del pipe, outs
+    torch.cuda.empty_cache()
+
+    cpu_pipe = build_random_marigold(0, steps=steps, device="cpu")
+    card_pipe = type(cpu_pipe)(copy.deepcopy(cpu_pipe.unet), copy.deepcopy(cpu_pipe.vae),
+                               cpu_pipe.ctx.numpy(), num_steps=steps, device="cuda")
+    noise = torch.randn(1, 256 // 8, 256 // 8, 4, generator=torch.Generator().manual_seed(5))
+
+    def marigold_one_frame(dev):
+        one = tmp / "marigold_one.y4m"
+        if not one.exists():
+            write_clip(one, 256, 256, 1)
+        p = cpu_pipe if dev == "cpu" else card_pipe
+        orig = p._run
+        p._run = lambda rgb, _noise: orig(rgb, noise)  # the same noise on both sides
+        out = tmp / f"marigold_one_{dev}.y4m"
+        try:
+            render_depth_video_file(one, out, DepthConfig(model=mg, batch_size=1, device=dev,
+                                                          steps=steps), predictor=p)
+        finally:
+            del p._run
+        return read_clip(out)[2][..., 0]
+
+    route_parity(card, "Marigold 256^2", marigold_one_frame)
+    del cpu_pipe, card_pipe
+    torch.cuda.empty_cache()
+
+
+def sdpa_backend_of_vae_mid(card: str):
+    """Which SDPA backend takes the VAE's mid-block attention at 1080p
+    ([2, 32400, 1, 512] BNHD): each backend tried alone, and the kernels of
+    the default call as the profiler names them."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    q = torch.randn(2, 1, 32400, 512, device="cuda", dtype=torch.bfloat16)
+    accepts = []
+    names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+    for backend in (getattr(SDPBackend, n) for n in names if hasattr(SDPBackend, n)):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, q, q)
+            accepts.append(backend.name)
+        except RuntimeError:
+            pass
+    order = [SDPBackend(int(b)).name for b in torch._C._get_sdp_priority_order()]
+    chosen = next((b for b in order if b in accepts), None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, q, q)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    say(f"PHASE routes Marigold VAE mid attention [2, 32400, 1, 512] bf16: backends that take "
+        f"it alone {accepts}, the dispatcher's priority order {order}: it takes {chosen}; the "
+        f"default call's device kernels "
+        f"{[n[:80] for n in names] or 'not measured (the profiler saw no device event)'} "
+        f"[{card}]")
+    del q
+    torch.cuda.empty_cache()
 
 
 def phase_cli(tmp: Path):
@@ -1920,7 +2222,7 @@ def main(argv=None) -> int:
                     run_counts = timed(name, fn, card, tmp)
                     counts.update({k: run_counts[k] for k in path_kernels})
             for name, fn in (("surface", phase_surface), ("catalog", phase_catalog),
-                             ("families", phase_families)):
+                             ("families", phase_families), ("routes", phase_routes)):
                 if name in phases:
                     timed(name, fn, card, tmp)
             if "parity" in phases:

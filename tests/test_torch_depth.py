@@ -106,7 +106,7 @@ def test_registry_and_sizes():
                           config=tconfigs.DA_TINY, device="cpu")
     assert pred._size == (294, 518)
     with pytest.raises(KeyError):
-        load_predictor("depth-pro")
+        load_predictor("depthcrafter")
 
 
 def test_safetensors_checkpoint(tmp_path):

@@ -244,7 +244,7 @@ def test_tiling_helpers_match_jax():
 def test_unported_depth_routes_raise(tmp_path):
     clip = tmp_path / "clip.y4m"
     _write_clip(clip, 16, 16, 1)
-    for kw in (dict(model="marigold"), dict(model="video-depth-anything"), dict(mesh="dp=2")):
+    for kw in (dict(model="depthcrafter"), dict(mesh="dp=2")):
         with pytest.raises(NotImplementedError):
             render_depth_video_file(clip, tmp_path / "x.y4m", DepthConfig(device="cpu", **kw))
     # --control is ported: 'cancel' stops the route before its first batch

@@ -617,7 +617,8 @@ def test_attention_route_bound_matches_jax(n, monkeypatch):
     JAX package's gate does (_FLASH_MIN_SEQ <= N < _FLASH_ALWAYS_SEQ, and N
     within its kernel's MAX_RESIDENT_SEQ): from N = 4096 on the JAX package
     always takes its flash library route, SDPA here. Both routes are spies,
-    so no N x N attention is computed."""
+    so no N x N attention is computed. The head dim is one K7 is built
+    for (``kattention.HEAD_DIMS``): others go to SDPA at any N."""
     from visiondepth3d_tpu.ops import attention as jattention
     from visiondepth3d_tpu.ops.pallas_attention import MAX_RESIDENT_SEQ
     from visiondepth3d_tpu_torch.kernels import attention as kattention
@@ -634,7 +635,7 @@ def test_attention_route_bound_matches_jax(n, monkeypatch):
     monkeypatch.setattr(tattention, "USE_VMEM_KERNEL", True)
     monkeypatch.setattr(kattention, "vmem_attention", spy("K7"))
     monkeypatch.setattr(tattention.F, "scaled_dot_product_attention", spy("SDPA"))
-    q = torch.zeros(1, n, 2, 8)
+    q = torch.zeros(1, n, 2, 16)
     tattention.multi_head_attention(q, q, q)
     jax_k7 = (jattention._FLASH_MIN_SEQ <= n < jattention._FLASH_ALWAYS_SEQ
               and n <= MAX_RESIDENT_SEQ)
@@ -948,6 +949,28 @@ def test_cuda_vmem_attention_vit_widths(cuda, dtype, heads):
 
     gen = torch.Generator().manual_seed(heads)
     q, k, v = (torch.randn(2, 1370, heads, 64, generator=gen).to(cuda, dtype) for _ in range(3))
+    got = kattention.vmem_attention(q, k, v)
+    ref = kattention.vmem_attention_torch(q, k, v)
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        assert err.max().item() <= 1.6e-2 and err.mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(280, 577, 16, 64), (32, 1370, 6, 64), (2, 2040, 20, 64)])
+def test_cuda_vmem_attention_route_shapes(cuda, dtype, shape):
+    """K7 at the shapes the Depth Pro, VDA and Marigold depth routes give it
+    under the opt-in: Depth Pro's patch encoder over 8 frames at 1536^2 (35
+    windows of 577 tokens a frame), VDA-Small's 32-frame window at 518^2,
+    Marigold's UNet level 2 at 1080p (34 x 60 latents, 20 heads, batch 2).
+    Gates of the depth route's card case."""
+    from visiondepth3d_tpu_torch.kernels import attention as kattention
+
+    gen = torch.Generator().manual_seed(shape[0])
+    q, k, v = (torch.randn(*shape, generator=gen).to(cuda, dtype) for _ in range(3))
     got = kattention.vmem_attention(q, k, v)
     ref = kattention.vmem_attention_torch(q, k, v)
     err = (got.float() - ref.float()).abs()

@@ -165,6 +165,10 @@ import visiondepth3d_tpu_torch
 for mod in pkgutil.walk_packages(visiondepth3d_tpu_torch.__path__, "visiondepth3d_tpu_torch."):
     if not mod.name.endswith("__main__"):  # that one runs the CLI
         __import__(mod.name)
+for name in ("depth.depth_pro", "depth.vda", "depth.diffusion.schedulers",
+             "depth.diffusion.vae", "depth.diffusion.unet2d", "depth.diffusion.marigold",
+             "depth.diffusion.loaders"):
+    assert "visiondepth3d_tpu_torch." + name in sys.modules, name
 from visiondepth3d_tpu_torch.depth import DA_TINY
 from visiondepth3d_tpu_torch.depth.registry import load_predictor
 from visiondepth3d_tpu_torch.enhance import EnhanceConfig, run_merged_pipeline

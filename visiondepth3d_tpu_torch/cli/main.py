@@ -14,13 +14,18 @@
     vd3d-torch render --input clip.y4m --model dpt-large --inference-size 384 \\
         --allow-random
     vd3d-torch depth --input clip.y4m --model zoedepth-nyu --allow-random-weights
+    vd3d-torch depth --input clip.y4m --model video-depth-anything --allow-random-weights
+    vd3d-torch depth --input clip.y4m --model marigold --checkpoint marigold_dir/ --steps 4
+    vd3d-torch render --input clip.y4m --model depth-pro --inference-size 1536 --allow-random
     vd3d-torch models [--family dpt_classic]
     python -m visiondepth3d_tpu_torch render|depth|tools|models ...
 
 The flags keep the JAX CLI's names and meaning, plus ``--device`` (default
 cuda; a missing card is an error, not a CPU fallback). Flags of features
 not ported yet (render --mesh other than off; depth --mesh other than
-auto/off, the diffusion and video-depth models) raise NotImplementedError.
+auto/off, DepthCrafter) raise NotImplementedError. As in the JAX CLI, the
+fused render refuses the video and diffusion models (video-depth-anything,
+marigold): their depth goes through ``depth`` first.
 """
 
 from __future__ import annotations
@@ -34,6 +39,11 @@ from ..pipeline.geometry import parse_timecode, resolve_clip_window
 from ..ops.formats import FORMATS
 from ..pipeline.stereo_pipeline import RenderConfig, render_stereo_video
 from ..stereo import StereoParams
+
+
+# the families with no per-frame predictor (no ``predict_01``): the fused
+# render refuses them, as the JAX CLI does
+_NOT_FUSED = ("vda", "diffusion")
 
 
 def _add_param_flags(p: argparse.ArgumentParser):
@@ -106,7 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
     mp = sub.add_parser("models", help="list the ported depth model catalog")
     mp.add_argument("--family", default=None,
                     help="only this family (dpt_dinov2, dpt_classic, dpt_beit, zoedepth, "
-                         "zoedepth_nk, dpt_hybrid, dpt_vit)")
+                         "zoedepth_nk, dpt_hybrid, dpt_vit, depth_pro, vda, diffusion)")
     return ap
 
 
@@ -133,18 +143,20 @@ def _add_depth_parser(sub):
     dp.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     dp.add_argument("--checkpoint", default=None,
                     help="upstream weights for --model: HF .safetensors; midas-v2 also the "
-                         "isl-org .pt or .onnx")
-    dp.add_argument("--steps", type=int, default=2, help="diffusion denoise steps (not ported)")
+                         "isl-org .pt or .onnx; video-depth-anything the upstream .pth, "
+                         ".safetensors or .onnx; marigold a diffusers checkpoint directory")
+    dp.add_argument("--steps", type=int, default=2, help="diffusion denoise steps (Marigold)")
     dp.add_argument("--window", type=int, default=24,
                     help="DepthCrafter sliding-window size (not ported)")
-    dp.add_argument("--overlap", type=int, default=6)
+    dp.add_argument("--overlap", type=int, default=6,
+                    help="DepthCrafter window overlap (not ported)")
     dp.add_argument("--target-fps", type=float, default=15.0,
                     help="stride long clips down to this rate (DepthCrafter; not ported)")
     dp.add_argument("--track-letterbox", action="store_true",
                     help="detect and crop black bars, reinsert them in the output depth")
     dp.add_argument("--allow-random-weights", action="store_true",
                     help="run without --checkpoint (random weights; shape and speed testing "
-                         "only)")
+                         "only; Marigold: the tiny random pipeline)")
     dp.add_argument("--tiled", action="store_true",
                     help="Hann-blended tiled inference: resize to --inference-size, then run "
                          "overlapping --tile-size model tiles")
@@ -277,8 +289,14 @@ def cmd_render(args) -> int:
 
     predictor = None
     if args.depth is None:
-        from ..depth.registry import load_predictor
+        from ..depth.registry import CATALOG, load_predictor
 
+        entry = CATALOG.get(args.model)
+        if entry is not None and entry.family in _NOT_FUSED:
+            print(f"{args.model}: the fused single-pass route needs a feed-forward depth "
+                  f"family; run diffusion/video models through 'vd3d-torch depth' first.",
+                  file=sys.stderr)
+            return 2
         if args.checkpoint is None and not args.allow_random:
             print("the fused route needs --checkpoint (or --allow-random for testing)",
                   file=sys.stderr)

@@ -142,9 +142,32 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def build_random_model(model: nn.Module, seed: int = 0) -> nn.Module:
+def init_random_fan_in_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights as flax's default initializers draw them (what the JAX
+    package's ``model.init`` gives Depth Pro and the diffusion modules):
+    N(0, 1 / fan_in) with the true fan-in (input channels times kernel
+    area; a stride-f transposed conv's input channels), norm scales and
+    layer-scale gains 1, biases 0. The JAX package's ``init_random_`` rule
+    (a k x k conv's fan-in taken as k) makes Depth Pro's deep conv fusion
+    explode. Drawn on the CPU from ``generator``: one seed, the same
+    weights on every device."""
+    with torch.no_grad():
+        for module in model.modules():
+            for leaf, p in module.named_parameters(recurse=False):
+                if leaf == "bias":
+                    p.zero_()
+                elif leaf == "lambda1" or isinstance(module, (nn.GroupNorm, nn.LayerNorm)):
+                    p.fill_(1.0)
+                else:
+                    fan_in = (p.shape[0] if isinstance(module, nn.ConvTranspose2d)
+                              else p[0].numel())  # Linear (O, I), Conv2d (O, I, k, k)
+                    p.copy_(torch.randn(p.shape, generator=generator) * fan_in ** -0.5)
+    return model
+
+
+def build_random_model(model: nn.Module, seed: int = 0, init=init_random_) -> nn.Module:
     """Any family's model with seeded random weights (tests, benchmarks)."""
-    return init_random_(model, torch.Generator().manual_seed(seed))
+    return init(model, torch.Generator().manual_seed(seed))
 
 
 def build_random(cfg: DPTConfig, seed: int = 0, fast_head: bool = False) -> DepthAnything:

@@ -10,26 +10,34 @@ covers:
 - ``dpt_beit``: DPT-BEiT-Large-512 (MiDaS v3.1);
 - ``dpt_hybrid``: DPT-Hybrid (MiDaS 3.0);
 - ``zoedepth`` / ``zoedepth_nk``: ZoeDepth NYU and NYU+KITTI (metric);
-- ``dpt_vit``: MiDaS v2.1-small (the JAX catalog's family name).
-Depth Pro, Video Depth Anything and the diffusion models are not ported
-yet: ``load_predictor`` refuses them, naming the ported families.
+- ``dpt_vit``: MiDaS v2.1-small (the JAX catalog's family name);
+- ``depth_pro``: Apple Depth Pro (at the published widths: the JAX
+  catalog's config holds ViT-S/14 encoders, ROADMAP Queue 3 F10);
+- ``vda``: Video Depth Anything Small (a windowed video predictor);
+- ``diffusion``: Marigold (a diffusion pipeline).
+DepthCrafter is not ported yet: ``load_predictor`` refuses it, naming the
+ported families.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from . import configs
 from .convert import load_hf_state_dict, load_safetensors
+from .depth_pro import DepthProConfig
 from .dpt import DepthAnything
 from .dpt_beit import DPT_BEIT_LARGE_512
 from .dpt_classic import DPT_LARGE
 from .dpt_hybrid import DPT_HYBRID
 from .midas_v2 import MIDAS_V2_SMALL
-from .model import STANDARD_MEAN, STANDARD_STD, DepthPredictor, build_random_model
+from .model import (STANDARD_MEAN, STANDARD_STD, DepthPredictor, build_random_model,
+                    init_random_, init_random_fan_in_)
+from .vda import VDAConfig
 from .zoedepth import ZoeDepthConfig, ZoeDepthNKConfig
 
 
@@ -43,7 +51,7 @@ class ModelEntry:
 
 
 PORTED_FAMILIES = ("dpt_dinov2", "dpt_classic", "dpt_beit", "zoedepth", "zoedepth_nk",
-                   "dpt_hybrid", "dpt_vit")
+                   "dpt_hybrid", "dpt_vit", "depth_pro", "vda", "diffusion")
 
 CATALOG: dict[str, ModelEntry] = {e.name: e for e in (
     ModelEntry("depth-anything-v2-small", "dpt_dinov2", configs.DA_V2_SMALL,
@@ -84,6 +92,11 @@ CATALOG: dict[str, ModelEntry] = {e.name: e for e in (
     ModelEntry("midas-v3-hybrid", "dpt_hybrid", DPT_HYBRID, "Intel/dpt-hybrid-midas",
                ("DPT-Hybrid (MiDaS 3.0)",)),
     ModelEntry("midas-v2", "dpt_vit", MIDAS_V2_SMALL, "qualcomm/Midas-V2", ("Midas-V2",)),
+    ModelEntry("depth-pro", "depth_pro", DepthProConfig(), "apple/DepthPro-hf", ("DepthPro",)),
+    ModelEntry("video-depth-anything", "vda", VDAConfig(),
+               "depth-anything/Video-Depth-Anything-Small", ("Video Depth Anything (ONNX)",)),
+    ModelEntry("marigold", "diffusion", None, "prs-eth/marigold-depth-v1-0",
+               ("Marigold Depth (Diffusers)", "marigold-depth-v1-0", "marigold-depth-v1-1")),
 )}
 
 # recommended square inference sizes per family; the first is the default
@@ -95,6 +108,9 @@ _FAMILY_RESOLUTIONS = {
     "zoedepth": (384, 512),
     "zoedepth_nk": (384, 512),
     "dpt_vit": (384, 256),  # snapped to 32
+    "depth_pro": (1536, 768),  # 384 * 2^k; 768 runs at 1536 (depth_pro_size)
+    "diffusion": (576, 480, 768),
+    "vda": (518, 392),
 }
 
 
@@ -165,18 +181,44 @@ def _family_model(family: str, cfg, fast_head: bool):
     raise NotImplementedError(f"family {family} is not ported")
 
 
+def _square(name: str, inference_size) -> int:
+    """A square inference size as an int; the windowed and pyramid families
+    refuse rectangles."""
+    if isinstance(inference_size, (tuple, list)):
+        if inference_size[0] != inference_size[1]:
+            raise ValueError(f"{name} runs at a square size; pass an int inference size")
+        return int(inference_size[0])
+    return int(inference_size)
+
+
+def depth_pro_size(cfg, size: int) -> int:
+    """Depth Pro's input size: image_size * 2^k with k the power nearest
+    ``size`` (as the JAX registry picks it), but never so small that the
+    smallest scale holds no window (ROADMAP Queue 3, F13): 1536 at the
+    published config."""
+    base = cfg.image_model.image_size
+    k_min = max(0, math.ceil(math.log2(cfg.patch_size / (base * min(cfg.scaled_images_ratios)))))
+    return base * 2 ** max(k_min, round(math.log2(max(size, base) / base)))
+
+
 def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518,
                    seed: int = 0, dtype: str = "float32", device=DEFAULT_DEVICE,
-                   fast_head: bool = False, config=None) -> DepthPredictor:
+                   fast_head: bool = False, config=None, **diffusion_kw):
     """A predictor for a catalog entry on ``device`` (the CUDA card unless
     the caller passes "cpu"; without a card the default raises before any
-    model is built).
+    model is built): a ``DepthPredictor`` for the feed-forward families, a
+    ``VDAPredictor`` (windowed video) for ``vda``, a ``MarigoldPipeline``
+    for ``diffusion``.
 
     checkpoint: the upstream weights (HF ``.safetensors``; for MiDaS v2 the
-    isl-org ``.pt``, ``.safetensors`` or ``.onnx``), a state dict with the
-    upstream keys, or None for seeded random weights (shape and speed
-    testing only). ``fast_head`` goes to the DPT families that take it
-    (Depth Anything, DPT-Large, DPT-BEiT, DPT-Hybrid).
+    isl-org ``.pt``, ``.safetensors`` or ``.onnx``; for VDA the upstream
+    ``.pth``, ``.safetensors`` or ``.onnx``; for Marigold a diffusers
+    checkpoint directory), a state dict with the upstream keys, or None for
+    seeded random weights (shape and speed testing only). ``fast_head``
+    goes to the DPT families that take it (Depth Anything, DPT-Large,
+    DPT-BEiT, DPT-Hybrid). Depth Pro runs at ``depth_pro_size`` (square
+    only). ``diffusion_kw``: ``steps``, ``ensemble``, ``allow_random`` of
+    ``load_diffusion_pipeline``.
     config: overrides the catalog config (tiny configs in tests).
     """
     if name not in CATALOG:
@@ -185,9 +227,37 @@ def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518
     resolve_device(device)
     entry = CATALOG[name]
     cfg = config if config is not None else entry.config
-    model, unused, options = _family_model(entry.family, cfg, fast_head)
+    if entry.family == "diffusion":
+        from .diffusion import load_diffusion_pipeline
+
+        return load_diffusion_pipeline(name, checkpoint, dtype=dtype, device=device,
+                                       **diffusion_kw)
+    if diffusion_kw:
+        raise TypeError(f"{name}: unexpected arguments {sorted(diffusion_kw)}")
+    if entry.family == "vda":
+        from .vda import VDAPredictor, VideoDepthAnything, convert_vda
+
+        _square(name, inference_size)
+        model = VideoDepthAnything(cfg)
+        if checkpoint is None:
+            build_random_model(model, seed)
+        else:
+            load_hf_state_dict(model, convert_vda(checkpoint, cfg), ())
+        return VDAPredictor(model, dtype=dtype, device=device)
+    if entry.family == "depth_pro":
+        from .depth_pro import UNUSED_HF_KEYS, DepthPro
+
+        s = depth_pro_size(cfg, _square(name, inference_size))
+        with torch.device("meta"):  # every parameter is loaded or drawn below
+            model = DepthPro(cfg).to_empty(device="cpu")
+        unused = UNUSED_HF_KEYS
+        options = dict(mean=STANDARD_MEAN, std=STANDARD_STD, select=0, snap_multiple=s)
+        inference_size = s
+    else:
+        model, unused, options = _family_model(entry.family, cfg, fast_head)
     if checkpoint is None:
-        build_random_model(model, seed)
+        build_random_model(model, seed, init_random_fan_in_ if entry.family == "depth_pro"
+                           else init_random_)
     elif entry.family == "dpt_vit":
         from .midas_v2 import convert_midas_small
 

@@ -1,17 +1,27 @@
 """Depth estimation pipeline: 2D video -> grayscale depth video.
 
-Counterpart of ``visiondepth3d_tpu/pipeline/depth_pipeline.py`` for the
-feed-forward route on one device: batches of frames go to the device as
-u8, are resized, normalized and run through the depth model (or, with
-``tiled``, through Hann-blended model tiles), and every frame's depth is
-normalized by its own percentiles and rounded to u8 or u16 on the device;
-one readback per batch, whose writing on the host overlaps the next batch
-on the device. The letterbox tracker crops black bars before inference and
-the writer reinserts them with a neutral fill.
+Counterpart of ``visiondepth3d_tpu/pipeline/depth_pipeline.py`` on one
+device, with three routes:
+- feed-forward models: batches of frames go to the device as u8, are
+  resized, normalized and run through the depth model (or, with ``tiled``,
+  through Hann-blended model tiles), and every frame's depth is normalized
+  by its own percentiles and rounded to u8 or u16 on the device; one
+  readback per batch, whose writing on the host overlaps the next batch on
+  the device. The letterbox tracker crops black bars before inference and
+  the writer reinserts them with a neutral fill;
+- Video Depth Anything: chunks of the model's window that carry
+  ``overlap`` frames from the previous chunk, each chunk's depth aligned
+  (scale and shift) to the previous chunk's tail on those frames and
+  normalized by a running percentile EMA (0.9 / 0.1), so the model's
+  temporal stability survives the normalization;
+- Marigold: frames cropped to multiples of 8, per-batch diffusion in [0, 1]
+  streamed straight to the writer.
+The two video routes take one static letterbox crop, bootstrapped on the
+first frames. Resizes, alignment, percentiles and rounding run on the
+device.
 
-Not ported yet, and refused with NotImplementedError: the diffusion
-(Marigold, DepthCrafter; ROADMAP Queue 1 item 3) and Video Depth Anything
-(item 2) routes, and multi-device meshes.
+Not ported yet, and refused with NotImplementedError: the DepthCrafter
+route (ROADMAP Queue 1 item 3) and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -24,7 +34,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..depth.registry import load_predictor
+from ..depth.model import snap
+from ..depth.registry import CATALOG, load_predictor
 from ..device import host_to_device, resolve_device
 from ..io import letterbox as lb
 from ..io.depth_io import open_depth16_writer
@@ -33,8 +44,9 @@ from ..ops.resize import resize_bilinear
 from ..ops.tiling import tiled_apply_batch
 
 # the JAX catalog's models whose depth routes are not ported: (family, ROADMAP item)
-_UNPORTED_ROUTES = {"marigold": ("diffusion", 3), "depthcrafter": ("diffusion", 3),
-                    "video-depth-anything": ("vda", 2)}
+_UNPORTED_ROUTES = {"depthcrafter": ("diffusion", 3)}
+# the families whose DPT head has the fast order
+_FAST_HEAD_FAMILIES = ("dpt_dinov2", "dpt_beit", "dpt_classic", "dpt_hybrid")
 
 
 @dataclasses.dataclass
@@ -57,6 +69,9 @@ class DepthConfig:
     tile_size: int = 518
     tile_overlap: int = 64
     fast_head: bool = True
+    steps: int = 2  # diffusion denoise steps
+    # random weights produce noise; tests and benchmarks opt in explicitly (Marigold)
+    allow_random: bool = False
     # one device: "auto" and "off" run on it; anything else raises
     mesh: str | None = "auto"
     device: str = "cuda"
@@ -76,6 +91,31 @@ def _check_ported(cfg: DepthConfig):
                                   f"device ('auto' or 'off')")
     if cfg.bits not in (8, 16):
         raise ValueError(f"bits {cfg.bits} not in (8, 16)")
+
+
+def _quantize(d01: torch.Tensor, bits: int) -> torch.Tensor:
+    """[0, 1] depth -> uint8 (8 bits) or int32 holding the u16 values (16)."""
+    if bits == 16:
+        return torch.clamp(d01 * 65535.0 + 0.5, 0, 65535).to(torch.int32)
+    return torch.clamp(d01 * 255.0 + 0.5, 0, 255).to(torch.uint8)
+
+
+def _percentiles(d: torch.Tensor, qs) -> list[float]:
+    """``np.percentile`` (linear interpolation) of every element of ``d``
+    at each q in ``qs``, from one sort on d's device (``torch.quantile``
+    refuses more than 2^24 elements: one 32-frame 1080p chunk is 66M)."""
+    v = torch.sort(d.reshape(-1)).values
+    n = v.numel()
+    out = []
+    for q in qs:
+        pos = q / 100.0 * (n - 1)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, n - 1)
+        a, b = v[lo].double(), v[hi].double()
+        t = pos - lo
+        # numpy's lerp: from the nearer end
+        out.append(float(b - (b - a) * (1 - t) if t >= 0.5 else a + (b - a) * t))
+    return out
 
 
 def make_depth_batch_fn(pred, cfg: DepthConfig, out_hw: tuple[int, int]) -> Callable:
@@ -104,11 +144,51 @@ def make_depth_batch_fn(pred, cfg: DepthConfig, out_hw: tuple[int, int]) -> Call
         d01 = torch.clamp((d - lo) / torch.clamp(hi - lo, min=1e-9), 0.0, 1.0)
         if cfg.invert:
             d01 = 1.0 - d01
-        if cfg.bits == 16:
-            return torch.clamp(d01 * 65535.0 + 0.5, 0, 65535).to(torch.int32)
-        return torch.clamp(d01 * 255.0 + 0.5, 0, 255).to(torch.uint8)
+        return _quantize(d01, cfg.bits)
 
     return fn
+
+
+def _depth_writer(output_path, width: int, height: int, fps: float, cfg: DepthConfig):
+    """(writer, write(frame, top, bottom)): a gray y4m/video of u8 frames, or
+    a 16-bit depth stream of int32 frames holding u16 values; the letterbox
+    bars reinserted with a neutral fill (``height`` includes them)."""
+    if cfg.bits == 16:
+        wr = open_depth16_writer(output_path, width, height, fps)
+
+        def write(d, t, b):
+            wr.write(lb.reinsert_bars(d.astype(np.uint16), t, b, fill=32768))
+    else:
+        wr = open_writer(output_path, width, height, fps, cfg.codec)
+
+        def write(d, t, b):
+            g = lb.reinsert_bars(d, t, b, fill=128)
+            wr.write(np.repeat(g[..., None], 3, axis=-1))
+    return wr, write
+
+
+def _bootstrap_letterbox(rd, cfg: DepthConfig):
+    """The letterbox tracker bootstrapped on up to 9 probe frames: (probe
+    frames, tracker, top, bottom), or ([], None, 0, 0) without
+    ``track_letterbox``. The video routes keep this one crop for the whole
+    clip (their windows and running statistics carry across it, so a
+    mid-clip bar change cannot re-key them)."""
+    if not cfg.track_letterbox:
+        return [], None, 0, 0
+    pending = []
+    for _ in range(9):
+        f = rd.read()
+        if f is None:
+            break
+        pending.append(f)
+    tracker = lb.LetterboxTracker(rd.height, rd.fps)
+    top, bot, _ = tracker.bootstrap(pending)
+    return pending, tracker, top, bot
+
+
+def _random_weights_warning(cfg: DepthConfig):
+    warnings.warn(f"{cfg.model}: no checkpoint given, running RANDOM weights - "
+                  f"output is not real depth (shape and speed testing only)")
 
 
 def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = None,
@@ -118,6 +198,13 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
     ``cancel_check`` is polled between batches."""
     cfg = cfg or DepthConfig()
     _check_ported(cfg)
+    family = CATALOG[cfg.model].family if cfg.model in CATALOG else None
+    if family == "vda":
+        return _render_depth_vda(input_path, output_path, cfg, progress_cb, predictor,
+                                 cancel_check)
+    if family == "diffusion":
+        return _render_depth_marigold(input_path, output_path, cfg, progress_cb, predictor,
+                                      cancel_check)
     dev = resolve_device(cfg.device)
     rd = open_video(input_path)
     wr = None
@@ -127,8 +214,7 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
             cfg = dataclasses.replace(cfg, inference_size=(rd.height, rd.width))
         if predictor is None:
             if cfg.checkpoint is None:
-                warnings.warn(f"{cfg.model}: no checkpoint given, running RANDOM weights - "
-                              f"output is not real depth (shape and speed testing only)")
+                _random_weights_warning(cfg)
             predictor = load_predictor(cfg.model, cfg.checkpoint,
                                        cfg.tile_size if cfg.tiled else cfg.inference_size,
                                        dtype=cfg.dtype, device=dev, fast_head=cfg.fast_head)
@@ -137,17 +223,8 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
 
         # letterbox: bootstrap on up to 9 probe frames, then the tracker runs
         # on every frame; a confirmed bar change closes the batch
-        pending_frames: list = []
-        tracker = None
-        top = bot = 0
-        if cfg.track_letterbox:
-            for _ in range(9):
-                f = rd.read()
-                if f is None:
-                    break
-                pending_frames.append(f)
-            tracker = lb.LetterboxTracker(rd.height, rd.fps)
-            top, bot, _ = tracker.bootstrap(pending_frames)
+        pending_frames, tracker, top, bot = _bootstrap_letterbox(rd, cfg)
+        if tracker is not None:
             segments = [(0, top, bot)]
 
         fns: dict = {}
@@ -157,17 +234,7 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
                 fns[ch] = make_depth_batch_fn(predictor, cfg, (ch, rd.width))
             return fns[ch]
 
-        if cfg.bits == 16:
-            wr = open_depth16_writer(output_path, rd.width, rd.height, rd.fps)
-
-            def write(d, t, b):
-                wr.write(lb.reinsert_bars(d.astype(np.uint16), t, b, fill=32768))
-        else:
-            wr = open_writer(output_path, rd.width, rd.height, rd.fps, cfg.codec)
-
-            def write(d, t, b):
-                g = lb.reinsert_bars(d, t, b, fill=128)
-                wr.write(np.repeat(g[..., None], 3, axis=-1))
+        wr, write = _depth_writer(output_path, rd.width, rd.height, rd.fps, cfg)
 
         n_done = 0
         t0 = time.time()
@@ -231,18 +298,168 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
     return n_done
 
 
+def _video_route_setup(rd, cfg: DepthConfig, dev, predictor, load):
+    """The parts both video routes share: the predictor (``load()`` when
+    none is given) on the route's device and the static letterbox crop.
+    Returns (predictor, probe frames, top, bottom)."""
+    if predictor is None:
+        if cfg.checkpoint is None:
+            _random_weights_warning(cfg)
+        predictor = load()
+    elif predictor.device != dev:
+        raise ValueError(f"predictor is on {predictor.device}, the route on {dev}")
+    pending, _, top, bot = _bootstrap_letterbox(rd, cfg)
+    return predictor, pending, top, bot
+
+
+def _frames_cropped(rd, pending, top: int, rows: int, cols: int):
+    """The clip's frames (the probe frames first), cropped to ``rows`` from
+    ``top`` and to ``cols``."""
+    for f in pending:
+        yield f[top: top + rows, :cols]
+    for f in rd:
+        yield f[top: top + rows, :cols]
+
+
+def _render_depth_vda(input_path, output_path, cfg: DepthConfig, progress_cb=None,
+                      predictor=None, cancel_check=None) -> int:
+    """Video Depth Anything: chunks of the model's window, each carrying the
+    previous chunk's last ``overlap`` frames; each chunk's depth is fitted
+    (scale and shift) to the previous chunk's tail on those frames, resized
+    to the frame, and normalized by a running EMA (0.9 / 0.1) of its
+    percentiles. ``cancel_check`` is polled between chunks."""
+    from ..depth.vda import _align_scale_shift
+
+    dev = resolve_device(cfg.device)
+    rd = open_video(input_path)
+    wr = None
+    top = bot = 0
+    n = 0
+    try:
+        size = cfg.inference_size if cfg.inference_size is not None else (rd.height, rd.width)
+        if isinstance(size, (tuple, list)):
+            if size[0] != size[1]:
+                raise ValueError("video-depth-anything runs its windowed pipeline at a square "
+                                 "size; pass an int inference size")
+            size = int(size[0])
+        pred, pending, top, bot = _video_route_setup(
+            rd, cfg, dev, predictor,
+            lambda: load_predictor(cfg.model, cfg.checkpoint, size, dtype=cfg.dtype, device=dev))
+        win, ov = pred.cfg.window, max(1, pred.cfg.overlap)
+        s = snap(size, pred.cfg.base.backbone.patch_size)
+        ch = rd.height - top - bot
+        wr, write = _depth_writer(output_path, rd.width, rd.height, rd.fps, cfg)
+        t0 = time.time()
+        ema = None  # running (lo, hi)
+        prev_tail, carry = None, []
+        gen = _frames_cropped(rd, pending, top, ch, rd.width)
+        with torch.inference_mode():
+            while True:
+                if cancel_check and cancel_check():
+                    break  # chunk-boundary cancel poll
+                chunk = list(carry)
+                for f in gen:
+                    chunk.append(f)
+                    if len(chunk) == win:
+                        break
+                new = len(chunk) - len(carry)
+                if new <= 0:
+                    break
+                x = host_to_device(np.stack(chunk), dev).to(torch.float32) / 255.0
+                d = pred(resize_bilinear(x, (s, s), channel_last=True))  # [t, s', s'] raw
+                if prev_tail is not None:
+                    a, b = _align_scale_shift(d[: len(carry)], prev_tail)
+                    d = (d * a + b)[len(carry):]
+                prev_tail = d[-ov:]
+                carry = chunk[-ov:]
+                depth = resize_bilinear(d, (ch, rd.width), channel_last=False)
+                lo, hi = _percentiles(depth, (cfg.percentile_lo, cfg.percentile_hi))
+                ema = (lo, hi) if ema is None else (0.9 * ema[0] + 0.1 * lo,
+                                                    0.9 * ema[1] + 0.1 * hi)
+                d01 = torch.clamp((depth.double() - ema[0]) / max(ema[1] - ema[0], 1e-9), 0, 1)
+                if cfg.invert:
+                    d01 = 1.0 - d01
+                for frame in _quantize(d01, cfg.bits).cpu().numpy():
+                    write(frame, top, bot)
+                n += depth.shape[0]
+                if progress_cb:
+                    progress_cb(n, n / max(time.time() - t0, 1e-6))
+    finally:
+        rd.close()
+        if wr is not None:
+            wr.close()
+        if cfg.track_letterbox:
+            lb.save_sidecar(output_path, top, bot)
+    return n
+
+
+def _render_depth_marigold(input_path, output_path, cfg: DepthConfig, progress_cb=None,
+                           pipeline=None, cancel_check=None) -> int:
+    """Marigold: frames cropped to multiples of 8 (the latent stride), each
+    batch's depth in [0, 1] streamed straight to the writer (every frame's
+    depth is absolute, so nothing carries). ``cancel_check`` is polled after
+    each full batch."""
+    dev = resolve_device(cfg.device)
+    rd = open_video(input_path)
+    wr = None
+    top = bot = 0
+    n = 0
+    try:
+        pipeline, pending, top, bot = _video_route_setup(
+            rd, cfg, dev, pipeline,
+            lambda: load_predictor(cfg.model, cfg.checkpoint, dtype=cfg.dtype, device=dev,
+                                   steps=cfg.steps, allow_random=cfg.allow_random))
+        h8, w8 = ((rd.height - top - bot) // 8) * 8, (rd.width // 8) * 8
+        wr, write = _depth_writer(output_path, w8, h8 + top + bot, rd.fps or 24.0, cfg)
+        t0 = time.time()
+        batch: list = []
+
+        def flush():
+            nonlocal n
+            if not batch:
+                return
+            x = host_to_device(np.stack(batch), dev).to(torch.float32) / 255.0
+            d = pipeline(x)
+            if cfg.invert:
+                d = 1.0 - d
+            for frame in _quantize(d, cfg.bits).cpu().numpy():
+                write(frame, top, bot)
+            n += len(batch)
+            batch.clear()
+            if progress_cb:
+                progress_cb(n, n / max(time.time() - t0, 1e-6))
+
+        with torch.inference_mode():
+            for f in _frames_cropped(rd, pending, top, h8, w8):
+                batch.append(f)
+                if len(batch) == cfg.batch_size:
+                    flush()
+                    if cancel_check and cancel_check():
+                        break  # batch-boundary cancel poll
+            flush()
+    finally:
+        rd.close()
+        if wr is not None:
+            wr.close()
+        if cfg.track_letterbox:
+            lb.save_sidecar(output_path, top, bot)
+    return n
+
+
 def render_depth_video(args) -> int:
     """CLI adapter (``vd3d-torch depth``)."""
     cfg = DepthConfig(
         model=args.model, checkpoint=args.checkpoint, inference_size=args.inference_size,
         batch_size=args.batch_size, invert=args.invert, bits=args.bits, dtype=args.dtype,
         track_letterbox=args.track_letterbox, tiled=args.tiled, tile_size=args.tile_size, tile_overlap=args.tile_overlap,
-        fast_head=not args.exact_head, mesh=args.mesh, device=args.device)
+        fast_head=not args.exact_head, mesh=args.mesh, device=args.device, steps=args.steps,
+        allow_random=args.allow_random_weights)
     output = args.output
     if output is None:
         stem = str(args.input).rsplit(".", 1)[0]
         output = f"{stem}_depth." + ("vd16" if args.bits == 16 else "y4m")
-    if cfg.fast_head:
+    entry = CATALOG.get(cfg.model)
+    if cfg.fast_head and entry is not None and entry.family in _FAST_HEAD_FAMILIES:
         print("note: fast DPT head active (~1.3% depth delta vs the reference op order); "
               "pass --exact-head for exact parity")
 
