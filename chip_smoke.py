@@ -28,11 +28,12 @@ Phases, each printed on its own line; any failure exits nonzero:
      out of focus, K7 (attention) at the depth model's shapes
      [16|8|2, 1370, 6, 64], ViT-B's and ViT-L's [8, 1370, 12|16, 64], a
      padded [2, 270, 3, 64], DPT-Large's and DPT-Hybrid's 384^2
-     [8, 577, 16|12, 64] (bf16) and [2, 577, 16, 64] (f32), and the new
+     [8, 577, 16|12, 64] (bf16) and [2, 577, 16, 64] (f32), and the
      depth routes' shapes (bf16): Depth Pro's patch encoder at 1536^2 over
      8 frames [280, 577, 16, 64] (35 windows a frame), VDA-Small's 32-frame
      window [32, 1370, 6, 64], Marigold's UNet level 2 at 1080p
-     [2, 2040, 20, 64] (34 x 60 latents, batch 2);
+     [2, 2040, 20, 64] (34 x 60 latents, batch 2), and DepthCrafter's over
+     a 24-frame window [24, 2040, 20, 64] (bf16 and f32);
   4. (render) the render path: a synthetic 1920x1080 y4m clip of 64 frames
      through render_stereo_video with the benchmark configuration (Depth
      Anything V2-Small, random weights from a seed, 518^2, bf16, fast head;
@@ -76,7 +77,7 @@ Phases, each printed on its own line; any failure exits nonzero:
  11. (families) the other feed-forward families at their published widths
      (random weights from seed 0, bf16, fast head where the family has one)
      through the fused 1080p Full-SBS render, each at the first of its
-     recommended sizes: DPT-Large at 384^2 (32 frames, two timed runs: fps,
+     recommended sizes: DPT-Large at 384^2 (16 frames, two timed runs: fps,
      device time per frame, events, busy share, peak memory), then 16 frames
      each of DPT-BEiT-Large-512 at 512^2, DPT-Hybrid at 384^2, ZoeDepth NYU
      and NYU+KITTI at 384^2 and MiDaS v2.1-small at 384^2 (K1-K4 launches
@@ -100,7 +101,21 @@ Phases, each printed on its own line; any failure exits nonzero:
      512] mid attention; then one frame of each model in float32 on the
      CPU (plain versions) and on the card (TF32 off), the route's u8 depth
      within a mean of 1 u8 (Marigold with the same noise on both sides);
- 13. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
+ 13. (dcrafter) DepthCrafter at its published widths (random weights from
+     seed 0, bf16: the ST-UNet 320/640/1280/1280, the SD VAE, CLIP ViT-H/14)
+     through its depth route over a 60-frame 1080p clip (window 24, overlap
+     6, segments of 42: two segments, three windows; 2 Euler steps), with
+     SDPA and with K7 (5 launches a UNet call, at the 34 x 60 level: 30),
+     the output's frame count and fps, s and device ms per frame, busy share,
+     peak memory and the kernels with the most device time, then
+     F.group_norm timed at the route's shapes; one reduced clip (256x144, 8 frames, window 6, overlap
+     2) in float32 on the CPU and on the card with the same noise, mean |d|
+     <= 1 u8 and SSIM >= 0.99; then a small ONNX depth net (written with
+     write_onnx_graph) through the depth route as onnx: over a 16-frame
+     1080p clip, whole and tiled, on the card (fps, no kernel launched),
+     and its first 4 frames on the CPU and on the card within a mean of 1
+     u8;
+ 14. (cli) the CLI once per subcommand: python -m visiondepth3d_tpu_torch
      render (also with --dof_strength 2, --format "Red-Cyan Anaglyph",
      --preset best3d --dry-run, and --control FILE with 'cancel' written
      once frames come out) / depth / tools ...
@@ -162,7 +177,7 @@ DOF_KERNELS = ("dof_grade",)
 DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
 ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "surface",
-              "catalog", "families", "routes", "parity", "cli")
+              "catalog", "families", "routes", "dcrafter", "parity", "cli")
 OPTIONAL_PHASES = ("k2shapes",)  # run only when named
 H, W = 1080, 1920
 
@@ -264,7 +279,11 @@ def device_profile(fn) -> dict | None:
             cur_s = s
         cur_e = max(cur_e, e)
     busy += cur_e - cur_s
+    by_name: dict = {}
+    for s, e, n in ivs:
+        by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e3
     return {"device_ms": sum(e - s for s, e, _ in ivs) / 1e3,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
             "hand_ms": sum(e - s for s, e, n in ivs if any(k in n for k in HAND_KERNELS)) / 1e3,
             "cat_ms": sum(e - s for s, e, n in ivs if "Cat" in n) / 1e3,
             "events": len(ivs), "busy_ms": busy / 1e3}
@@ -749,7 +768,8 @@ ATTN_SHAPES = (((16, 1370, 6, 64), "bfloat16"), ((8, 1370, 6, 64), "bfloat16"),
                ((2, 270, 3, 64), "float32"), ((8, 577, 16, 64), "bfloat16"),
                ((8, 577, 12, 64), "bfloat16"), ((2, 577, 16, 64), "float32"),
                ((280, 577, 16, 64), "bfloat16"), ((32, 1370, 6, 64), "bfloat16"),
-               ((2, 2040, 20, 64), "bfloat16"))
+               ((2, 2040, 20, 64), "bfloat16"), ((24, 2040, 20, 64), "bfloat16"),
+               ((24, 2040, 20, 64), "float32"))
 
 
 def phase_attention_kernel(card: str, results: dict):
@@ -1747,7 +1767,7 @@ def phase_catalog(card: str, tmp: Path):
 
 # the families phase: catalog name, inference size (the first of the
 # family's recommended sizes), frames of its fused render
-FAMILY_RENDERS = (("dpt-large", 384, 32), ("dpt-beit-large-512", 512, 16),
+FAMILY_RENDERS = (("dpt-large", 384, 16), ("dpt-beit-large-512", 512, 16),
                   ("midas-v3-hybrid", 384, 16), ("zoedepth-nyu", 384, 16),
                   ("zoedepth-nyu-kitti", 384, 16), ("midas-v2", 384, 16))
 # the families whose ViT runs K7 under the opt-in, at 384^2 (N = 577)
@@ -1839,10 +1859,14 @@ class no_tf32:
 
 
 def timed_route(card: str, what: str, run, want_k7: int, n: int, out: Path, out_hw,
-                per: str = "fps") -> dict:
+                per: str = "fps", phase: str = "routes", profile: str = "after") -> dict:
     """One depth route run with the launch counts zeroed just before it and
-    read just after (K7 gated at ``want_k7``, no other kernel), its peak
-    memory, then one profiled run; the output's shape checked, not flat."""
+    read just after (K7 gated at ``want_k7``, no other kernel) and its peak
+    memory; ``profile``: "after" profiles one more run (its busy share over
+    the unprofiled run's wall), "inline" times the run under the profiler
+    (for a device-bound route whose host the profiler does not slow: its
+    busy share over its own wall), "no" profiles nothing. The output's
+    shape checked, not flat."""
     import torch
 
     from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1850,10 +1874,15 @@ def timed_route(card: str, what: str, run, want_k7: int, n: int, out: Path, out_
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    got = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    result = {}
+
+    def timed():
+        t0 = time.perf_counter()
+        result["got"] = run()
+        torch.cuda.synchronize()
+        result["wall"] = time.perf_counter() - t0
+    prof = device_profile(timed) if profile == "inline" else timed()
+    got, wall = result["got"], result["wall"]
     counts = dict(launch_counts)
     peak = torch.cuda.max_memory_allocated()
     want = {k: (want_k7 if k == "vmem_attention" else 0) for k in counts}
@@ -1861,12 +1890,16 @@ def timed_route(card: str, what: str, run, want_k7: int, n: int, out: Path, out_
     ow, oh, frames = read_clip(out)
     expect((oh, ow) == tuple(out_hw) and frames.shape[0] == n and float(frames.std()) > 1.0,
            f"{what}: output {ow}x{oh} with {frames.shape[0]} frames, flat or misshapen")
-    prof = device_profile(run)
+    if profile == "after":
+        prof = device_profile(run)
     rate = f"{n / wall:.2f} fps" if per == "fps" else f"{wall / n:.3f} s per frame"
     dev = "not measured" if prof is None else f"{prof['device_ms'] / n:.3f} ms"
-    say(f"PHASE routes {what}: {n} frames -> {ow}x{oh}, {rate} end to end, device time per "
+    label = {"after": "profiled run", "inline": "this run under the profiler",
+             "no": "profiled run"}[profile]
+    trace = "not profiled" if profile == "no" else fmt_profile(prof, 1e3 * wall)
+    say(f"PHASE {phase} {what}: {n} frames -> {ow}x{oh}, {rate} end to end, device time per "
         f"frame {dev}, K7 launches {counts['vmem_attention']}, peak allocated "
-        f"{peak / 2**30:.3f} GiB; profiled run: {fmt_profile(prof, 1e3 * wall)} [{card}]")
+        f"{peak / 2**30:.3f} GiB; {label}: {trace} [{card}]")
     return {"wall": wall, "prof": prof, "out": frames[..., 0]}
 
 
@@ -1887,7 +1920,7 @@ def route_parity(card: str, label: str, run_on) -> None:
         f"{int(np.abs(depth['cpu'] - depth['cuda']).max())}, depth std {std:.2f} u8 [{card}]")
 
 
-def marigold_k7_per_call(cfg, latent_hw) -> int:
+def unet_k7_per_call(cfg, latent_hw) -> int:
     """Self-attentions the K7 opt-in takes in one UNet call: every spatial
     transformer at a level whose token count is in [512, 4096) (down
     ``layers_per_block``, up ``layers_per_block + 1``; the mid block at the
@@ -2002,7 +2035,7 @@ def phase_routes(card: str, tmp: Path):
     write_clip(warm, W, H, batch)
     pipe = build_random_marigold(0, steps=steps, dtype="bfloat16", device="cuda")
     cfg = DepthConfig(model=mg, batch_size=batch, dtype="bfloat16", device="cuda", steps=steps)
-    per_call = marigold_k7_per_call(pipe.unet_cfg, (H // 8, W // 8))
+    per_call = unet_k7_per_call(pipe.unet_cfg, (H // 8, W // 8))
     want_k7 = per_call * steps * -(-n // batch)
     outs = {}
     try:
@@ -2046,6 +2079,221 @@ def phase_routes(card: str, tmp: Path):
     route_parity(card, "Marigold 256^2", marigold_one_frame)
     del cpu_pipe, card_pipe
     torch.cuda.empty_cache()
+
+
+def dcrafter_windows(pipe, n: int, seg: int) -> int:
+    """Windows DepthCrafter's route denoises over n frames: segments of
+    ``seg`` frames, each after the first carrying ``overlap`` frames."""
+    total, carry, left = 0, 0, n
+    while left > 0:
+        take = min(seg - carry, left)
+        total += len(pipe._windows(carry + take))
+        left -= take
+        if carry + take < seg:
+            break
+        carry = pipe.overlap
+    return total
+
+
+def onnx_depth_graph(path: Path, seed: int = 0) -> Path:
+    """A small depth net written with write_onnx_graph: a conv encoder (16
+    and 32 channels, the second at stride 2), a decoder that resizes back
+    up (bilinear) and concatenates the skip, a 1x1 conv and a Sigmoid;
+    [B, 3, H, W] -> [B, H, W]."""
+    import numpy as np
+
+    from visiondepth3d_tpu_torch.utils.onnx_reader import write_onnx_graph
+
+    rng = np.random.default_rng(seed)
+
+    def node(op, inputs, outputs, **attrs):
+        return {"op": op, "inputs": inputs, "outputs": outputs, "attrs": attrs}
+
+    def w(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+
+    inits = {"w1": w(16, 3, 3, 3), "b1": w(16), "w2": w(32, 16, 3, 3), "b2": w(32),
+             "w3": w(16, 48, 3, 3), "w4": w(1, 16, 1, 1),
+             "scales": np.asarray([1.0, 1.0, 2.0, 2.0], np.float32)}
+    write_onnx_graph(str(path), inputs=[("input", [None, 3, None, None])],
+                     outputs=[("depth", None)], initializers=inits, nodes=[
+        node("Conv", ["input", "w1", "b1"], ["e1"], pads=[1, 1, 1, 1]),
+        node("Relu", ["e1"], ["e1r"]),
+        node("Conv", ["e1r", "w2", "b2"], ["e2"], strides=[2, 2], pads=[1, 1, 1, 1]),
+        node("Relu", ["e2"], ["e2r"]),
+        node("Resize", ["e2r", "", "scales"], ["up"], mode=b"linear"),
+        node("Concat", ["up", "e1r"], ["cat"], axis=1),
+        node("Conv", ["cat", "w3"], ["d1"], pads=[1, 1, 1, 1]),
+        node("Relu", ["d1"], ["d1r"]),
+        node("Conv", ["d1r", "w4"], ["d2"]),
+        node("Sigmoid", ["d2"], ["d3"]),
+        node("Squeeze", ["d3"], ["depth"], axes=[1])])
+    return path
+
+
+def groupnorm_shapes(card: str):
+    """F.group_norm (32 groups, bf16) at the shapes DepthCrafter's 1080p route
+    gives it: the ST-UNet's level-0 spatial norm over a 24-frame window, its
+    temporal resnet's norm (positions folded into the batch, T = 24), and
+    the VAE's full-resolution norm for one decoded frame and for an encoded
+    chunk of 8; each timed by graph replay beside its bytes bound (read the
+    input twice, moments and normalize, write once)."""
+    import torch
+    import torch.nn.functional as F
+
+    for shape in ((24, 320, 135, 240), (32400, 320, 24), (1, 128, 1080, 1920),
+                  (8, 128, 1080, 1920)):
+        x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+        w = torch.ones(shape[1], device="cuda", dtype=torch.bfloat16)
+        ms = graph_ms(lambda: F.group_norm(x, 32, w, w), warmup=2, runs=5)
+        bound_ms, _ = bound(0.0, 3 * x.numel() * 2, "bfloat16")
+        say(f"PHASE dcrafter group_norm {list(shape)} bf16: {ms:.3f} ms (graph replay), bytes "
+            f"bound {bound_ms:.3f} ms [{card}]")
+        del x, w
+    torch.cuda.empty_cache()
+
+
+def phase_dcrafter(card: str, tmp: Path):
+    """DepthCrafter at its published widths through its depth route (bf16,
+    SDPA and K7), the float32 CPU-vs-card parity on a reduced clip, and the
+    ONNX route (whole and tiled) on the card and on the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.depth.diffusion import (DepthCrafterPipeline,
+                                                         build_random_depthcrafter)
+    from visiondepth3d_tpu_torch.io import Y4MReader
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
+                                                                 render_depth_video_file)
+
+    t0 = time.perf_counter()
+    base = build_random_depthcrafter(0, device="cpu")  # float32 on the host: every copy's source
+    sizes = {name: sum(p.numel() for p in getattr(base, name).parameters())
+             for name in ("unet", "vae", "clip")}
+    say(f"PHASE dcrafter built DepthCrafter at the published widths (seed 0, float32 on the "
+        f"host): UNet {sizes['unet'] / 1e9:.3f} B, VAE {sizes['vae'] / 1e9:.3f} B, CLIP "
+        f"{sizes['clip'] / 1e9:.3f} B parameters ({sum(sizes.values()) / 1e9:.3f} B) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def on_card(dtype, **kw):
+        return DepthCrafterPipeline(copy.deepcopy(base.unet), copy.deepcopy(base.vae),
+                                    copy.deepcopy(base.clip), dtype=dtype, device="cuda", **kw)
+
+    # bf16 over a 60-frame 1080p clip: segments of 42 sharing 6, windows of 24
+    n, steps, window, overlap, seg = 60, 2, 24, 6, 42
+    clip, warm = tmp / "dcrafter_1080p.y4m", tmp / "dcrafter_warm.y4m"
+    write_clip(clip, W, H, n)
+    write_clip(warm, W, H, window)
+    pipe = on_card("bfloat16", num_steps=steps, window_size=window, overlap=overlap)
+    cfg = DepthConfig(model="depthcrafter", dtype="bfloat16", device="cuda", steps=steps,
+                      window_size=window, overlap=overlap, max_segment_frames=seg,
+                      target_fps=24.0)
+    windows = dcrafter_windows(pipe, n, seg)
+    per_call = unet_k7_per_call(pipe.unet_cfg, (H // 8, W // 8))
+    want_k7 = per_call * steps * windows
+    outs = {}
+    try:
+        # one warm-up window (24 frames): K7 is built, SDPA's and cuDNN's plans are set
+        render_depth_video_file(warm, tmp / "dcrafter_warm_out.y4m", cfg, predictor=pipe)
+        for mode in ("sdpa", "K7"):
+            attn_ops.USE_VMEM_KERNEL = mode == "K7"
+            out = tmp / f"dcrafter_{mode}.y4m"
+            res = timed_route(card, f"DepthCrafter 1080p bf16 {steps} steps {mode}",
+                              lambda: render_depth_video_file(clip, out, cfg, predictor=pipe),
+                              want_k7 if mode == "K7" else 0, n, out, (H, W), per="s",
+                              phase="dcrafter", profile="inline" if mode == "K7" else "no")
+            with Y4MReader(str(out)) as rd:
+                expect(rd.fps == 24.0, f"DepthCrafter {mode}: output at {rd.fps} fps, want 24")
+            expect(np.isfinite(res["out"]).all(), f"DepthCrafter {mode}: non-finite depth")
+            outs[mode] = res["out"]
+            if res["prof"] is not None:
+                say(f"PHASE dcrafter DepthCrafter {mode} profiled run, the 8 device kernels with "
+                    f"the most time (ms per frame): " + "; ".join(
+                        f"{name[:90]} {ms / n:.2f}" for name, ms in res["prof"]["top"]))
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+    d = float(np.abs(outs["sdpa"].astype(np.int16) - outs["K7"].astype(np.int16)).mean())
+    say(f"PHASE dcrafter DepthCrafter: {windows} windows over {n} frames (segments of {seg} "
+        f"sharing {overlap}), K7 {per_call} launches per UNet call x {steps} steps x "
+        f"{windows} windows = {want_k7}; bf16 outputs SDPA vs K7 mean |d| {d:.4f} u8 [{card}]")
+    del pipe, outs
+    torch.cuda.empty_cache()
+    groupnorm_shapes(card)
+
+    # float32 parity: one reduced clip on the CPU and on the card, the same noise
+    small = tmp / "dcrafter_small.y4m"
+    write_clip(small, 256, 144, 8)
+    rng = np.random.default_rng(5)
+    noise = {4: rng.standard_normal((8, 144, 256, 3)).astype(np.float32),
+             5: rng.standard_normal((1, 6, 18, 32, 4)).astype(np.float32)}
+    kw = dict(num_steps=steps, window_size=6, overlap=2)
+    pipes = {"cpu": DepthCrafterPipeline(base.unet, base.vae, base.clip, device="cpu", **kw),
+             "cuda": on_card("float32", **kw)}
+    depth, secs = {}, {}
+    with no_tf32():
+        for dev, p in pipes.items():
+            p._draw = lambda shape, gen: torch.from_numpy(noise[len(shape)])
+            out = tmp / f"dcrafter_small_{dev}.y4m"
+            t0 = time.perf_counter()
+            render_depth_video_file(small, out, DepthConfig(
+                model="depthcrafter", device=dev, steps=steps, window_size=6, overlap=2,
+                target_fps=24.0), predictor=p)
+            secs[dev] = time.perf_counter() - t0
+            depth[dev] = read_clip(out)[2][..., 0]
+    a, b = depth["cpu"].astype(np.int16), depth["cuda"].astype(np.int16)
+    dm, std = float(np.abs(a - b).mean()), float(a.std())
+    ssim = min(ssim_gray(x, y) for x, y in zip(depth["cpu"], depth["cuda"]))
+    say(f"PHASE dcrafter parity DepthCrafter float32 (TF32 off, full widths and depth): 8 "
+        f"frames 256x144, window 6, overlap 2, the same noise; CPU {secs['cpu']:.1f} s, card "
+        f"{secs['cuda']:.1f} s; mean |d| {dm:.4f} u8 (need <= 1), max {int(np.abs(a - b).max())}"
+        f", min SSIM {ssim:.5f} (need >= 0.99), depth std {std:.2f} u8 [{card}]")
+    expect(a.shape == (8, 144, 256) and std > 1.0 and dm <= 1.0 and ssim >= 0.99,
+           f"DepthCrafter float32 CPU vs card: mean |d| {dm:.4f}, SSIM {ssim:.5f}, std {std:.2f}")
+    del pipes, base
+    torch.cuda.empty_cache()
+
+    # the ONNX route: a small depth net as onnx:, whole and tiled; fps over 16
+    # 1080p frames on the card, the CPU against the card on the first 4
+    graph = onnx_depth_graph(tmp / "depth_net.onnx")
+    n = 16
+    oclip, pclip = tmp / "onnx_1080p.y4m", tmp / "onnx_1080p_4.y4m"
+    write_clip(oclip, W, H, n)
+    write_clip(pclip, W, H, 4)
+    for tiled in (False, True):
+        label = "tiled (512 tiles over 1080 x 1920, overlap 64)" if tiled else "512^2"
+        ocfg = dict(model=f"onnx:{graph}", inference_size=1080 if tiled else 512,
+                    tiled=tiled, tile_size=512, tile_overlap=64, batch_size=8)
+        with no_tf32():
+            out = tmp / f"onnx_{tiled}.y4m"
+            render_depth_video_file(oclip, out, DepthConfig(device="cuda", **ocfg))  # warm-up
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got_n = render_depth_video_file(oclip, out, DepthConfig(device="cuda", **ocfg))
+            torch.cuda.synchronize()
+            fps = n / (time.perf_counter() - t0)
+            launched = {k: v for k, v in launch_counts.items() if v}
+            expect(got_n == n and not launched,
+                   f"ONNX route {label}: {got_n} frames (want {n}), kernels launched {launched}")
+            ow, oh, _ = read_clip(out)
+            expect((ow, oh) == (W, H), f"ONNX route {label}: output {ow}x{oh}")
+            got = {}
+            for dev in ("cuda", "cpu"):
+                pout = tmp / f"onnx_{tiled}_{dev}_4.y4m"
+                render_depth_video_file(pclip, pout, DepthConfig(device=dev, **ocfg))
+                got[dev] = read_clip(pout)[2][..., 0].astype(np.int16)
+        dm = float(np.abs(got["cpu"] - got["cuda"]).mean())
+        std = float(got["cpu"].std())
+        say(f"PHASE dcrafter ONNX route {label}: {n} frames 1920x1080 float32 (TF32 off), batch "
+            f"8: {fps:.2f} fps on the card, no kernel launched; 4 frames on the CPU vs the card "
+            f"mean |d| {dm:.4f} u8 (need <= 1), max {int(np.abs(got['cpu'] - got['cuda']).max())}"
+            f", depth std {std:.2f} u8 [{card}]")
+        expect(std > 1.0 and dm <= 1.0,
+               f"ONNX route {label}: CPU vs card mean |d| {dm:.4f} u8, std {std:.2f}")
 
 
 def sdpa_backend_of_vae_mid(card: str):
@@ -2222,7 +2470,8 @@ def main(argv=None) -> int:
                     run_counts = timed(name, fn, card, tmp)
                     counts.update({k: run_counts[k] for k in path_kernels})
             for name, fn in (("surface", phase_surface), ("catalog", phase_catalog),
-                             ("families", phase_families), ("routes", phase_routes)):
+                             ("families", phase_families), ("routes", phase_routes),
+                             ("dcrafter", phase_dcrafter)):
                 if name in phases:
                     timed(name, fn, card, tmp)
             if "parity" in phases:

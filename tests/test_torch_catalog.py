@@ -59,8 +59,8 @@ TINY_BY_FAMILY = {"dpt_dinov2": (tconfigs.DA_TINY, 28), "dpt_classic": (DPT_TINY
 def test_catalog_matches_jax():
     jax_entries = {n: e for n, e in jregistry.CATALOG.items()
                    if e.family in tregistry.PORTED_FAMILIES}
-    # DepthCrafter shares the diffusion family and is not ported yet
-    assert set(jax_entries) - set(tregistry.CATALOG) == {"depthcrafter"}
+    # every entry of the JAX catalog is ported (DepthCrafter last)
+    assert set(jax_entries) == set(tregistry.CATALOG) == set(jregistry.CATALOG)
     assert len(jax_entries) == 20
     assert set(tregistry.PORTED_FAMILIES) == set(TINY_BY_FAMILY)
     for name, te in tregistry.CATALOG.items():
@@ -104,14 +104,19 @@ def test_load_predictor_takes_every_entry(name):
 @pytest.mark.parametrize("name", ["depth-pro", "video-depth-anything", "marigold",
                                   "depthcrafter"])
 def test_unported_family_names_the_ported_ones(name):
-    """DepthCrafter is refused, naming the ported families; Depth Pro, VDA
-    and Marigold are among them now."""
-    if name != "depthcrafter":
-        assert tregistry.CATALOG[name].family in tregistry.PORTED_FAMILIES
-        return
+    """Depth Pro, VDA, Marigold and DepthCrafter are among the ported
+    families now, and DepthCrafter loads (its tiny random pipeline); a
+    name outside the catalog is refused, naming the ported families."""
+    assert tregistry.CATALOG[name].family in tregistry.PORTED_FAMILIES
+    if name == "depthcrafter":
+        from visiondepth3d_tpu_torch.depth.diffusion import DepthCrafterPipeline
+
+        pipe = tregistry.load_predictor(name, device="cpu", allow_random=True, window=6,
+                                        overlap=2)
+        assert isinstance(pipe, DepthCrafterPipeline) and (pipe.window_size, pipe.overlap) == (6, 2)
     with pytest.raises(KeyError, match="dpt_dinov2, dpt_classic, dpt_beit.*depth_pro, vda, "
                                        "diffusion"):
-        tregistry.load_predictor(name, device="cpu")
+        tregistry.load_predictor(f"{name}-unknown", device="cpu")
 
 
 @pytest.mark.parametrize("family", sorted(TINY_BY_FAMILY))

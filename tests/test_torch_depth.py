@@ -105,8 +105,11 @@ def test_registry_and_sizes():
     pred = load_predictor("depth-anything-v2-small", None, inference_size=(300, 530),
                           config=tconfigs.DA_TINY, device="cpu")
     assert pred._size == (294, 518)
+    # DepthCrafter loads now (its tiny random pipeline); an unknown name is refused
+    assert type(load_predictor("depthcrafter", device="cpu", allow_random=True)).__name__ == \
+        "DepthCrafterPipeline"
     with pytest.raises(KeyError):
-        load_predictor("depthcrafter")
+        load_predictor("no-such-model")
 
 
 def test_safetensors_checkpoint(tmp_path):

@@ -242,11 +242,17 @@ def test_tiling_helpers_match_jax():
 
 
 def test_unported_depth_routes_raise(tmp_path):
+    """Meshes stay refused; DepthCrafter routes now (the tiny random
+    pipeline, one 16 x 16 frame)."""
     clip = tmp_path / "clip.y4m"
     _write_clip(clip, 16, 16, 1)
-    for kw in (dict(model="depthcrafter"), dict(mesh="dp=2")):
+    for kw in (dict(mesh="dp=2"), dict(model="depthcrafter", mesh="dp=2")):
         with pytest.raises(NotImplementedError):
             render_depth_video_file(clip, tmp_path / "x.y4m", DepthConfig(device="cpu", **kw))
+    assert render_depth_video_file(clip, tmp_path / "dc.y4m",
+                                   DepthConfig(model="depthcrafter", device="cpu",
+                                               allow_random=True, window_size=4,
+                                               overlap=2)) == 1
     # --control is ported: 'cancel' stops the route before its first batch
     ctl = tmp_path / "ctl"
     ctl.write_text("cancel")

@@ -408,19 +408,26 @@ def test_missing_text_embed_is_zeros_with_a_warning(unet_state, vae_state, tmp_p
 
 
 def test_dispatcher_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        load_diffusion_pipeline("depthcrafter", allow_random=True, device="cpu")
-    with pytest.raises(ValueError, match="checkpoint directory"):
-        tregistry.load_predictor("marigold", device="cpu")
+    """Without a checkpoint or allow_random both diffusion entries refuse;
+    DepthCrafter's tiny random pipeline loads and routes now."""
+    for name in ("marigold", "depthcrafter"):
+        with pytest.raises(ValueError, match="checkpoint directory"):
+            tregistry.load_predictor(name, device="cpu")
+    dc = load_diffusion_pipeline("depthcrafter", allow_random=True, device="cpu", window=4,
+                                 overlap=2)
+    assert dc.unet_cfg.block_out_channels == (16, 32) and (dc.window_size, dc.overlap) == (4, 2)
     tiny = tregistry.load_predictor("marigold", device="cpu", allow_random=True)
     assert tiny.unet_cfg == UNET2D_TINY and tiny.num_steps == 2
     out = tiny(torch.rand(1, 16, 16, 3))
     assert out.shape == (1, 16, 16) and 0 <= out.min() and out.max() <= 1
     clip = tmp_path / "clip.y4m"
     _write_clip(clip, 16, 16, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="checkpoint directory"):
         render_depth_video_file(clip, tmp_path / "x.y4m",
                                 DepthConfig(model="depthcrafter", device="cpu"))
+    assert render_depth_video_file(clip, tmp_path / "x.y4m",
+                                   DepthConfig(model="depthcrafter", device="cpu",
+                                               allow_random=True)) == 1
 
 
 # ---------------------------------------------------------------- the route

@@ -960,12 +960,14 @@ def test_cuda_vmem_attention_vit_widths(cuda, dtype, heads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(280, 577, 16, 64), (32, 1370, 6, 64), (2, 2040, 20, 64)])
+@pytest.mark.parametrize("shape", [(280, 577, 16, 64), (32, 1370, 6, 64), (2, 2040, 20, 64),
+                                   (24, 2040, 20, 64)])
 def test_cuda_vmem_attention_route_shapes(cuda, dtype, shape):
-    """K7 at the shapes the Depth Pro, VDA and Marigold depth routes give it
-    under the opt-in: Depth Pro's patch encoder over 8 frames at 1536^2 (35
-    windows of 577 tokens a frame), VDA-Small's 32-frame window at 518^2,
-    Marigold's UNet level 2 at 1080p (34 x 60 latents, 20 heads, batch 2).
+    """K7 at the shapes the Depth Pro, VDA, Marigold and DepthCrafter depth
+    routes give it under the opt-in: Depth Pro's patch encoder over 8 frames
+    at 1536^2 (35 windows of 577 tokens a frame), VDA-Small's 32-frame window
+    at 518^2, Marigold's UNet level 2 at 1080p (34 x 60 latents, 20 heads,
+    batch 2), DepthCrafter's at the same level over a 24-frame window.
     Gates of the depth route's card case."""
     from visiondepth3d_tpu_torch.kernels import attention as kattention
 

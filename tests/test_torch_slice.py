@@ -167,7 +167,9 @@ for mod in pkgutil.walk_packages(visiondepth3d_tpu_torch.__path__, "visiondepth3
         __import__(mod.name)
 for name in ("depth.depth_pro", "depth.vda", "depth.diffusion.schedulers",
              "depth.diffusion.vae", "depth.diffusion.unet2d", "depth.diffusion.marigold",
-             "depth.diffusion.loaders"):
+             "depth.diffusion.loaders", "depth.diffusion.clip_vision",
+             "depth.diffusion.unet_st", "depth.diffusion.depthcrafter", "depth.onnx_exec",
+             "utils.onnx_reader"):
     assert "visiondepth3d_tpu_torch." + name in sys.modules, name
 from visiondepth3d_tpu_torch.depth import DA_TINY
 from visiondepth3d_tpu_torch.depth.registry import load_predictor
@@ -218,6 +220,16 @@ with tempfile.TemporaryDirectory() as td:
     rcfg.resume = True
     render_stereo_video(td + "/in.y4m", None, td + "/sbs.y4m", params, rcfg, predictor=pred)
     assert pair_videos_with_depth(td, td, td) == []
+    # DepthCrafter's tiny pipeline and an ONNX graph through the depth route
+    dcfg = DepthConfig(model="depthcrafter", allow_random=True, window_size=2, overlap=1,
+                       device="cpu")
+    assert render_depth_video_file(td + "/in.y4m", td + "/dc.y4m", dcfg) == 2
+    from visiondepth3d_tpu_torch.utils.onnx_reader import write_onnx_graph
+    write_onnx_graph(td + "/m.onnx", [("x", [None, 3, None, None])], [("d", None)],
+                     [{"op": "ReduceMean", "inputs": ["x"], "outputs": ["d"],
+                       "attrs": {"axes": [1], "keepdims": 0}}], {})
+    ocfg = DepthConfig(model="onnx:" + td + "/m.onnx", inference_size=32, device="cpu")
+    assert render_depth_video_file(td + "/in.y4m", td + "/o.y4m", ocfg) == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
 assert not bad, bad

@@ -16,6 +16,10 @@
     vd3d-torch depth --input clip.y4m --model zoedepth-nyu --allow-random-weights
     vd3d-torch depth --input clip.y4m --model video-depth-anything --allow-random-weights
     vd3d-torch depth --input clip.y4m --model marigold --checkpoint marigold_dir/ --steps 4
+    vd3d-torch depth --input clip.y4m --model depthcrafter --checkpoint dc_dir/ \\
+        --window 24 --overlap 6 --target-fps 15 --dtype bfloat16
+    vd3d-torch depth --input clip.y4m --model onnx:model.onnx --inference-size 512
+    vd3d-torch depth --input clip.y4m --model local:weights/MyModel
     vd3d-torch render --input clip.y4m --model depth-pro --inference-size 1536 --allow-random
     vd3d-torch models [--family dpt_classic]
     python -m visiondepth3d_tpu_torch render|depth|tools|models ...
@@ -23,9 +27,9 @@
 The flags keep the JAX CLI's names and meaning, plus ``--device`` (default
 cuda; a missing card is an error, not a CPU fallback). Flags of features
 not ported yet (render --mesh other than off; depth --mesh other than
-auto/off, DepthCrafter) raise NotImplementedError. As in the JAX CLI, the
-fused render refuses the video and diffusion models (video-depth-anything,
-marigold): their depth goes through ``depth`` first.
+auto/off) raise NotImplementedError. As in the JAX CLI, the fused render
+refuses the video and diffusion models (video-depth-anything, marigold,
+depthcrafter): their depth goes through ``depth`` first.
 """
 
 from __future__ import annotations
@@ -144,19 +148,22 @@ def _add_depth_parser(sub):
     dp.add_argument("--checkpoint", default=None,
                     help="upstream weights for --model: HF .safetensors; midas-v2 also the "
                          "isl-org .pt or .onnx; video-depth-anything the upstream .pth, "
-                         ".safetensors or .onnx; marigold a diffusers checkpoint directory")
-    dp.add_argument("--steps", type=int, default=2, help="diffusion denoise steps (Marigold)")
+                         ".safetensors or .onnx; marigold and depthcrafter a diffusers "
+                         "checkpoint directory. --model also takes onnx:<file.onnx> and "
+                         "local:<dir>")
+    dp.add_argument("--steps", type=int, default=2,
+                    help="diffusion denoise steps (Marigold, DepthCrafter)")
     dp.add_argument("--window", type=int, default=24,
-                    help="DepthCrafter sliding-window size (not ported)")
+                    help="DepthCrafter sliding-window size")
     dp.add_argument("--overlap", type=int, default=6,
-                    help="DepthCrafter window overlap (not ported)")
+                    help="DepthCrafter window overlap (>= --window clamps to window - 1)")
     dp.add_argument("--target-fps", type=float, default=15.0,
-                    help="stride long clips down to this rate (DepthCrafter; not ported)")
+                    help="stride long clips down to this rate (DepthCrafter)")
     dp.add_argument("--track-letterbox", action="store_true",
                     help="detect and crop black bars, reinsert them in the output depth")
     dp.add_argument("--allow-random-weights", action="store_true",
                     help="run without --checkpoint (random weights; shape and speed testing "
-                         "only; Marigold: the tiny random pipeline)")
+                         "only; Marigold and DepthCrafter: the tiny random pipelines)")
     dp.add_argument("--tiled", action="store_true",
                     help="Hann-blended tiled inference: resize to --inference-size, then run "
                          "overlapping --tile-size model tiles")
@@ -171,7 +178,8 @@ def _add_depth_parser(sub):
 def cmd_depth(args) -> int:
     from ..pipeline.depth_pipeline import render_depth_video
 
-    if args.checkpoint is None and not args.allow_random_weights:
+    own_weights = args.model.startswith(("onnx:", "local:"))  # the weights are in the file
+    if args.checkpoint is None and not args.allow_random_weights and not own_weights:
         print("vd3d-torch depth needs --checkpoint (or --allow-random-weights for testing)",
               file=sys.stderr)
         return 2

@@ -14,15 +14,22 @@ covers:
 - ``depth_pro``: Apple Depth Pro (at the published widths: the JAX
   catalog's config holds ViT-S/14 encoders, ROADMAP Queue 3 F10);
 - ``vda``: Video Depth Anything Small (a windowed video predictor);
-- ``diffusion``: Marigold (a diffusion pipeline).
-DepthCrafter is not ported yet: ``load_predictor`` refuses it, naming the
-ported families.
+- ``diffusion``: Marigold and DepthCrafter (diffusion pipelines).
+Besides the catalog, ``load_predictor`` takes ``onnx:<path>`` (any ONNX
+depth graph, through ``onnx_exec.py``) and ``local:<dir>``: a folder
+holding a raw ``model.onnx``, or a ``vd3d.json`` naming the catalog entry
+whose architecture its ``.safetensors`` holds, in the upstream names
+(``format: "hf"``) or as a flat "a/b/c"-keyed JAX params tree
+(``format: "native"``, the default), which goes through the family's
+``from_jax_params*``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 
 import torch
 
@@ -97,7 +104,18 @@ CATALOG: dict[str, ModelEntry] = {e.name: e for e in (
                "depth-anything/Video-Depth-Anything-Small", ("Video Depth Anything (ONNX)",)),
     ModelEntry("marigold", "diffusion", None, "prs-eth/marigold-depth-v1-0",
                ("Marigold Depth (Diffusers)", "marigold-depth-v1-0", "marigold-depth-v1-1")),
+    ModelEntry("depthcrafter", "diffusion", None, "tencent/DepthCrafter",
+               ("DepthCrafter (Video Diffusion)",)),
 )}
+
+# a "native" local folder's JAX params tree -> the family's state dict
+_NATIVE_CONVERTERS = {"dpt_dinov2": "from_jax_params",
+                      "dpt_classic": "from_jax_params_dpt_classic",
+                      "dpt_beit": "from_jax_params_dpt_beit",
+                      "dpt_hybrid": "from_jax_params_dpt_hybrid",
+                      "zoedepth": "from_jax_params_zoedepth",
+                      "zoedepth_nk": "from_jax_params_zoedepth_nk",
+                      "dpt_vit": "from_jax_params_midas_v2"}
 
 # recommended square inference sizes per family; the first is the default
 _FAMILY_RESOLUTIONS = {
@@ -201,32 +219,101 @@ def depth_pro_size(cfg, size: int) -> int:
     return base * 2 ** max(k_min, round(math.log2(max(size, base) / base)))
 
 
+def resolve_local_model(path: str) -> ModelEntry:
+    """A local folder's catalog entry: its ``vd3d.json`` names the entry
+    (``base``) whose architecture the folder's weights hold."""
+    meta_path = os.path.join(path, "vd3d.json")
+    if not os.path.isdir(path) or not os.path.exists(meta_path):
+        raise FileNotFoundError(f"local model dir {path!r} needs a vd3d.json ({{'family': ..., "
+                                f"'base': <catalog name>}}) with converted .safetensors, or a "
+                                f"raw model.onnx (runs through the ONNX interpreter)")
+    with open(meta_path) as f:
+        base = json.load(f)["base"]
+    if base not in CATALOG:
+        raise KeyError(f"local model {path!r}: base {base!r} is not ported: the port has the "
+                       f"{', '.join(PORTED_FAMILIES)} families")
+    return dataclasses.replace(CATALOG[base], name=f"local:{path}")
+
+
+def load_local_params(root: str):
+    """A local folder's weights and whether they are native: the
+    ``.safetensors`` path for ``format: "hf"`` (the family's loader reads
+    the upstream names), else the JAX params tree its flat "a/b/c" keys
+    spell (numpy leaves)."""
+    with open(os.path.join(root, "vd3d.json")) as f:
+        meta = json.load(f)
+    path = next((os.path.join(root, fn) for fn in ("model.safetensors",
+                                                   "diffusion_pytorch_model.safetensors")
+                 if os.path.exists(os.path.join(root, fn))), None)
+    if path is None:
+        raise FileNotFoundError(f"{root}: no .safetensors weights found")
+    if meta.get("format", "native") != "native":
+        return path, False
+    tree: dict = {}
+    for key, val in load_safetensors(path).items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = val.float().numpy()
+    return tree, True
+
+
+def _onnx_predictor(path: str, inference_size, device):
+    from .onnx_exec import OnnxDepthPredictor
+
+    return OnnxDepthPredictor(path, _square(f"onnx:{path}", inference_size), device=device)
+
+
 def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518,
                    seed: int = 0, dtype: str = "float32", device=DEFAULT_DEVICE,
                    fast_head: bool = False, config=None, **diffusion_kw):
     """A predictor for a catalog entry on ``device`` (the CUDA card unless
     the caller passes "cpu"; without a card the default raises before any
     model is built): a ``DepthPredictor`` for the feed-forward families, a
-    ``VDAPredictor`` (windowed video) for ``vda``, a ``MarigoldPipeline``
-    for ``diffusion``.
+    ``VDAPredictor`` (windowed video) for ``vda``, a ``MarigoldPipeline`` or
+    a ``DepthCrafterPipeline`` for ``diffusion``, an ``OnnxDepthPredictor``
+    for ``onnx:<path>`` and for a ``local:<dir>`` holding a raw
+    ``model.onnx`` (square sizes, float32). A ``local:`` folder with a
+    ``vd3d.json`` loads its base entry's family from its weights.
 
     checkpoint: the upstream weights (HF ``.safetensors``; for MiDaS v2 the
     isl-org ``.pt``, ``.safetensors`` or ``.onnx``; for VDA the upstream
-    ``.pth``, ``.safetensors`` or ``.onnx``; for Marigold a diffusers
-    checkpoint directory), a state dict with the upstream keys, or None for
+    ``.pth``, ``.safetensors`` or ``.onnx``; for Marigold and DepthCrafter a
+    diffusers checkpoint directory), a state dict with the upstream keys, or None for
     seeded random weights (shape and speed testing only). ``fast_head``
     goes to the DPT families that take it (Depth Anything, DPT-Large,
     DPT-BEiT, DPT-Hybrid). Depth Pro runs at ``depth_pro_size`` (square
-    only). ``diffusion_kw``: ``steps``, ``ensemble``, ``allow_random`` of
-    ``load_diffusion_pipeline``.
+    only). ``diffusion_kw``: ``steps``, ``window``, ``overlap``,
+    ``ensemble``, ``allow_random`` of ``load_diffusion_pipeline``.
     config: overrides the catalog config (tiny configs in tests).
     """
-    if name not in CATALOG:
+    if name.startswith("onnx:"):
+        return _onnx_predictor(name[len("onnx:"):], inference_size, device)
+    native = False
+    if name.startswith("local:"):
+        root = name[len("local:"):]
+        onnx_path = root if root.endswith(".onnx") else os.path.join(root, "model.onnx")
+        if not os.path.exists(os.path.join(root, "vd3d.json")) and os.path.exists(onnx_path):
+            return _onnx_predictor(onnx_path, inference_size, device)
+        entry = resolve_local_model(root)
+        if checkpoint is None:
+            checkpoint, native = load_local_params(root)
+    elif name not in CATALOG:
         raise KeyError(f"model {name!r} is not ported: the port has the "
                        f"{', '.join(PORTED_FAMILIES)} families ({', '.join(CATALOG)})")
+    else:
+        entry = CATALOG[name]
     resolve_device(device)
-    entry = CATALOG[name]
     cfg = config if config is not None else entry.config
+    if native:
+        if entry.family not in _NATIVE_CONVERTERS:
+            raise NotImplementedError(
+                f"{name}: a native (JAX params) folder of the {entry.family} family has no "
+                f"converter; the families that have one: {', '.join(_NATIVE_CONVERTERS)}")
+        from . import convert
+
+        checkpoint = getattr(convert, _NATIVE_CONVERTERS[entry.family])(checkpoint, cfg)
     if entry.family == "diffusion":
         from .diffusion import load_diffusion_pipeline
 
@@ -258,7 +345,7 @@ def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518
     if checkpoint is None:
         build_random_model(model, seed, init_random_fan_in_ if entry.family == "depth_pro"
                            else init_random_)
-    elif entry.family == "dpt_vit":
+    elif entry.family == "dpt_vit" and not native:
         from .midas_v2 import convert_midas_small
 
         load_hf_state_dict(model, convert_midas_small(checkpoint, cfg), unused)

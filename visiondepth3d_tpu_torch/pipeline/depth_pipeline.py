@@ -1,8 +1,8 @@
 """Depth estimation pipeline: 2D video -> grayscale depth video.
 
 Counterpart of ``visiondepth3d_tpu/pipeline/depth_pipeline.py`` on one
-device, with three routes:
-- feed-forward models: batches of frames go to the device as u8, are
+device, with four routes:
+- feed-forward models (ONNX graphs too): batches of frames go to the device as u8, are
   resized, normalized and run through the depth model (or, with ``tiled``,
   through Hann-blended model tiles), and every frame's depth is normalized
   by its own percentiles and rounded to u8 or u16 on the device; one
@@ -15,18 +15,26 @@ device, with three routes:
   normalized by a running percentile EMA (0.9 / 0.1), so the model's
   temporal stability survives the normalization;
 - Marigold: frames cropped to multiples of 8, per-batch diffusion in [0, 1]
-  streamed straight to the writer.
-The two video routes take one static letterbox crop, bootstrapped on the
-first frames. Resizes, alignment, percentiles and rounding run on the
-device.
+  streamed straight to the writer;
+- DepthCrafter: the clip strided down to ``target_fps``, cropped to
+  multiples of 8, and streamed in segments of sliding windows; consecutive
+  segments share ``overlap`` frames, on which each segment's raw depth is
+  fitted (scale and shift) to the previous one's and cross-faded; the raw
+  depth spills to a float16 sidecar (``<output>.raw16.tmp``, removed at the
+  end) so a second pass can apply the whole-clip min-max normalization.
+The video and diffusion routes take one static letterbox crop, bootstrapped
+on the first frames. Resizes, alignment, percentiles and rounding run on
+the device.
 
-Not ported yet, and refused with NotImplementedError: the DepthCrafter
-route (ROADMAP Queue 1 item 3) and multi-device meshes.
+Multi-device meshes are not ported (one device) and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import os
 import time
 import warnings
 from typing import Callable
@@ -43,8 +51,6 @@ from ..io.video import open_video, open_writer
 from ..ops.resize import resize_bilinear
 from ..ops.tiling import tiled_apply_batch
 
-# the JAX catalog's models whose depth routes are not ported: (family, ROADMAP item)
-_UNPORTED_ROUTES = {"depthcrafter": ("diffusion", 3)}
 # the families whose DPT head has the fast order
 _FAST_HEAD_FAMILIES = ("dpt_dinov2", "dpt_beit", "dpt_classic", "dpt_hybrid")
 
@@ -70,6 +76,12 @@ class DepthConfig:
     tile_overlap: int = 64
     fast_head: bool = True
     steps: int = 2  # diffusion denoise steps
+    # DepthCrafter: stride long clips down to this rate; its sliding
+    # windows; the frames one segment holds in host memory
+    target_fps: float = 15.0
+    window_size: int = 24
+    overlap: int = 6
+    max_segment_frames: int = 96
     # random weights produce noise; tests and benchmarks opt in explicitly (Marigold)
     allow_random: bool = False
     # one device: "auto" and "off" run on it; anything else raises
@@ -82,10 +94,6 @@ def _size_h(size) -> int:
 
 
 def _check_ported(cfg: DepthConfig):
-    if cfg.model in _UNPORTED_ROUTES:
-        family, item = _UNPORTED_ROUTES[cfg.model]
-        raise NotImplementedError(f"{cfg.model}: the {family} depth route is not ported yet "
-                                  f"(ROADMAP Queue 1 item {item})")
     if cfg.mesh not in (None, "auto", "off"):
         raise NotImplementedError(f"mesh {cfg.mesh!r}: the port's depth route runs on one "
                                   f"device ('auto' or 'off')")
@@ -187,6 +195,8 @@ def _bootstrap_letterbox(rd, cfg: DepthConfig):
 
 
 def _random_weights_warning(cfg: DepthConfig):
+    if cfg.model.startswith(("onnx:", "local:")):  # their weights are in the file
+        return
     warnings.warn(f"{cfg.model}: no checkpoint given, running RANDOM weights - "
                   f"output is not real depth (shape and speed testing only)")
 
@@ -202,6 +212,9 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
     if family == "vda":
         return _render_depth_vda(input_path, output_path, cfg, progress_cb, predictor,
                                  cancel_check)
+    if cfg.model == "depthcrafter":
+        return _render_depth_crafter(input_path, output_path, cfg, progress_cb, predictor,
+                                     cancel_check)
     if family == "diffusion":
         return _render_depth_marigold(input_path, output_path, cfg, progress_cb, predictor,
                                       cancel_check)
@@ -446,6 +459,100 @@ def _render_depth_marigold(input_path, output_path, cfg: DepthConfig, progress_c
     return n
 
 
+def _render_depth_crafter(input_path, output_path, cfg: DepthConfig, progress_cb=None,
+                          pipeline=None, cancel_check=None) -> int:
+    """DepthCrafter: the clip strided to ``target_fps`` (the output's fps is
+    the input's over the stride), cropped to multiples of 8, in segments of
+    max(window, max_segment_frames) frames that share ``overlap`` frames;
+    each segment's raw depth (``run_raw``) after the first is fitted to the
+    previous segment's on the shared frames and cross-faded there. Pass 1
+    spills the raw depth to a float16 sidecar and keeps its float32 min and
+    max; pass 2 normalizes over the whole clip. ``cancel_check`` is polled
+    at segment boundaries. Returns the frames written."""
+    from ..depth.vda import _align_scale_shift
+
+    dev = resolve_device(cfg.device)
+    rd = open_video(input_path)
+    top = bot = 0
+    raw_path = str(output_path) + ".raw16.tmp"
+    n_raw = 0
+    try:
+        stride = 1
+        if rd.fps and rd.fps > cfg.target_fps:
+            stride = max(1, int(round(rd.fps / cfg.target_fps)))
+        out_fps = (rd.fps or 24.0) / stride
+        pipeline, pending, top, bot = _video_route_setup(
+            rd, cfg, dev, pipeline,
+            lambda: load_predictor(cfg.model, cfg.checkpoint, dtype=cfg.dtype, device=dev,
+                                   steps=cfg.steps, window=cfg.window_size,
+                                   overlap=cfg.overlap, allow_random=cfg.allow_random))
+        h8, w8 = ((rd.height - top - bot) // 8) * 8, (rd.width // 8) * 8
+        frames = itertools.islice(_frames_cropped(rd, pending, top, h8, w8), 0, None, stride)
+        ov = max(1, min(cfg.overlap, cfg.window_size - 1))
+        seg_len = max(cfg.window_size, cfg.max_segment_frames)
+        ramp = torch.from_numpy(np.linspace(0.0, 1.0, ov, endpoint=False, dtype=np.float32)
+                                ).to(dev)[:, None, None]
+        lo, hi = np.inf, -np.inf
+        t0 = time.time()
+
+        def write_raw(fh, d):
+            nonlocal lo, hi, n_raw
+            lo, hi = min(lo, float(d.min())), max(hi, float(d.max()))
+            fh.write(d.to(torch.float16).cpu().numpy().tobytes())
+            n_raw += d.shape[0]
+            if progress_cb:
+                progress_cb(n_raw, n_raw / max(time.time() - t0, 1e-6))
+
+        tail, carry = None, []  # the held-back overlap: raw depth, source frames
+        with open(raw_path, "wb") as fh, torch.inference_mode():
+            while True:
+                if cancel_check and cancel_check():
+                    break  # segment-boundary cancel poll
+                seg = carry + list(itertools.islice(frames, seg_len - len(carry)))
+                new = len(seg) - len(carry)
+                if new <= 0:
+                    break
+                x = host_to_device(np.stack(seg), dev).to(torch.float32) / 255.0
+                d = pipeline.run_raw(x)
+                if tail is not None:
+                    a, b = _align_scale_shift(d[:ov], tail)
+                    d = (d * a + b).float()
+                    write_raw(fh, tail * (1.0 - ramp) + d[:ov] * ramp)
+                    d = d[ov:]
+                if len(d) > ov and len(seg) == seg_len:
+                    tail, carry = d[-ov:], seg[-ov:]
+                    write_raw(fh, d[:-ov])
+                else:  # the last (short) segment: nothing left to align against
+                    tail, carry = None, []
+                    write_raw(fh, d)
+                    break
+            if tail is not None:
+                write_raw(fh, tail)
+        rd.close()
+
+        # pass 2: the whole-clip min-max normalization, streamed from the spill
+        wr, write = _depth_writer(output_path, w8, h8 + top + bot, out_fps, cfg)
+        scale = 1.0 / max(hi - lo, 1e-9)
+        try:
+            with open(raw_path, "rb") as fh, torch.inference_mode():
+                for _ in range(n_raw):
+                    d = np.frombuffer(fh.read(h8 * w8 * 2), np.float16).reshape(h8, w8)
+                    d = host_to_device(d.copy(), dev).float()
+                    d01 = torch.clamp((d - lo) * scale, 0.0, 1.0)
+                    if cfg.invert:
+                        d01 = 1.0 - d01
+                    write(_quantize(d01, cfg.bits).cpu().numpy(), top, bot)
+        finally:
+            wr.close()
+    finally:
+        rd.close()
+        if os.path.exists(raw_path):
+            os.remove(raw_path)
+        if cfg.track_letterbox:
+            lb.save_sidecar(output_path, top, bot)
+    return n_raw
+
+
 def render_depth_video(args) -> int:
     """CLI adapter (``vd3d-torch depth``)."""
     cfg = DepthConfig(
@@ -453,6 +560,7 @@ def render_depth_video(args) -> int:
         batch_size=args.batch_size, invert=args.invert, bits=args.bits, dtype=args.dtype,
         track_letterbox=args.track_letterbox, tiled=args.tiled, tile_size=args.tile_size, tile_overlap=args.tile_overlap,
         fast_head=not args.exact_head, mesh=args.mesh, device=args.device, steps=args.steps,
+        window_size=args.window, overlap=args.overlap, target_fps=args.target_fps,
         allow_random=args.allow_random_weights)
     output = args.output
     if output is None:
