@@ -119,6 +119,21 @@ Phases, each printed on its own line; any failure exits nonzero:
      render (also with --dof_strength 2, --format "Red-Cyan Anaglyph",
      --preset best3d --dry-run, and --control FILE with 'cancel' written
      once frames come out) / depth / tools ...
+ 15. (product) the product surface, in this process (the launch counts see
+     it): DA-V2-Small's seeded random weights written as model.safetensors,
+     `convert`ed through cli.main into a native local: folder (its tensors
+     equal to the file's bit for bit), then 16 1080p frames rendered
+     Full-SBS bf16 from the folder and from the file (state dicts equal,
+     outputs byte-identical or within the run-to-run spread of the same
+     render, K1-K4 16/16/32/48 in each), `convert --depth-in/--depth-out`
+     round-tripping a .vd16 bit for bit; image-folder depth over 16 1080p
+     PNGs (DA-V2-Small 518^2 bf16, batch 8) with the K7 opt-in (24 launches
+     at [8, 1370, 6, 64]), with SDPA and with float32 SDPA (K7 no further
+     from float32 than SDPA + 0.25 u8; images/s); `verify-checkpoints`
+     over that file and a seeded Real-ESRGAN x4plus (both pass, the rest
+     missing, K5 launched); `frames --extract/--assemble`, `scenes --split`
+     (3 scenes), `--lang fr` and `dynamic_batch_size` on the card's memory;
+     whether Pillow and matplotlib are installed.
 
 Optional, run only when named: (k2shapes) K2 built at other strip widths,
 rows per step and CTAs per SM, each checked and timed against the default
@@ -177,7 +192,7 @@ DOF_KERNELS = ("dof_grade",)
 DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
 ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "surface",
-              "catalog", "families", "routes", "dcrafter", "parity", "cli")
+              "catalog", "families", "routes", "dcrafter", "parity", "cli", "product")
 OPTIONAL_PHASES = ("k2shapes",)  # run only when named
 H, W = 1080, 1920
 
@@ -2425,6 +2440,307 @@ def phase_cli(tmp: Path):
     say(f"PHASE cli: vd3d-torch tools --esrgan --rife -> {w}x{h}, {frames.shape[0]} frames")
 
 
+PRODUCT_FRAMES = 16
+
+
+def synthetic_frames(w, h, n):
+    """The frames of write_clip, as [n, h, w, 3] uint8."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        f = out[i]
+        f[..., 0] = (xx * 255 // max(w - 1, 1) + 4 * i) % 256
+        f[..., 1] = yy * 255 // max(h - 1, 1)
+        f[..., 2] = 100
+        x0 = w // 8 + (w // 64) * i % (w // 2)
+        f[h // 4: h // 2, x0: x0 + w // 6] = (240, 50, 50)
+    return out
+
+
+def cli_run(argv) -> tuple[int, str]:
+    """vd3d-torch in this process (so that the launch counts see it): its
+    exit code and what it printed."""
+    import contextlib
+    import io
+
+    from visiondepth3d_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(a) for a in argv])
+    return rc, buf.getvalue()
+
+
+def product_convert(card: str, tmp: Path):
+    """convert -> local: folder -> the fused render, against the same
+    checkpoint's render; convert --depth-in/--depth-out."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.depth.convert import (from_jax_tree, load_safetensors,
+                                                       save_safetensors)
+    from visiondepth3d_tpu_torch.depth.registry import (CATALOG, load_local_params,
+                                                        load_predictor)
+    from visiondepth3d_tpu_torch.io.depth_io import Depth16Reader, Depth16Writer
+    from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import (RenderConfig,
+                                                                  render_stereo_video)
+    from visiondepth3d_tpu_torch.stereo.params import StereoParams
+
+    name = "depth-anything-v2-small"
+    ckpt, folder = tmp / "da_small.safetensors", tmp / "da_small_local"
+    cpu = load_predictor(name, None, inference_size=518, seed=0, device="cpu")
+    state = cpu.model.state_dict()
+    save_safetensors(ckpt, state)
+    del cpu
+    rc, out = cli_run(["convert", "--model", name, "--checkpoint", ckpt, "--output", folder])
+    expect(rc == 0 and f"local:{folder}" in out, f"convert rc={rc}: {out[-500:]}")
+    meta = json.loads((folder / "vd3d.json").read_text())
+    expect(meta == {"base": name, "format": "native"}, f"vd3d.json {meta}")
+    tree, native = load_local_params(str(folder))
+    back = from_jax_tree("dpt_dinov2", tree, CATALOG[name].config)
+    file_state = load_safetensors(ckpt)
+    expect(native and set(back) == set(state) == set(file_state),
+           "the folder's tensors are not the checkpoint's")
+    diff = [k for k in back if not torch.equal(back[k], file_state[k])]
+    expect(not diff, f"the folder's tensors differ from the checkpoint's: {diff[:5]}")
+
+    params = StereoParams(enable_healing=True, image_dtype="bfloat16")
+    cfg = RenderConfig(output_format="Full-SBS", output_height=1080, chunk_size=16,
+                       device="cuda")
+    clip = tmp / "product_1080p.y4m"
+    write_clip(clip, W, H, PRODUCT_FRAMES)
+    preds = {what: load_predictor(model, ck, inference_size=518, dtype="bfloat16",
+                                  device="cuda", fast_head=True)
+             for what, model, ck in (("local", f"local:{folder}", None),
+                                     ("checkpoint", name, str(ckpt)))}
+    sa, sb = (p.model.state_dict() for p in preds.values())
+    expect(set(sa) == set(sb) and all(torch.equal(sa[k], sb[k]) for k in sa),
+           "the local: model's state dict differs from the --checkpoint model's")
+    render_stereo_video(warm_clip(tmp), None, tmp / "product_warm.y4m", params, cfg,
+                        predictor=preds["local"])  # the first render's one-time set-up
+    walls = {}
+    for what, pred in preds.items():
+        walls[what], _ = counted_render(clip, tmp / f"product_{what}.y4m", params, cfg, pred,
+                                        PRODUCT_FRAMES, f"product {what} render")
+    same = filecmp.cmp(tmp / "product_local.y4m", tmp / "product_checkpoint.y4m",
+                       shallow=False)
+    if not same:  # the run-to-run spread of the same render bounds the local: one
+        counted_render(clip, tmp / "product_again.y4m", params, cfg, preds["checkpoint"],
+                       PRODUCT_FRAMES, "product checkpoint render again")
+        a, b, c = (read_planes(tmp / f"product_{w}.y4m")[0].astype(np.int16)
+                   for w in ("local", "checkpoint", "again"))
+        d_local, d_again = int(np.abs(a - b).max()), int(np.abs(c - b).max())
+        expect(d_local <= d_again, f"the local: render is {d_local} u8 from the "
+               f"--checkpoint render, two --checkpoint renders {d_again} apart")
+        say(f"PHASE product convert: the renders differ run to run (max {d_again} u8 in Y); "
+            f"the local: render is {d_local} u8 from the --checkpoint render")
+    from visiondepth3d_tpu_torch.io import Y4MReader
+
+    with Y4MReader(str(tmp / "product_local.y4m")) as rd:
+        ow, oh = rd.width, rd.height
+    expect((ow, oh) == (2 * W, H), f"product render {ow}x{oh}")
+    del preds
+    torch.cuda.empty_cache()
+    say(f"PHASE product convert: DA-V2-Small (published widths, seed 0) -> {folder.name}/ "
+        f"(native, {len(back)} tensors equal to the checkpoint's bit for bit); "
+        f"{PRODUCT_FRAMES} frames 1920x1080 -> {ow}x{oh} Full-SBS bf16 with --model local: and "
+        f"with --checkpoint: state dicts equal, outputs "
+        f"{'byte-identical' if same else 'within the run-to-run spread'}, K1-K4 "
+        f"{[PER_FRAME[k] * PRODUCT_FRAMES for k in RENDER_KERNELS]} launches in each; "
+        f"{PRODUCT_FRAMES / walls['local']:.2f} and {PRODUCT_FRAMES / walls['checkpoint']:.2f} "
+        f"fps [{card}]")
+
+    src, dst = tmp / "product_in.vd16", tmp / "product_out.vd16"
+    gen = np.random.default_rng(0)
+    with Depth16Writer(src, 640, 360, 24.0) as wr:
+        for _ in range(4):
+            wr.write(gen.integers(0, 65536, (360, 640)).astype(np.uint16))
+    rc, out = cli_run(["convert", "--depth-in", src, "--depth-out", dst])
+    expect(rc == 0 and dst.read_bytes() == src.read_bytes(),
+           f"convert --depth-in/--depth-out rc={rc}: not bit for bit")
+    with Depth16Reader(dst) as rd:
+        n = len(list(rd))
+    say(f"PHASE product convert --depth-in/--depth-out: {n} frames 640x360 .vd16 round trip "
+        f"bit for bit")
+
+
+def product_images(card: str, tmp: Path):
+    """Image-folder depth: 16 1080p PNGs, DA-V2-Small 518 bf16, batch 8, with
+    the K7 opt-in (24 launches at [8, 1370, 6, 64]), then with SDPA, then
+    SDPA float32 as the reference."""
+    import numpy as np
+    import torch
+
+    from PIL import Image
+
+    from visiondepth3d_tpu_torch.kernels import attention as kattn
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.pipeline.image_pipeline import process_images_in_folder
+
+    src = tmp / "product_images"
+    src.mkdir()
+    for i, f in enumerate(synthetic_frames(W, H, PRODUCT_FRAMES)):
+        Image.fromarray(f).save(src / f"img_{i}.png")  # Pillow's adaptive row filters
+    pred = da_predictor()
+    shapes, orig = [], kattn.vmem_attention
+
+    def spy(q, k, v):
+        shapes.append(tuple(q.shape))
+        return orig(q, k, v)
+
+    walls, outs = {}, {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        kattn.vmem_attention = spy
+        for mode in ("K7", "sdpa", "f32"):
+            attn_ops.USE_VMEM_KERNEL = mode == "K7"
+            if mode == "f32":
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            p = da_predictor("cuda", "float32") if mode == "f32" else pred
+            shapes.clear()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            n = process_images_in_folder(src, tmp / f"product_depth_{mode}", p, batch_size=8)
+            torch.cuda.synchronize()
+            walls[mode] = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            want = {k: (24 if mode == "K7" and k == "vmem_attention" else 0) for k in counts}
+            expect(n == PRODUCT_FRAMES and counts == want,
+                   f"image folder {mode}: {n} images, launches {counts}, want {want}")
+            expect(mode != "K7" or set(shapes) == {(8, 1370, 6, 64)},
+                   f"K7 shapes {sorted(set(shapes))}, want [8, 1370, 6, 64]")
+            outs[mode] = np.stack([
+                np.asarray(Image.open(tmp / f"product_depth_{mode}" / f"img_{i}_depth.png"))
+                for i in range(PRODUCT_FRAMES)]).astype(np.int16)
+            expect(outs[mode].shape == (PRODUCT_FRAMES, H, W) and outs[mode].std() > 1.0,
+                   f"image folder {mode}: depth images {outs[mode].shape}, flat or misshapen")
+    finally:
+        kattn.vmem_attention = orig
+        attn_ops.USE_VMEM_KERNEL = False
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    d_k7 = float(np.abs(outs["K7"] - outs["f32"]).mean())
+    d_sdpa = float(np.abs(outs["sdpa"] - outs["f32"]).mean())
+    expect(d_k7 <= d_sdpa + 0.25, f"image folder: K7 {d_k7:.4f} u8 from float32, SDPA "
+           f"{d_sdpa:.4f} (need K7 <= SDPA + 0.25)")
+    say(f"PHASE product images: {PRODUCT_FRAMES} PNGs 1920x1080 -> 8-bit depth PNGs, "
+        f"DA-V2-S 518 bf16 fast head, batch 8: K7 opt-in {PRODUCT_FRAMES / walls['K7']:.2f} "
+        f"images/s (24 K7 launches at [8, 1370, 6, 64]), SDPA "
+        f"{PRODUCT_FRAMES / walls['sdpa']:.2f} images/s, float32 SDPA "
+        f"{PRODUCT_FRAMES / walls['f32']:.2f} images/s; mean |d| from float32: K7 {d_k7:.4f} "
+        f"u8, SDPA {d_sdpa:.4f} u8 (need K7 <= SDPA + 0.25) [{card}]")
+
+
+def product_verify(card: str, tmp: Path):
+    """verify-checkpoints over a folder of two seeded random checkpoints."""
+    import shutil
+
+    from visiondepth3d_tpu_torch.depth.convert import save_safetensors
+    from visiondepth3d_tpu_torch.enhance import EnhanceConfig, init_enhance_params
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    wdir = tmp / "product_weights"
+    wdir.mkdir()
+    shutil.copy(tmp / "da_small.safetensors", wdir / "depth-anything-v2-small.safetensors")
+    esrgan, _ = init_enhance_params(EnhanceConfig(use_esrgan=True, use_rife=False), seed=0)
+    save_safetensors(wdir / "esrgan-x4.safetensors", esrgan)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out = cli_run(["verify-checkpoints", wdir])
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    report = json.loads((wdir / "vd3d_verify.json").read_text())
+    status = {k: v["status"] for k, v in report["results"].items()}
+    passed = sorted(k for k, v in status.items() if v == "pass")
+    others = {v for k, v in status.items() if k not in passed}
+    expect(rc == 0 and passed == ["depth-anything-v2-small", "esrgan-x4"]
+           and others == {"missing"} and report["failed"] == 0,
+           f"verify-checkpoints rc={rc}: {status}")
+    expect(counts["conv3x3"] > 0, f"verify-checkpoints launched no K5: {counts}")
+    res = report["results"]
+    say(f"PHASE product verify-checkpoints: {passed} pass ({res['depth-anything-v2-small']}; "
+        f"{res['esrgan-x4']['cfg']}), {report['missing']} missing, 0 failed in {wall:.1f} s; "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})} [{card}]")
+
+
+def product_host_tools(card: str, tmp: Path):
+    """frames --extract / --assemble, scenes --split, --lang fr, and
+    dynamic_batch_size on the card."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.config.i18n import catalog, set_language
+    from visiondepth3d_tpu_torch.io import Y4MWriter
+    from PIL import Image
+
+    from visiondepth3d_tpu_torch.utils.memory import device_memory_bytes, dynamic_batch_size
+
+    clip = tmp / "product_small.y4m"
+    write_clip(clip, 256, 144, 8)
+    _, _, frames = read_clip(clip)
+    rc, _ = cli_run(["frames", "--extract", clip, "--output", tmp / "product_frames"])
+    pngs = sorted((tmp / "product_frames").iterdir())
+    expect(rc == 0 and len(pngs) == 8, f"frames --extract rc={rc}, {len(pngs)} files")
+    expect(all(np.array_equal(np.asarray(Image.open(p)), f) for p, f in zip(pngs, frames)),
+           "the extracted PNGs are not the clip's frames")
+    rc, _ = cli_run(["frames", "--assemble", tmp / "product_frames", "--output",
+                     tmp / "product_assembled.y4m"])
+    expect(rc == 0, f"frames --assemble rc={rc}")
+    w, h, back = read_clip(tmp / "product_assembled.y4m")
+    expect((w, h) == (256, 144) and back.shape == frames.shape, f"assembled {w}x{h}")
+    planes = [p.astype(np.int16) for p in (read_planes(clip)[0],
+                                            read_planes(tmp / "product_assembled.y4m")[0])]
+    d_y = int(np.abs(planes[0] - planes[1]).max())
+    expect(d_y <= 1, f"assembled Y plane {d_y} u8 from the clip's")
+
+    scene_clip = tmp / "product_scenes.y4m"
+    gen = np.random.default_rng(0)
+    with Y4MWriter(str(scene_clip), 256, 144, 24.0) as wr:
+        for i in range(48):
+            base = gen.integers(0, 256, 3) if i in (0, 16, 32) else base
+            f = np.empty((144, 256, 3), np.uint8)
+            f[:] = (base + np.arange(256)[None, :, None] * (1 + i // 16) + i) % 256
+            wr.write(f)
+    rc, out = cli_run(["scenes", "--input", scene_clip, "--split", "--output",
+                       tmp / "product_scene_clips"])
+    clips = sorted(os.listdir(tmp / "product_scene_clips"))
+    expect(rc == 0 and out.startswith("3 scenes") and len(clips) == 3,
+           f"scenes --split rc={rc}: {out[:200]!r}, {clips}")
+
+    rc, out = cli_run(["--lang", "fr", "convert", "--depth-in", tmp / "product_in.vd16",
+                       "--depth-out", tmp / "product_fr.vd16"])
+    set_language("en")
+    want = catalog("fr")["convert.depth_done"].format(count=4, output=tmp / "product_fr.vd16")
+    expect(rc == 0 and out.strip() == want, f"--lang fr printed {out!r}, want {want!r}")
+
+    total = device_memory_bytes("cuda")
+    n = dynamic_batch_size((H, W), 518)
+    props = torch.cuda.get_device_properties(0).total_memory
+    expect(abs(total - props) <= 0.01 * props and n >= 1,
+           f"device memory {total} (the device's properties: {props}), batch {n}")
+    pil = importlib.util.find_spec("PIL") is not None
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    say(f"PHASE product host tools: frames --extract/--assemble 8 frames 256x144 (PNGs equal "
+        f"to the decoded frames, Y plane within {d_y} u8), scenes --split -> {len(clips)} "
+        f"clips, --lang fr: {out.strip()!r}; dynamic_batch_size(1080p, 518) = {n} from "
+        f"{total / 2**30:.2f} GiB of device memory [{card}]; Pillow "
+        f"{'present' if pil else 'absent'}, matplotlib {'present' if mpl else 'absent'}")
+
+
+def phase_product(card: str, tmp: Path):
+    """The product surface: convert and local: folders, image-folder depth,
+    verify-checkpoints, and the host tools."""
+    for fn in (product_convert, product_images, product_verify, product_host_tools):
+        t0 = time.perf_counter()
+        fn(card, tmp)
+        say(f"PHASE product {fn.__name__.split('_', 1)[1]} took "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
@@ -2481,6 +2797,8 @@ def main(argv=None) -> int:
                 if "parity" not in phases:
                     write_clip(tmp / "small.y4m", 256, 144, 4)
                 timed("cli", phase_cli, tmp)
+            if "product" in phases:
+                timed("product", phase_product, card, tmp)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                         ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
         expect(not leaked, f"the JAX package or jax was imported: {leaked}")

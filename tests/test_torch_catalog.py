@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.depth import configs as jconfigs
 from visiondepth3d_tpu.depth import registry as jregistry

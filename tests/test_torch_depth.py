@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.depth.configs import DA_TINY
 from visiondepth3d_tpu.depth.convert import convert_depth_anything

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.depth import registry as jregistry
 from visiondepth3d_tpu.depth.depth_pro import DEPTH_PRO_TINY as JTINY

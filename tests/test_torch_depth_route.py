@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 from jax.experimental.pallas import tpu as pltpu
 
 from visiondepth3d_tpu.depth.configs import DA_TINY

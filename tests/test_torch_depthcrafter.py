@@ -44,6 +44,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 import torch.nn.functional as F
 
 from visiondepth3d_tpu.depth.diffusion import convert_diffusers as jconv

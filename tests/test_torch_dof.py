@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 from jax.experimental.pallas import tpu as pltpu
 
 from visiondepth3d_tpu.ops import dof as jdof

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 import visiondepth3d_tpu_torch.enhance.pipeline as tpipe
 from visiondepth3d_tpu.enhance import esrgan as jesr

@@ -47,6 +47,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.depth import dpt_beit as jdpt_beit
 from visiondepth3d_tpu.depth import dpt_classic as jdpt_classic

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 from flax import linen as fnn
 from jax.experimental.pallas import tpu as pltpu
 

@@ -34,6 +34,7 @@ import json
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.depth import registry as jregistry
 from visiondepth3d_tpu.depth.configs import DA_TINY as JDA_TINY
@@ -489,9 +490,9 @@ def test_local_native_params(tmp_path):
 
 
 def test_local_native_without_a_converter_raises(tmp_path):
-    root = tmp_path / "vda"
-    _save_native(root, {"a": {"b": np.zeros(2)}}, "video-depth-anything")
-    with pytest.raises(NotImplementedError, match="vda family.*dpt_dinov2.*dpt_vit"):
+    root = tmp_path / "marigold"
+    _save_native(root, {"a": {"b": np.zeros(2)}}, "marigold")
+    with pytest.raises(NotImplementedError, match="diffusion family.*dpt_dinov2.*vda"):
         tregistry.load_predictor(f"local:{root}", device="cpu")
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError, match="vd3d.json"):

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.ops import convert as jconvert
 from visiondepth3d_tpu.ops import depth_shaping as jshaping

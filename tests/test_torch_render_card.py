@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu_torch.io import Y4MReader, Y4MWriter
 from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts

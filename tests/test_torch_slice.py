@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.depth.configs import DA_TINY
 from visiondepth3d_tpu.depth.model import DepthPredictor as JPredictor
@@ -169,7 +170,9 @@ for name in ("depth.depth_pro", "depth.vda", "depth.diffusion.schedulers",
              "depth.diffusion.vae", "depth.diffusion.unet2d", "depth.diffusion.marigold",
              "depth.diffusion.loaders", "depth.diffusion.clip_vision",
              "depth.diffusion.unet_st", "depth.diffusion.depthcrafter", "depth.onnx_exec",
-             "utils.onnx_reader"):
+             "utils.onnx_reader", "utils.observability", "utils.memory", "utils.scene_detect",
+             "utils.verify_checkpoints", "io.audio", "pipeline.image_pipeline",
+             "config.i18n", "config.settings"):
     assert "visiondepth3d_tpu_torch." + name in sys.modules, name
 from visiondepth3d_tpu_torch.depth import DA_TINY
 from visiondepth3d_tpu_torch.depth.registry import load_predictor

@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.state import init_trackers as jinit
 from visiondepth3d_tpu.stereo import StereoParams as JParams

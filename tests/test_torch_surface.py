@@ -35,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.config import presets as jpresets
 from visiondepth3d_tpu.io import blackdetect as jblack

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from visiondepth3d_tpu.depth import vda as jvda
 from visiondepth3d_tpu.pipeline.depth_pipeline import DepthConfig as JConfig

@@ -21,7 +21,9 @@ holding a raw ``model.onnx``, or a ``vd3d.json`` naming the catalog entry
 whose architecture its ``.safetensors`` holds, in the upstream names
 (``format: "hf"``) or as a flat "a/b/c"-keyed JAX params tree
 (``format: "native"``, the default), which goes through the family's
-``from_jax_params*``.
+``from_jax_params*``. ``save_local_params`` writes such a native folder
+(``vd3d-torch convert``), and ``discover_local_models`` lists the folders
+of a weights directory.
 """
 
 from __future__ import annotations
@@ -107,15 +109,6 @@ CATALOG: dict[str, ModelEntry] = {e.name: e for e in (
     ModelEntry("depthcrafter", "diffusion", None, "tencent/DepthCrafter",
                ("DepthCrafter (Video Diffusion)",)),
 )}
-
-# a "native" local folder's JAX params tree -> the family's state dict
-_NATIVE_CONVERTERS = {"dpt_dinov2": "from_jax_params",
-                      "dpt_classic": "from_jax_params_dpt_classic",
-                      "dpt_beit": "from_jax_params_dpt_beit",
-                      "dpt_hybrid": "from_jax_params_dpt_hybrid",
-                      "zoedepth": "from_jax_params_zoedepth",
-                      "zoedepth_nk": "from_jax_params_zoedepth_nk",
-                      "dpt_vit": "from_jax_params_midas_v2"}
 
 # recommended square inference sizes per family; the first is the default
 _FAMILY_RESOLUTIONS = {
@@ -259,6 +252,48 @@ def load_local_params(root: str):
     return tree, True
 
 
+def discover_local_models(root: str) -> dict[str, ModelEntry]:
+    """The loadable model folders of a weights directory, keyed
+    ``"[Local] <folder>"`` as the reference's dropdown lists them."""
+    found = {}
+    if not os.path.isdir(root):
+        return found
+    for folder in sorted(os.listdir(root)):
+        try:
+            found[f"[Local] {folder}"] = resolve_local_model(os.path.join(root, folder))
+        except (FileNotFoundError, KeyError):
+            continue
+    return found
+
+
+def save_local_params(root: str, base_name: str, params: dict) -> str:
+    """Write a JAX-layout params tree (``convert.to_jax_params``) as a
+    ``local:`` folder: flat "a/b/c"-keyed float32 ``model.safetensors`` and a
+    ``vd3d.json`` naming the catalog entry whose architecture it holds, the
+    layout of the JAX package's ``save_local_params``, so either package
+    loads the folder the other wrote."""
+    from .convert import save_safetensors
+
+    if base_name not in CATALOG:
+        raise KeyError(f"{base_name!r}: not a catalog entry")
+    os.makedirs(root, exist_ok=True)
+    flat: dict = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                flat[key] = v
+
+    walk(params, "")
+    save_safetensors(os.path.join(root, "model.safetensors"), flat)
+    with open(os.path.join(root, "vd3d.json"), "w") as f:
+        json.dump({"base": base_name, "format": "native"}, f, indent=2)
+    return root
+
+
 def _onnx_predictor(path: str, inference_size, device):
     from .onnx_exec import OnnxDepthPredictor
 
@@ -307,13 +342,15 @@ def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518
     resolve_device(device)
     cfg = config if config is not None else entry.config
     if native:
-        if entry.family not in _NATIVE_CONVERTERS:
-            raise NotImplementedError(
-                f"{name}: a native (JAX params) folder of the {entry.family} family has no "
-                f"converter; the families that have one: {', '.join(_NATIVE_CONVERTERS)}")
         from . import convert
 
-        checkpoint = getattr(convert, _NATIVE_CONVERTERS[entry.family])(checkpoint, cfg)
+        if entry.family not in convert.JAX_FAMILIES:
+            raise NotImplementedError(
+                f"{name}: a native (JAX params) folder of the {entry.family} family has no "
+                f"converter; the families that have one: {', '.join(convert.JAX_FAMILIES)}")
+        if entry.family == "depth_pro":  # the encoders' widths are the tree's
+            cfg = convert.depth_pro_config_from_jax(checkpoint, cfg)
+        checkpoint = convert.from_jax_tree(entry.family, checkpoint, cfg)
     if entry.family == "diffusion":
         from .diffusion import load_diffusion_pipeline
 
@@ -329,7 +366,7 @@ def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518
         if checkpoint is None:
             build_random_model(model, seed)
         else:
-            load_hf_state_dict(model, convert_vda(checkpoint, cfg), ())
+            load_hf_state_dict(model, checkpoint if native else convert_vda(checkpoint, cfg), ())
         return VDAPredictor(model, dtype=dtype, device=device)
     if entry.family == "depth_pro":
         from .depth_pro import UNUSED_HF_KEYS, DepthPro
