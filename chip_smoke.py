@@ -12,7 +12,8 @@ Phases, each printed on its own line; any failure exits nonzero:
      visiondepth3d_tpu_torch/kernels/csrc;
   3. (kernels) each kernel against its plain PyTorch version on the card,
      with times of both, of the library call where one computes the same
-     function, and the kernel's bound. A kernel's time is `runs` back-to-
+     function (K1: one F.grid_sample over both eyes, its layout copy timed
+     apart), and the kernel's bound. A kernel's time is `runs` back-to-
      back launches captured in one CUDA graph and replayed between one
      CUDA-event pair, over `runs`; beside it the host loop of the same
      launches (the host launching each), one call's device operations
@@ -133,7 +134,23 @@ Phases, each printed on its own line; any failure exits nonzero:
      over that file and a seeded Real-ESRGAN x4plus (both pass, the rest
      missing, K5 launched); `frames --extract/--assemble`, `scenes --split`
      (3 scenes), `--lang fr` and `dynamic_batch_size` on the card's memory;
-     whether Pillow and matplotlib are installed.
+     whether Pillow and matplotlib are installed;
+ 16. (serve) preview and serve, the surfaces users drive: render_preview
+     in its ten modes on one 1080p frame on the card and on the CPU (float32,
+     TF32 off; mean |d| <= 1 u8 and SSIM >= 0.99 per mode, K1-K4 1/1/2/3
+     launches a render, ms per render cold and warm); serve_preview(port=0,
+     max_renders=3) with two POST /update edits; then the job server on the
+     card (run_in_thread) driven over HTTP: a fused 16-frame 1080p Full-SBS
+     render from DA-V2-Small's seed-0 model.safetensors (byte-identical to
+     `vd3d-torch render` of the same file and flags, K1-K4 16/16/32/48), the
+     same with dof_strength 2 (K6 16), a depth job (518^2, bf16, batch 8,
+     the K7 opt-in: 24 launches at [8, 1370, 6, 64]), a tools job (seeded
+     full-width Real-ESRGAN x4plus and practical-RIFE .safetensors, bf16,
+     960x540: K5), a scenes job, an audio job (done with ffmpeg, an error
+     naming ffmpeg without it), and a 48-frame render paused and resumed
+     beside a second one cancelled mid-clip (its .partial output holds as
+     many frames as its progress says). Its launch counts go on their own
+     `PHASE serve launches` line.
 
 Optional, run only when named: (k2shapes) K2 built at other strip widths,
 rows per step and CTAs per SM, each checked and timed against the default
@@ -156,6 +173,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -192,7 +210,7 @@ DOF_KERNELS = ("dof_grade",)
 DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
 ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "surface",
-              "catalog", "families", "routes", "dcrafter", "parity", "cli", "product")
+              "catalog", "families", "routes", "dcrafter", "parity", "cli", "product", "serve")
 OPTIONAL_PHASES = ("k2shapes",)  # run only when named
 H, W = 1080, 1920
 
@@ -370,6 +388,35 @@ def graph_ms(fn, warmup: int = 3, runs: int = 20) -> float:
     return ms
 
 
+def warp_grid_inputs(frame, depth, shift):
+    """K1's inputs laid out for F.grid_sample: the frame's RGB and the
+    depth stacked as one NCHW image per eye ([2, 4, H, W]: the NHWC -> NCHW
+    copy) and each eye's sampling grid ([2, H, W, 2] in align_corners=True
+    coordinates: x = 2c / (W - 1) - 1 + shift for the left eye and - shift
+    for the right, which is column c +- shift (W - 1) / 2; y on the row
+    centres), in the frame's type."""
+    import torch
+
+    h, w = shift.shape
+    stack = torch.cat([frame, depth[..., None]], dim=-1).permute(2, 0, 1)
+    stack = stack[None].expand(2, -1, -1, -1).contiguous()
+    col = torch.arange(w, device=shift.device, dtype=torch.float32) * (2.0 / (w - 1)) - 1.0
+    row = torch.arange(h, device=shift.device, dtype=torch.float32) * (2.0 / (h - 1)) - 1.0
+    gx = col[None, None, :] + torch.stack([shift, -shift]).float()
+    grid = torch.stack([gx, row[None, :, None].expand(2, h, w)], dim=-1)
+    return stack, grid.to(frame.dtype)
+
+
+def warp_grid_sample(stack, grid):
+    """K1's library yardstick: one F.grid_sample over both eyes (bilinear,
+    border padding: the warp's clamp of the source column). Returns
+    [2, 4, H, W]: the left and the right eye, RGB then depth."""
+    import torch.nn.functional as F
+
+    return F.grid_sample(stack, grid, mode="bilinear", padding_mode="border",
+                         align_corners=True)
+
+
 def launch_floor(card: str) -> dict:
     """An empty kernel timed both ways: the least a launch costs."""
     import torch
@@ -516,6 +563,10 @@ def phase_kernels(card: str) -> dict:
     # Bound: read frame (3), depth, shift (f32), write 2 x (3 + 1) values;
     # 38 operations per pixel (shift scale, then per eye the clamped source
     # column, its floor and weights, and 2 multiplies + 1 add per value).
+    # Library: one F.grid_sample over both eyes (warp_grid_sample) on the
+    # NCHW stack of RGB and depth; its layout copy and grid build
+    # (warp_grid_inputs) are timed apart from the call. Its grid is in the
+    # image type, so in bf16 the source column is rounded to 8 bits.
     frame = smooth_frame(gen, H, W, dev)
     depth = smooth_depth(gen, H, W, dev)
     shift = ((torch.rand(H, W, generator=gen) * 2 - 1) * 0.042).to(dev)
@@ -527,10 +578,22 @@ def phase_kernels(card: str) -> dict:
         err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
         times = kernel_times(lambda: warp.stereo_warp_cuda(f, d, shift, max_shift))
         plain = time_ms(lambda: warp.stereo_warp_torch(f, d, shift, max_shift))
+        stack, grid = warp_grid_inputs(f, d, shift)
+        lib_out = warp_grid_sample(stack, grid)
+        lib_eyes = (lib_out[0, :3].permute(1, 2, 0), lib_out[1, :3].permute(1, 2, 0),
+                    lib_out[0, 3], lib_out[1, 3])
+        lib_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(lib_eyes, ref))
+        lib_ms = graph_ms(lambda: warp_grid_sample(stack, grid))
+        layout_ms = graph_ms(lambda: warp_grid_inputs(f, d, shift))
         s = f.element_size()
-        line = record("stereo_warp", dt, err, times, plain, 38 * H * W, H * W * (12 * s + 4))
-        say(f"PHASE kernels stereo_warp {dt} max_abs_err={err:.3e} (tol {tol}) {line}")
+        line = record("stereo_warp", dt, err, times, plain, 38 * H * W, H * W * (12 * s + 4),
+                      library_ms=lib_ms)
+        say(f"PHASE kernels stereo_warp {dt} max_abs_err={err:.3e} (tol {tol}) {line}; "
+            f"library F.grid_sample [2, 4, {H}, {W}] max |d| from the plain version "
+            f"{lib_err:.3e}, its NHWC -> NCHW copy and grid build {layout_ms:.4f} ms apart "
+            f"(graph replay)")
         expect(err <= tol, f"stereo_warp {dt}: max |err| {err} > {tol}")
+        del stack, grid, lib_out, lib_eyes
 
     # K2: feather + heal, f32 and bf16. Bound: read both eyes, the frame
     # (3 each) and both depths, write both eyes; 376 operations per pixel at
@@ -2665,6 +2728,21 @@ def product_verify(card: str, tmp: Path):
         f"launches {json.dumps({k: v for k, v in counts.items() if v})} [{card}]")
 
 
+def write_scene_clip(path):
+    """A 256x144 clip of 48 frames in three scenes (cuts at 16 and 32)."""
+    import numpy as np
+
+    from visiondepth3d_tpu_torch.io import Y4MWriter
+
+    gen = np.random.default_rng(0)
+    with Y4MWriter(str(path), 256, 144, 24.0) as wr:
+        for i in range(48):
+            base = gen.integers(0, 256, 3) if i in (0, 16, 32) else base
+            f = np.empty((144, 256, 3), np.uint8)
+            f[:] = (base + np.arange(256)[None, :, None] * (1 + i // 16) + i) % 256
+            wr.write(f)
+
+
 def product_host_tools(card: str, tmp: Path):
     """frames --extract / --assemble, scenes --split, --lang fr, and
     dynamic_batch_size on the card."""
@@ -2674,7 +2752,6 @@ def product_host_tools(card: str, tmp: Path):
     import torch
 
     from visiondepth3d_tpu_torch.config.i18n import catalog, set_language
-    from visiondepth3d_tpu_torch.io import Y4MWriter
     from PIL import Image
 
     from visiondepth3d_tpu_torch.utils.memory import device_memory_bytes, dynamic_batch_size
@@ -2698,13 +2775,7 @@ def product_host_tools(card: str, tmp: Path):
     expect(d_y <= 1, f"assembled Y plane {d_y} u8 from the clip's")
 
     scene_clip = tmp / "product_scenes.y4m"
-    gen = np.random.default_rng(0)
-    with Y4MWriter(str(scene_clip), 256, 144, 24.0) as wr:
-        for i in range(48):
-            base = gen.integers(0, 256, 3) if i in (0, 16, 32) else base
-            f = np.empty((144, 256, 3), np.uint8)
-            f[:] = (base + np.arange(256)[None, :, None] * (1 + i // 16) + i) % 256
-            wr.write(f)
+    write_scene_clip(scene_clip)
     rc, out = cli_run(["scenes", "--input", scene_clip, "--split", "--output",
                        tmp / "product_scene_clips"])
     clips = sorted(os.listdir(tmp / "product_scene_clips"))
@@ -2739,6 +2810,382 @@ def phase_product(card: str, tmp: Path):
         fn(card, tmp)
         say(f"PHASE product {fn.__name__.split('_', 1)[1]} took "
             f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------- serve
+
+SERVE_FRAMES = 16
+SERVE_LONG_FRAMES = 48  # the pause/resume and cancel renders
+
+
+def http_json(url: str, body=None) -> dict:
+    """GET url (or POST body as JSON) and parse the JSON answer."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data, {"Content-Type": "application/json"},
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read() or b"{}")
+
+
+def job_state(base: str, job_id: int) -> dict:
+    return next(j for j in http_json(f"{base}/api/jobs") if j["id"] == job_id)
+
+
+def wait_job(base: str, job_id: int, until=("done", "error", "cancelled"),
+             timeout: float = 600.0, what: str = "") -> dict:
+    """Poll /api/jobs until the job's status is one of ``until``."""
+    t0 = time.perf_counter()
+    while True:
+        j = job_state(base, job_id)
+        if j["status"] in until:
+            return j
+        expect(time.perf_counter() - t0 < timeout,
+               f"serve {what}: job {job_id} still {j['status']} after {timeout} s")
+        time.sleep(0.01)
+
+
+def served_job(base: str, kind: str, params: dict, what: str) -> tuple[dict, float, dict]:
+    """Submit a job over HTTP with the launch counts zeroed, wait for it to
+    end, and fail the phase unless it ends done. Returns (the job, its wall
+    from submit to done, the launch counts)."""
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    job = http_json(f"{base}/api/jobs", {"kind": kind, "params": params})
+    j = wait_job(base, job["id"], what=what)
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    expect(j["status"] == "done", f"serve {what}: job ended {j['status']}: {j['error']}\n"
+           f"{j['progress'].get('traceback', '')}")
+    return j, wall, counts
+
+
+def serve_preview_run(card: str, tmp: Path, frame, depth):
+    """preview's render surface in this process: the served watch loop on
+    the main thread, two edits posted to it from another."""
+    import urllib.request
+
+    import numpy as np
+
+    from visiondepth3d_tpu_torch.io import Y4MWriter
+    from visiondepth3d_tpu_torch.io.depth_io import Depth16Writer
+    from visiondepth3d_tpu_torch.preview import serve_preview
+
+    clip, dep, out = tmp / "preview_clip.y4m", tmp / "preview_depth.vd16", tmp / "preview_ui"
+    with Y4MWriter(str(clip), W, H, 24.0) as wr, Depth16Writer(dep, W, H, 24.0) as dw:
+        for i in range(2):
+            wr.write(np.roll(frame, 8 * i, axis=1))
+            dw.write(np.round(np.roll(depth, 8 * i, axis=1) * 65535).astype(np.uint16))
+    started, seen, errors = threading.Event(), {}, []
+
+    def edit():
+        try:
+            expect(started.wait(60), "serve_preview never started")
+            base = f"http://127.0.0.1:{seen['port']}"
+            with urllib.request.urlopen(base + "/", timeout=30) as page:
+                expect(b"vd3d preview" in page.read(), "the preview page")
+            for n, patch in ((1, {"fg_shift": 9.0}), (2, {"mode": "anaglyph", "frame": 1})):
+                t0 = time.perf_counter()
+                while http_json(base + "/state")["renders"] < n:
+                    expect(time.perf_counter() - t0 < 120, f"preview render {n} never came")
+                    time.sleep(0.02)
+                http_json(base + "/update", patch)
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    def on_start(port):
+        seen["port"] = port
+        started.set()
+
+    helper = threading.Thread(target=edit, daemon=True)
+    helper.start()
+    t0 = time.perf_counter()
+    n = serve_preview(clip, dep, out, port=0, max_renders=3, server_started=on_start,
+                      device="cuda")
+    wall = time.perf_counter() - t0
+    helper.join(60)
+    expect(not errors and not helper.is_alive(), f"serve_preview edits: {errors}")
+    pngs = sorted(p.name for p in out.glob("*.png"))
+    want = ["preview_anaglyph.png", "preview_depth.png", "preview_input.png", "preview_sbs.png"]
+    expect(n == 3 and pngs == want, f"serve_preview: {n} renders, {pngs}")
+    sess = json.loads((out / "session.json").read_text())
+    expect((sess["fg_shift"], sess["mode"], sess["frame"]) == (9.0, "anaglyph", 1),
+           f"serve_preview session {sess}")
+    say(f"PHASE serve preview page: serve_preview(port=0, max_renders=3) on the card: 3 "
+        f"renders of a 1920x1080 clip, two POST /update edits (fg_shift, then mode anaglyph "
+        f"at frame 1) re-rendered, PNG set {pngs}; {wall:.2f} s [{card}]")
+
+
+def serve_preview_modes(card: str, frame, depth) -> dict:
+    """render_preview in every mode on the card and on the CPU (float32,
+    TF32 off); returns the launch counts of one render."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from visiondepth3d_tpu_torch.preview import PREVIEW_MODES, render_preview
+
+    lines, counts, cold = [], None, None
+    with no_tf32():
+        for mode in PREVIEW_MODES:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = render_preview(frame, depth, mode=mode, device="cuda")
+            ms = 1e3 * (time.perf_counter() - t0)
+            cold = ms if cold is None else cold
+            counts = dict(launch_counts)
+            want = {k: PER_FRAME.get(k, 0) for k in counts}  # one frame
+            expect(counts == want, f"preview {mode}: launches {counts}, want {want}")
+            ref = render_preview(frame, depth, mode=mode, device="cpu")
+            expect(got.shape == ref.shape, f"preview {mode}: {got.shape} vs {ref.shape}")
+            mean = float(np.abs(got.astype(np.int16) - ref.astype(np.int16)).mean())
+            ssim = ssim_gray(got, ref)
+            lines.append(f"{mode} {mean:.4f}/{ssim:.5f}")
+            expect(mean <= 1.0 and ssim >= 0.99,
+                   f"preview {mode}: card vs CPU mean |d| {mean} u8, SSIM {ssim}")
+        warm = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_preview(frame, depth, mode="sbs", device="cuda")
+            warm.append(1e3 * (time.perf_counter() - t0))
+    say(f"PHASE serve preview: render_preview in {len(PREVIEW_MODES)} modes, 1920x1080 f32, "
+        f"card vs CPU plain (TF32 off) mean |d| u8 / SSIM: {', '.join(lines)} (need <= 1 and "
+        f">= 0.99); K1-K4 {[PER_FRAME[k] for k in RENDER_KERNELS]} launches per "
+        f"render; {cold:.1f} ms cold (first render), {statistics.median(warm):.1f} ms warm "
+        f"(median of 5, sbs; frame to the card and the PNG-ready u8 back) [{card}]")
+    return counts
+
+
+def serve_checkpoint(tmp: Path) -> Path:
+    """DA-V2-Small's seed-0 random weights as an HF model.safetensors (the
+    product phase's file when it ran)."""
+    from visiondepth3d_tpu_torch.depth.convert import save_safetensors
+    from visiondepth3d_tpu_torch.depth.registry import load_predictor
+
+    ckpt = tmp / "da_small.safetensors"
+    if not ckpt.exists():
+        cpu = load_predictor("depth-anything-v2-small", None, inference_size=518, seed=0,
+                             device="cpu")
+        save_safetensors(ckpt, cpu.model.state_dict())
+    return ckpt
+
+
+def serve_jobs(card: str, tmp: Path, base: str) -> dict:
+    """The five runners over HTTP on the card; returns each job's launches."""
+    from visiondepth3d_tpu_torch.depth.convert import save_safetensors
+    from visiondepth3d_tpu_torch.io.ffmpeg import have_ffmpeg
+    from visiondepth3d_tpu_torch.kernels import attention as kattn
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+
+    meta = http_json(f"{base}/api/meta")
+    names = {s["name"] for s in meta["render"]["config"]}
+    expect("device" not in names and {"output_format", "chunk_size"} <= names,
+           f"/api/meta render fields {sorted(names)}")
+    ckpt = serve_checkpoint(tmp)
+    clip = tmp / "serve_1080p.y4m"
+    write_clip(clip, W, H, SERVE_FRAMES)
+    flags = {"format": "Full-SBS", "chunk-size": "16", "image_dtype": "bfloat16",
+             "enable_healing": "true"}
+    render = {"input": str(clip), "model": "depth-anything-v2-small", "checkpoint": str(ckpt),
+              "output_format": "Full-SBS", "chunk_size": "16", "image_dtype": "bfloat16",
+              "enable_healing": "true"}
+    launches, lines = {}, []
+    per_render = {k: PER_FRAME[k] * SERVE_FRAMES for k in RENDER_KERNELS}
+
+    # 1. the fused render, against `vd3d-torch render` of the same file and flags
+    served = tmp / "serve_render.y4m"
+    j, wall, counts = served_job(base, "render", dict(render, output=str(served)), "render")
+    want = {k: per_render.get(k, 0) for k in counts}
+    expect(counts == want, f"served render launches {counts}, want {want}")
+    expect(j["output"] == str(served) and j["progress"]["frames"] == SERVE_FRAMES,
+           f"served render {j['output']}, {j['progress']}")
+    launches["render"] = counts
+    cli_out = tmp / "serve_cli.y4m"
+    argv = ["render", "--input", clip, "--model", "depth-anything-v2-small", "--checkpoint",
+            ckpt, "--output", cli_out] + [x for k, v in flags.items() for x in (f"--{k}", v)]
+    t0 = time.perf_counter()
+    rc, out = cli_run(argv)
+    cli_wall = time.perf_counter() - t0
+    expect(rc == 0, f"vd3d-torch render rc={rc}: {out[-500:]}")
+    expect(filecmp.cmp(served, cli_out, shallow=False), "the served render differs from `vd3d-torch render` of the same flags")
+    ow, oh, _ = clip_info(served)
+    lines.append(f"render {SERVE_FRAMES} frames -> {ow}x{oh} Full-SBS (DA-V2-S f32 518, bf16 "
+                 f"image plane) {j['progress']['fps']:.2f} fps ({wall:.2f} s from submit, "
+                 f"model load included; the CLI {cli_wall:.2f} s), byte-identical to "
+                 f"`vd3d-torch render`")
+
+    # 2. the same render with depth of field: K6 once a frame
+    j, wall, counts = served_job(base, "render", dict(render, output=str(tmp / "serve_dof.y4m"),
+                                                      dof_strength="2.0"), "dof render")
+    want = {k: per_render.get(k, 0) + (SERVE_FRAMES if k == "dof_grade" else 0)
+            for k in counts}
+    expect(counts == want, f"served DOF render launches {counts}, want {want}")
+    launches["dof"] = counts
+    lines.append(f"dof render {j['progress']['fps']:.2f} fps")
+
+    # 3. the depth job with the K7 opt-in: 12 layers x 2 batches of 8
+    shapes, orig = [], kattn.vmem_attention
+
+    def spy(q, k, v):
+        shapes.append(tuple(q.shape))
+        return orig(q, k, v)
+
+    try:
+        kattn.vmem_attention, attn_ops.USE_VMEM_KERNEL = spy, True
+        j, wall, counts = served_job(base, "depth", {
+            "input": str(clip), "output": str(tmp / "serve_depth.y4m"),
+            "model": "depth-anything-v2-small", "checkpoint": str(ckpt), "batch_size": "8",
+            "inference_size": "518", "dtype": "bfloat16"}, "depth")
+    finally:
+        kattn.vmem_attention, attn_ops.USE_VMEM_KERNEL = orig, False
+    want = {k: (24 if k == "vmem_attention" else 0) for k in counts}
+    expect(counts == want and set(shapes) == {(8, 1370, 6, 64)},
+           f"served depth launches {counts} at {sorted(set(shapes))}, want 24 at "
+           f"[8, 1370, 6, 64]")
+    expect(j["progress"]["frames"] == SERVE_FRAMES, f"served depth {j['progress']}")
+    launches["depth"] = counts
+    lines.append(f"depth (bf16, K7) {j['progress']['fps']:.2f} fps")
+
+    # 4. the tools job: full-width Real-ESRGAN x4plus and practical-RIFE
+    # weights from a seed, as .safetensors files, bf16
+    _, ep, (rsd, _) = tools_models("bfloat16")
+    save_safetensors(tmp / "serve_esrgan.safetensors", ep)
+    save_safetensors(tmp / "serve_rife.safetensors", rsd)
+    tclip = tmp / "serve_540p.y4m"
+    write_clip(tclip, 960, 540, 3)
+    j, wall, counts = served_job(base, "tools", {
+        "input": str(tclip), "output": str(tmp / "serve_tools.y4m"),
+        "esrgan_weights": str(tmp / "serve_esrgan.safetensors"),
+        "rife_weights": str(tmp / "serve_rife.safetensors"), "use_esrgan": "true",
+        "use_rife": "true", "dtype": "bfloat16"}, "tools")
+    tools_out = clip_info(tmp / "serve_tools.y4m")
+    expect(counts["conv3x3"] > 0 and tools_out == (960, 540, 5),
+           f"served tools: launches {counts}, output (w, h, frames) {tools_out}")
+    launches["tools"] = {k: v for k, v in counts.items() if v}
+    lines.append(f"tools 3 -> 5 frames 960x540 {j['progress']['fps']:.2f} fps "
+                 f"({counts['conv3x3']} K5 launches)")
+
+    # 5. the scenes job
+    write_scene_clip(tmp / "serve_scenes.y4m")
+    j, _, _ = served_job(base, "scenes", {"input": str(tmp / "serve_scenes.y4m"),
+                                          "split": "true",
+                                          "output": str(tmp / "serve_scene_clips")}, "scenes")
+    clips = sorted(os.listdir(tmp / "serve_scene_clips"))
+    expect(j["progress"]["scenes"] == 3 and len(clips) == 3, f"served scenes {j}, {clips}")
+    lines.append(f"scenes --split -> {len(clips)} clips")
+
+    # 6. the audio job: ffmpeg only
+    if have_ffmpeg():
+        src = tmp / "serve_audio_src.mkv"
+        subprocess.run(["ffmpeg", "-v", "error", "-y", "-f", "lavfi", "-i",
+                        "sine=frequency=440:duration=1", "-f", "lavfi", "-i",
+                        "testsrc=size=64x48:duration=1", "-shortest", str(src)], check=True)
+        j, _, _ = served_job(base, "audio", {"input": str(src),
+                                             "output": str(tmp / "serve_audio.m4a"),
+                                             "codec": "aac"}, "audio")
+        lines.append("audio rip done (ffmpeg present)")
+    else:
+        job = http_json(f"{base}/api/jobs", {"kind": "audio", "params": {
+            "input": str(clip), "output": str(tmp / "serve_audio.m4a")}})
+        j = wait_job(base, job["id"], what="audio")
+        expect(j["status"] == "error" and "ffmpeg" in (j["error"] or ""),
+               f"served audio without ffmpeg: {j['status']} {j['error']}")
+        lines.append(f"audio without ffmpeg: error {j['error']!r}")
+
+    # 7. pause and resume one render, cancel a second one mid-clip (paused
+    # first, so that it cannot end before the cancel)
+    long_clip = tmp / "serve_long.y4m"
+    write_clip(long_clip, W, H, SERVE_LONG_FRAMES)
+    ctl = dict(render, input=str(long_clip), chunk_size="8")
+    a = http_json(f"{base}/api/jobs", {"kind": "render", "params": dict(
+        ctl, output=str(tmp / "serve_paused.y4m"))})
+    b = http_json(f"{base}/api/jobs", {"kind": "render", "params": dict(
+        ctl, output=str(tmp / "serve_cancelled.y4m"))})
+    statuses = {a["id"]: [], b["id"]: []}
+
+    def pause_at(job_id, frames):
+        t0 = time.perf_counter()
+        while job_state(base, job_id)["progress"].get("frames", 0) < frames:
+            expect(time.perf_counter() - t0 < 300, f"job {job_id} never reached {frames} "
+                   f"frames: {job_state(base, job_id)}")
+            time.sleep(0.005)
+        http_json(f"{base}/api/jobs/{job_id}/control", {"action": "pause"})
+        j = wait_job(base, job_id, until=("paused", "done", "error", "cancelled"),
+                     what="pause")
+        statuses[job_id].append(j["status"])
+        expect(j["status"] == "paused", f"job {job_id} did not pause: {j['status']}")
+        n = j["progress"]["frames"]
+        time.sleep(0.5)
+        j = job_state(base, job_id)
+        expect(j["status"] == "paused" and j["progress"]["frames"] == n,
+               f"paused job {job_id} moved: {j['status']}, {n} -> {j['progress']['frames']}")
+        return n
+
+    paused_at = pause_at(a["id"], 8)
+    http_json(f"{base}/api/jobs/{a['id']}/control", {"action": "resume"})
+    statuses[a["id"]].append(job_state(base, a["id"])["status"])
+    ja = wait_job(base, a["id"], what="resumed render")
+    statuses[a["id"]].append(ja["status"])
+    expect(statuses[a["id"]] == ["paused", "running", "done"] and
+           ja["progress"]["frames"] == SERVE_LONG_FRAMES, f"paused and resumed: {statuses[a['id']]}, {ja}")
+    cancelled_at = pause_at(b["id"], 16)
+    http_json(f"{base}/api/jobs/{b['id']}/control", {"action": "cancel"})
+    jb = wait_job(base, b["id"], what="cancelled render")
+    statuses[b["id"]].append(jb["status"])
+    _, _, n_kept = clip_info(jb["output"])
+    expect(jb["status"] == "cancelled" and n_kept == jb["progress"]["frames"] < SERVE_LONG_FRAMES
+           and jb["output"].endswith(".partial.y4m")
+           and not (tmp / "serve_cancelled.y4m").exists(),
+           f"cancelled: {jb['status']}, {n_kept} frames in {jb['output']}, progress "
+           f"{jb['progress']}")
+    lines.append(f"pause/resume: paused at {paused_at} frames, statuses "
+                 f"{statuses[a['id']]}, {SERVE_LONG_FRAMES} frames; cancel: paused at {cancelled_at} frames, "
+                 f"then cancelled, {n_kept} frames in {Path(jb['output']).name} (progress "
+                 f"{jb['progress']['frames']})")
+    say(f"PHASE serve jobs over HTTP [{card}]: " + "; ".join(lines))
+    return launches
+
+
+def clip_info(path) -> tuple[int, int, int | None]:
+    """A y4m's width, height and frame count (from its size, not decoded)."""
+    from visiondepth3d_tpu_torch.io import Y4MReader
+
+    with Y4MReader(str(path)) as rd:
+        return rd.width, rd.height, rd.count()
+
+
+def phase_serve(card: str, tmp: Path):
+    """Preview and serve, the surfaces users drive: render_preview in its ten
+    modes on a 1080p frame (card against CPU), serve_preview's page with two
+    edits, then the job server on the card with its five runners over HTTP."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.serve import run_in_thread
+
+    frame = synthetic_frames(W, H, 1)[0].astype(np.float32) / 255.0
+    depth = smooth_depth(torch.Generator().manual_seed(0), H, W, "cpu").numpy()
+    launches = {}
+    t0 = time.perf_counter()
+    launches["preview"] = {k: v for k, v in serve_preview_modes(card, frame, depth).items() if v}
+    serve_preview_run(card, tmp, frame, depth)
+    t_preview = time.perf_counter() - t0
+    httpd, manager, port = run_in_thread(device="cuda")
+    try:
+        launches.update(serve_jobs(card, tmp, f"http://127.0.0.1:{port}"))
+        final = {j["status"] for j in manager.snapshot()}
+        expect(final <= {"done", "error", "cancelled"}, f"jobs not final: {final}")
+    finally:
+        manager.shutdown()
+        httpd.shutdown()
+        httpd.server_close()
+    say(f"PHASE serve launches {json.dumps(launches)}")
+    say(f"PHASE serve preview part {t_preview:.1f} s, jobs part "
+        f"{time.perf_counter() - t0 - t_preview:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2799,6 +3246,8 @@ def main(argv=None) -> int:
                 timed("cli", phase_cli, tmp)
             if "product" in phases:
                 timed("product", phase_product, card, tmp)
+            if "serve" in phases:
+                timed("serve", phase_serve, card, tmp)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                         ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
         expect(not leaked, f"the JAX package or jax was imported: {leaked}")

@@ -135,6 +135,30 @@ def test_warp_dispatch_cpu_uses_plain():
         warp.stereo_warp_cuda(_t(frame), _t(depth), _t(shift), 3)
 
 
+def test_grid_sample_yardstick_computes_the_warp():
+    """K1's library yardstick in ``chip_smoke.py`` (one F.grid_sample over
+    both eyes, frame and depth stacked) computes the plain warp of
+    ``ops/warp.py`` in float32: within 1e-4 at 270x480 on a random frame
+    with shifts of +-3 % (seed 0). The gap is the rounding of the normalized
+    grid coordinate, about W * 2^-24 px."""
+    import importlib.util
+
+    from visiondepth3d_tpu_torch.ops import warp as warp_ops
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    gen = torch.Generator().manual_seed(0)
+    h, w = 270, 480
+    frame, depth = torch.rand(h, w, 3, generator=gen), torch.rand(h, w, generator=gen)
+    shift = (torch.rand(h, w, generator=gen) * 2 - 1) * 0.03
+    out = smoke.warp_grid_sample(*smoke.warp_grid_inputs(frame, depth, shift))
+    got = (out[0, :3].permute(1, 2, 0), out[1, :3].permute(1, 2, 0), out[0, 3], out[1, 3])
+    for g, want in zip(got, warp_ops.stereo_warp(frame, depth, shift)):
+        assert (g - want).abs().max().item() <= 1e-4
+
+
 # ---------------------------------------------------------------- K2 post-fx
 
 def _near_threshold(feathered: np.ndarray, reach: int = 3) -> np.ndarray:

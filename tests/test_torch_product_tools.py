@@ -54,7 +54,8 @@ PORT_OWN_HELP = {("", "description"), ("render", "--device"), ("depth", "--devic
                  ("verify-checkpoints", "--device"), ("render", "--resume"),
                  ("render", "--mesh"), ("depth", "--mesh"), ("tools", "--mesh"),
                  ("tools", "--dtype"), ("render", "--checkpoint"), ("depth", "--checkpoint"),
-                 ("render", "--dry-run"), ("depth", "--overlap")}
+                 ("render", "--dry-run"), ("depth", "--overlap"), ("preview", "--device"),
+                 ("serve", "--device")}
 
 
 @pytest.fixture(autouse=True)
@@ -313,7 +314,7 @@ def test_every_help_string_is_translated():
     i18n.set_language("en")
     helps = _help_strings(build_parser())
     subcommands = {"render", "depth", "tools", "models", "frames", "convert", "audio",
-                   "scenes", "verify-checkpoints"}
+                   "scenes", "verify-checkpoints", "preview", "serve"}
     assert {k[1] for k in helps if k[0] == ""} >= subcommands
     assert len(helps) > 60
     own = {k for k in helps if k in PORT_OWN_HELP}

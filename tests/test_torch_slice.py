@@ -172,7 +172,8 @@ for name in ("depth.depth_pro", "depth.vda", "depth.diffusion.schedulers",
              "depth.diffusion.unet_st", "depth.diffusion.depthcrafter", "depth.onnx_exec",
              "utils.onnx_reader", "utils.observability", "utils.memory", "utils.scene_detect",
              "utils.verify_checkpoints", "io.audio", "pipeline.image_pipeline",
-             "config.i18n", "config.settings"):
+             "config.i18n", "config.settings", "preview", "preview.diagnostics",
+             "preview.watch", "preview.server", "serve", "serve.jobs", "serve.app"):
     assert "visiondepth3d_tpu_torch." + name in sys.modules, name
 from visiondepth3d_tpu_torch.depth import DA_TINY
 from visiondepth3d_tpu_torch.depth.registry import load_predictor

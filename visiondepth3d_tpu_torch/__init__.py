@@ -17,7 +17,10 @@ nothing of the JAX package:
 - ``enhance``   the frame tools: Real-ESRGAN (RRDBNet) and RIFE (IFNet);
 - ``pipeline``  the fused render route, video in -> packed 3D video out;
 - ``utils``     the ONNX initializer reader;
-- ``cli``       ``vd3d-torch render`` and ``vd3d-torch tools``.
+- ``preview``   single-frame diagnostic renders, the session-file watch
+                loop and its web page;
+- ``serve``     the web control surface: a job server over every route;
+- ``cli``       ``vd3d-torch``: every subcommand of ``vd3d`` but ``bench``.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """

@@ -1,5 +1,4 @@
-"""vd3d-torch command line: the ``render``, ``depth``, ``tools`` and
-``models`` subcommands of ``vd3d``.
+"""vd3d-torch command line: the subcommands of ``vd3d`` but ``bench``.
 
     vd3d-torch render --input clip.y4m --model depth-anything-v2-small \\
         --checkpoint model.safetensors --format Full-SBS --device cuda
@@ -31,6 +30,9 @@
     vd3d-torch audio rip --input movie.mkv --output audio.aac --codec aac
     vd3d-torch audio attach --video sbs.mp4 --audio audio.aac --output final.mp4
     vd3d-torch scenes --input clip.y4m [--split --output scenes/]
+    vd3d-torch preview --input clip.y4m --depth clip_depth.y4m --mode anaglyph \
+        [--watch session.json] [--serve 8093]
+    vd3d-torch serve [--port 8765] [--device cuda]
     vd3d-torch --lang fr render ...      (or VD3D_LANG=fr)
     python -m visiondepth3d_tpu_torch render|depth|tools|models|convert|... ...
 
@@ -188,7 +190,37 @@ def build_parser() -> _I18nParser:
     vc.add_argument("--report", default=None,
                     help="report JSON path (default DIR/vd3d_verify.json)")
     vc.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    _add_preview_serve_parsers(sub)
     return ap
+
+
+def _add_preview_serve_parsers(sub):
+    from ..preview import PREVIEW_MODES
+
+    pv = sub.add_parser("preview", help="single-frame diagnostic render")
+    pv.add_argument("--input", required=True)
+    pv.add_argument("--depth", required=True)
+    pv.add_argument("--frame", type=int, default=0)
+    pv.add_argument("--mode", default="sbs", choices=PREVIEW_MODES)
+    pv.add_argument("--output-dir", default="./preview")
+    pv.add_argument("--watch", default=None, metavar="SESSION_JSON",
+                    help="interactive mode: watch this params file and "
+                         "re-render on every save (debounced)")
+    pv.add_argument("--serve", type=int, default=None, metavar="PORT",
+                    help="graphical mode: serve a live web UI (preview "
+                         "image + param form, two-way bound to the "
+                         "session file) at http://localhost:PORT")
+    pv.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+
+    sv = sub.add_parser("serve", help="full web control surface: the "
+                        "reference's tabbed app (render / depth / tools / "
+                        "audio / scenes) with a job queue and "
+                        "suspend/resume/cancel, at http://HOST:PORT")
+    sv.add_argument("--port", type=int, default=8765)
+    sv.add_argument("--host", default="127.0.0.1",
+                    help="bind address (0.0.0.0 exposes the app to the "
+                         "network — it has no authentication)")
+    sv.add_argument("--device", default="cuda", help=_DEVICE_HELP)
 
 
 def _add_frames_convert_parsers(sub):
@@ -671,6 +703,43 @@ def cmd_verify_checkpoints(args) -> int:
     return 0 if report["failed"] == 0 else 1
 
 
+def cmd_preview(args) -> int:
+    """One frame's diagnostic PNG set; --watch re-renders on every save of
+    a session file, --serve adds the web page over it."""
+    from ..preview import save_preview_set, serve_preview, watch_preview
+    from ..preview.watch import _load_frame_pair
+
+    if args.serve is not None:
+        def started(port):
+            print(f"preview UI at http://localhost:{port} — "
+                  "Ctrl-C (or quit:true in the session file) to stop", flush=True)
+
+        n = serve_preview(args.input, args.depth, args.output_dir, port=args.serve,
+                          session_path=args.watch, server_started=started,
+                          device=args.device)
+        print(f"\n{n} renders -> {args.output_dir}")
+        return 0
+    if args.watch:
+        print(f"watching {args.watch} — edit any field and save; "
+              f'set "quit": true (or Ctrl-C) to stop', flush=True)
+        n = watch_preview(args.input, args.depth, args.watch, args.output_dir,
+                          device=args.device)
+        print(f"\n{n} renders -> {args.output_dir}")
+        return 0
+    frame01, depth01 = _load_frame_pair(args.input, args.depth, args.frame)
+    out_dir = save_preview_set(frame01, depth01, args.output_dir, mode=args.mode,
+                               device=args.device)
+    print(f"preview saved to {out_dir}")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from ..serve import serve
+
+    serve(port=args.port, host=args.host, device=args.device)
+    return 0
+
+
 def main(argv=None) -> int:
     import os
 
@@ -689,7 +758,8 @@ def main(argv=None) -> int:
     return {"render": cmd_render, "depth": cmd_depth, "tools": cmd_tools,
             "models": cmd_models, "frames": cmd_frames, "convert": cmd_convert,
             "audio": cmd_audio, "scenes": cmd_scenes,
-            "verify-checkpoints": cmd_verify_checkpoints}[args.cmd](args)
+            "verify-checkpoints": cmd_verify_checkpoints, "preview": cmd_preview,
+            "serve": cmd_serve}[args.cmd](args)
 
 
 if __name__ == "__main__":
