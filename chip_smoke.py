@@ -151,10 +151,36 @@ Phases, each printed on its own line; any failure exits nonzero:
      beside a second one cancelled mid-clip (its .partial output holds as
      many frames as its progress says). Its launch counts go on their own
      `PHASE serve launches` line.
+ 17. (mesh) the mesh routes over [cuda:0, cuda:0] (one card twice, so the
+     figures are the mesh's overhead, not its scaling): render_stereo_video
+     with mesh="dp=2" in the render configuration over 32 1080p frames
+     (each segment two whole chunks), byte-identical to the two segments
+     rendered alone and concatenated, K1-K4 32/32/64/96, fps and device
+     time per frame; mesh="pp=2" over 16 frames, byte-identical to the
+     fused render, K1-K4 16/16/32/48; the depth route at dp=2 (16 frames,
+     batch 8 split 4 + 4, the K7 opt-in: 48 launches at [4, 1370, 6, 64]),
+     byte-identical to one device at batch 4 and within a mean of 1 u8 and
+     SSIM 0.99 of one device at batch 8; frame tools at dp=2 (4 frames of
+     960x540, bf16, chunks of 4 pairs, 2 per device), byte-identical to
+     one device at chunks of 2 pairs, K5 launched;
+     DepthCrafter's run_raw_parallel (phase dcrafter's pipeline, else built
+     at the published widths; bf16, 2 steps) over 50 frames of 512x288 (3
+     windows) at dp=2 against dp=1, min-max u8 within a mean of 1;
+ 18. (train) the depth trainer: DA-V2-Small at 518^2, batch 4, float32, 5
+     AdamW steps on one synthetic batch (the loss finite and descending,
+     steps/s, peak GiB, no K7 launch; with the K7 opt-in the step raises);
+     one step at 140^2, batch 2, TF32 off, on the card against the CPU
+     (loss within 1e-4 relative, gradient within 1e-4 x max |g|); two DDP
+     ranks (gloo, both on cuda:0, spawned), 2 steps of 2 + 2 frames,
+     against one process on the 4 (losses within 1e-5 relative; the first
+     gradient within 1e-6 x max |g| of the mean of the two halves'
+     gradients taken in one process, and within 2e-5 x max |g| of the
+     whole batch's; the weights' mean |d| within 1e-2 x lr).
 
 Optional, run only when named: (k2shapes) K2 built at other strip widths,
 rows per step and CTAs per SM, each checked and timed against the default
-at the render's shapes.
+at the render's shapes; (rifebatch) RIFE's in-betweens of the tools path
+at 4 pairs per call against 2, whole and op by op on the same inputs.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
@@ -210,8 +236,9 @@ DOF_KERNELS = ("dof_grade",)
 DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
 ALL_PHASES = ("card", "build", "kernels", "render", "dof", "depth", "tools", "surface",
-              "catalog", "families", "routes", "dcrafter", "parity", "cli", "product", "serve")
-OPTIONAL_PHASES = ("k2shapes",)  # run only when named
+              "catalog", "families", "routes", "dcrafter", "parity", "cli", "product", "serve",
+              "mesh", "train")
+OPTIONAL_PHASES = ("k2shapes", "rifebatch")  # run only when named
 H, W = 1080, 1920
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit): HBM bytes/s,
@@ -766,6 +793,104 @@ def phase_k2_shapes(card: str, rounds: int = 5):
             say(f"PHASE k2shapes TW={shape[0]} RB={shape[1]} ctas={shape[2]} {dt}: "
                 f"median {statistics.median(ts):.4f} ms of rounds "
                 f"{' '.join(f'{t:.4f}' for t in ts)} (graph replay) [{card}]")
+
+
+def phase_rife_batch(card: str, tmp: Path):
+    """Whether RIFE's in-betweens depend on how many pairs share a call.
+    The tools path's first 5 frames (ESRGAN x4 + blend at 960x540, the
+    tools phase's seeded weights) as 4 pairs: the full IFNet at 4 pairs
+    against 2 pairs (the first two) and against a second call of 4; then
+    each op of the 4-pair call (every conv, PReLU, resize and flow warp) is
+    called again on its own inputs cut to the first 2 pairs and repeated
+    at 4, so an op's difference is its own and not one carried in from an
+    earlier op. bf16 (the tools path's type) and f32."""
+    import torch
+
+    from visiondepth3d_tpu_torch.enhance import esrgan as esr_mod
+    from visiondepth3d_tpu_torch.enhance import rife as rife_mod
+    from visiondepth3d_tpu_torch.enhance.pipeline import _rife_model, make_enhance_fn
+
+    dev = torch.device("cuda")
+    clip = tmp / "rifebatch.y4m"
+    write_clip(clip, TOOLS_W, TOOLS_H, 5)
+    frames = torch.from_numpy(read_clip(clip)[2])
+    for dtype, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        cfg, ep, rp = tools_models(dtype)
+        up = make_enhance_fn(dataclasses.replace(cfg, use_rife=False), ep, None,
+                             (TOOLS_H, TOOLS_W), dev)(frames.to(dev))
+        x = up.to(dt) / 255.0
+        model, state = _rife_model(cfg, rp)
+        model.load_state_dict(state)
+        model = model.to(device=dev, dtype=dt).eval()
+        img0, img1 = x[:-1], x[1:]
+        records = []  # (op, batch diff, repeat diff, max |output|)
+        active = [False]
+
+        def check(op, call, args, out):
+            if not active[0] or out.shape[0] != 4:
+                return
+            active[0] = False
+            try:
+                half = call(*(a[:2] if torch.is_tensor(a) and a.shape[0] == 4 else a
+                              for a in args))
+                again = call(*args)
+            finally:
+                active[0] = True
+            records.append((op, (out[:2].float() - half.float()).abs().max().item(),
+                            (out.float() - again.float()).abs().max().item(),
+                            out.float().abs().max().item()))
+
+        def hook(mod, args, out, name=""):
+            check(name, mod, args, out)
+
+        handles = [m.register_forward_hook(lambda mod, a, o, n=n: hook(mod, a, o, n))
+                   for n, m in model.named_modules()
+                   if isinstance(m, (esr_mod.Conv3x3, rife_mod.StridedConv,
+                                     rife_mod.TransposeConv, rife_mod.PReLU))]
+        orig_resize, orig_warp = rife_mod._resize, rife_mod.flow_warp
+
+        def resize(t, hw):
+            out = orig_resize(t, hw)
+            check(f"resize {tuple(t.shape[1:3])}->{tuple(hw)}", orig_resize, (t, hw), out)
+            return out
+
+        def warp(t, flow):
+            out = orig_warp(t, flow)
+            check(f"flow_warp (max |flow| {flow.float().abs().max().item():.1f} px)",
+                  orig_warp, (t, flow), out)
+            return out
+
+        rife_mod._resize, rife_mod.flow_warp = resize, warp
+        try:
+            with torch.inference_mode():
+                full = model(img0, img1, 0.5)
+                active[0] = True
+                model(img0, img1, 0.5)
+                active[0] = False
+                full2 = model(img0, img1, 0.5)
+                half = model(img0[:2], img1[:2], 0.5)
+                single = torch.cat([model(img0[i:i + 1], img1[i:i + 1], 0.5) for i in range(2)])
+        finally:
+            rife_mod._resize, rife_mod.flow_warp = orig_resize, orig_warp
+            for h in handles:
+                h.remove()
+
+        def dmax(a, b):
+            return (a.float() - b.float()).abs().max().item()
+
+        say(f"PHASE rifebatch {dtype}: IFNet at {TOOLS_W}x{TOOLS_H}, 4 pairs vs the first 2: "
+            f"max |d| {dmax(full[:2], half):.6f}; vs 1 pair per call {dmax(full[:2], single):.6f}; "
+            f"2 pairs vs 1 per call {dmax(half, single):.6f}; 4 pairs twice {dmax(full, full2):.6f}"
+            f" [{card}]")
+        moved = [r for r in records if r[1] > 0 or r[2] > 0]
+        say(f"PHASE rifebatch {dtype}: {len(records)} op calls checked, {len(moved)} differ "
+            f"between 4 and 2 pairs on the same inputs or between two calls of 4")
+        for op, bd, rd, top in records:
+            if bd > 0 or rd > 0:
+                say(f"  {op}: 4 vs 2 pairs max |d| {bd:.6g}, 4 twice {rd:.6g}, max |out| {top:.4g}")
+        for op, bd, rd, top in records:
+            if op.startswith("flow_warp"):
+                say(f"  {op}: 4 vs 2 pairs max |d| {bd:.6g}, max |out| {top:.4g}")
 
 
 def phase_dof_kernel(card: str, results: dict):
@@ -2298,6 +2423,7 @@ def phase_dcrafter(card: str, tmp: Path):
     say(f"PHASE dcrafter DepthCrafter: {windows} windows over {n} frames (segments of {seg} "
         f"sharing {overlap}), K7 {per_call} launches per UNet call x {steps} steps x "
         f"{windows} windows = {want_k7}; bf16 outputs SDPA vs K7 mean |d| {d:.4f} u8 [{card}]")
+    SHARED["dcrafter"] = pipe  # phase mesh's window-parallel check reuses it
     del pipe, outs
     torch.cuda.empty_cache()
     groupnorm_shapes(card)
@@ -3188,6 +3314,404 @@ def phase_serve(card: str, tmp: Path):
         f"{time.perf_counter() - t0 - t_preview:.1f} s")
 
 
+# ---------------------------------------------------------------- mesh, train
+
+MESH_FRAMES = 32  # the dp render: two segments of two whole 16-frame chunks
+SHARED: dict = {}  # the DepthCrafter pipeline of phase dcrafter, reused by phase mesh
+
+
+def render_params():
+    """The render configuration's stereo parameters (phase render's)."""
+    from visiondepth3d_tpu_torch.stereo.params import StereoParams
+
+    return StereoParams(enable_healing=True, image_dtype="bfloat16")
+
+
+def split_y4m(src: Path, bounds, paths) -> None:
+    """Frames [a, b) of a fixed-record y4m, each span into its own file with
+    the source's header."""
+    from visiondepth3d_tpu_torch.io import Y4MReader
+
+    with Y4MReader(str(src)) as rd:
+        total = rd.count()
+    with open(src, "rb") as f:
+        header = f.readline()
+        body = f.read()
+    rec = len(body) // total
+    for (a, b), path in zip(bounds, paths):
+        Path(path).write_bytes(header + body[a * rec: b * rec])
+
+
+def y4m_body(path) -> bytes:
+    """A y4m's frame records (the bytes after its header line)."""
+    with open(path, "rb") as f:
+        f.readline()
+        return f.read()
+
+
+def counted(fn):
+    """(fn()'s result, wall s, launch counts): the counts zeroed just before
+    the call and read just after it."""
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(launch_counts)
+
+
+def phase_mesh(card: str, tmp: Path) -> dict:
+    """The mesh routes over [cuda:0, cuda:0] (one card twice: what dp=2 costs
+    over one device, not how it scales): the dp=2 render against its
+    per-segment twin, the pp=2 render against the fused render, the dp=2
+    depth route (K7 opt-in) against one device at the per-device batch and
+    at the whole batch, dp=2 frame tools against one device, and
+    DepthCrafter's window-parallel denoise at dp=2 against dp=1."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.enhance.pipeline import run_merged_pipeline
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.parallel import make_mesh, segment_bounds
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
+                                                                 render_depth_video_file)
+    from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import (RenderConfig,
+                                                                  render_stereo_video)
+
+    dev = torch.device("cuda", 0)
+    devices = [dev, dev]
+    where = f"devices {[str(d) for d in devices]}"
+    pred = da_predictor()
+    params = render_params()
+    base = RenderConfig(output_format="Full-SBS", output_height=1080, chunk_size=16,
+                        device="cuda")
+    launches = {}
+
+    # 1. dp=2 render, 32 frames: each segment two whole chunks, nothing padded
+    clip = tmp / "mesh_1080p.y4m"
+    write_clip(clip, W, H, MESH_FRAMES)
+    render_stereo_video(warm_clip(tmp), None, tmp / "mesh_warm.y4m", params,
+                        dataclasses.replace(base, mesh="dp=2"), predictor=pred, devices=devices)
+    dp_cfg = dataclasses.replace(base, mesh="dp=2")
+    out = tmp / "mesh_dp.y4m"
+    prog, wall, counts = counted(lambda: render_stereo_video(
+        clip, None, out, params, dp_cfg, predictor=pred, devices=devices))
+    want = {k: PER_FRAME.get(k, 0) * MESH_FRAMES for k in counts}
+    expect(counts == want, f"dp render launches {counts}, want {want}")
+    expect(prog.frames_done == MESH_FRAMES, f"dp render: {prog.frames_done} frames")
+    launches["dp render"] = {k: v for k, v in counts.items() if v}
+    bounds = segment_bounds(MESH_FRAMES, 2)
+    segs = [tmp / f"mesh_seg{g}.y4m" for g in range(2)]
+    split_y4m(clip, bounds, segs)
+    one = dataclasses.replace(base, mesh="off")
+    for g, seg in enumerate(segs):
+        render_stereo_video(seg, None, tmp / f"mesh_seg{g}_out.y4m", params, one, predictor=pred)
+    twin = b"".join(y4m_body(tmp / f"mesh_seg{g}_out.y4m") for g in range(2))
+    same = y4m_body(out) == twin
+    prof = device_profile(lambda: render_stereo_video(clip, None, tmp / "mesh_dp_prof.y4m",
+                                                      params, dp_cfg, predictor=pred,
+                                                      devices=devices))
+    dev_ms = "not measured" if prof is None else f"{prof['device_ms'] / MESH_FRAMES:.3f} ms"
+    _, wall1, _ = counted(lambda: render_stereo_video(clip, None, tmp / "mesh_one.y4m", params,
+                                                      one, predictor=pred))
+    say(f"PHASE mesh dp render: dp=2 over {where}, {MESH_FRAMES} frames 1920x1080 -> Full-SBS "
+        f"(DA-V2-S 518 bf16 fast head, chunks of 16; segments {bounds}): "
+        f"{MESH_FRAMES / wall:.2f} fps (one device, same clip: {MESH_FRAMES / wall1:.2f} fps), "
+        f"device time per frame {dev_ms}; byte-identical to the two segments rendered alone "
+        f"and concatenated: {same}; launches {json.dumps(launches['dp render'])} [{card}]")
+    expect(same, "the dp=2 render differs from its per-segment twin")
+
+    # 2. pp=2 render, 16 frames, against the fused render
+    pp_clip = warm_clip(tmp)
+    pp_cfg = dataclasses.replace(base, mesh="pp=2")
+    prog, wall, counts = counted(lambda: render_stereo_video(
+        pp_clip, None, tmp / "mesh_pp.y4m", params, pp_cfg, predictor=pred, devices=devices))
+    want = {k: PER_FRAME.get(k, 0) * 16 for k in counts}
+    expect(counts == want, f"pp render launches {counts}, want {want}")
+    launches["pp render"] = {k: v for k, v in counts.items() if v}
+    render_stereo_video(pp_clip, None, tmp / "mesh_pp_one.y4m", params, one, predictor=pred)
+    same = (tmp / "mesh_pp.y4m").read_bytes() == (tmp / "mesh_pp_one.y4m").read_bytes()
+    say(f"PHASE mesh pp render: pp=2 over {where}, 16 frames -> Full-SBS: {16 / wall:.2f} fps; "
+        f"byte-identical to the single-device fused render: {same}; launches "
+        f"{json.dumps(launches['pp render'])} [{card}]")
+    expect(same, "the pp=2 render differs from the fused render")
+
+    # 3. dp=2 depth route, K7 opt-in: 16 frames, batch 8 split 4 + 4
+    dclip = tmp / "mesh_depth.y4m"
+    write_clip(dclip, W, H, 16)
+    dcfg = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda")
+    layers = pred.cfg.backbone.num_layers
+    try:
+        attn_ops.USE_VMEM_KERNEL = True
+        render_depth_video_file(dclip, tmp / "mesh_depth_warm.y4m",
+                                dataclasses.replace(dcfg, mesh="dp=2"), predictor=pred,
+                                devices=devices)
+        n, wall, counts = counted(lambda: render_depth_video_file(
+            dclip, tmp / "mesh_depth_dp.y4m", dataclasses.replace(dcfg, mesh="dp=2"),
+            predictor=pred, devices=devices))
+        want = {k: (layers * 4 if k == "vmem_attention" else 0) for k in counts}
+        expect(n == 16 and counts == want, f"dp depth: {n} frames, launches {counts}, "
+                                           f"want {want}")
+        launches["dp depth"] = {k: v for k, v in counts.items() if v}
+        for b in (4, 8):
+            render_depth_video_file(dclip, tmp / f"mesh_depth_b{b}.y4m",
+                                    dataclasses.replace(dcfg, batch_size=b, mesh="off"),
+                                    predictor=pred)
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+    same = y4m_body(tmp / "mesh_depth_dp.y4m") == y4m_body(tmp / "mesh_depth_b4.y4m")
+    got, whole = (read_clip(tmp / p)[2][..., 0] for p in ("mesh_depth_dp.y4m",
+                                                          "mesh_depth_b8.y4m"))
+    dm = float(np.abs(got.astype(np.int16) - whole.astype(np.int16)).mean())
+    ssim = min(ssim_gray(a, b) for a, b in zip(got[::8], whole[::8]))
+    say(f"PHASE mesh dp depth: dp=2 over {where}, 16 frames 1080p, batch 8 (4 + 4), K7 opt-in: "
+        f"{16 / wall:.2f} fps; byte-identical to one device at batch 4: {same}; against one "
+        f"device at batch 8 mean |d| {dm:.4f} u8 (need <= 1), min SSIM {ssim:.5f} (need >= "
+        f"0.99); K7 launches {counts['vmem_attention']} at [4, 1370, 6, 64] (want "
+        f"{layers * 4}) [{card}]")
+    expect(same and dm <= 1.0 and ssim >= 0.99,
+           f"dp depth: identical {same}, mean |d| {dm:.4f}, SSIM {ssim:.5f}")
+
+    # 4. dp=2 frame tools: 4 frames of 960x540, bf16, chunks of 4 pairs, each
+    # device 2; the twin is one device at chunks of 2 pairs (the same pairs
+    # in each call: the library convs are not batch-invariant, phase rifebatch)
+    tcfg, ep, rp = tools_models("bfloat16")
+    tclip = tmp / "mesh_tools.y4m"
+    write_clip(tclip, TOOLS_W, TOOLS_H, 4)
+    run_merged_pipeline(tclip, tmp / "mesh_tools_one.y4m",
+                        dataclasses.replace(tcfg, chunk_size=tcfg.chunk_size // 2), ep, rp,
+                        device=dev)
+    n, wall, counts = counted(lambda: run_merged_pipeline(
+        tclip, tmp / "mesh_tools_dp.y4m", tcfg, ep, rp, mesh_axes={"dp": 2}, device=dev,
+        devices=devices))
+    launches["dp tools"] = {k: v for k, v in counts.items() if v}
+    same = (tmp / "mesh_tools_dp.y4m").read_bytes() == (tmp / "mesh_tools_one.y4m").read_bytes()
+    say(f"PHASE mesh dp tools: dp=2 over {where}, 4 frames 960x540 -> {n} (ESRGAN x4 + RIFE "
+        f"x2, bf16, chunks of {tcfg.chunk_size} pairs): {n / wall:.3f} fps out; byte-identical "
+        f"to one device at chunks of {tcfg.chunk_size // 2}: {same}; launches "
+        f"{json.dumps(launches['dp tools'])} [{card}]")
+    expect(same and counts["conv3x3"] > 0, f"dp tools: identical {same}, launches {counts}")
+
+    # 5. DepthCrafter window-parallel: 3 windows at 512x288, 2 steps, bf16
+    from visiondepth3d_tpu_torch.depth.diffusion import build_random_depthcrafter
+
+    pipe = SHARED.pop("dcrafter", None)  # freed when this phase ends
+    built = pipe is None
+    if built:
+        pipe = build_random_depthcrafter(0, dtype="bfloat16", device="cuda")
+    t_frames = 50  # windows at 0, 18 and 26 (window 24, overlap 6)
+    g = torch.Generator().manual_seed(7)
+    frames = torch.rand(t_frames, 288, 512, 3, generator=g).to(dev)
+    mesh = make_mesh(dp=2, devices=devices)
+    outs, walls = {}, {}
+    try:
+        attn_ops.USE_VMEM_KERNEL = True
+        pipe.run_raw_parallel(frames, seed=0, mesh=mesh)  # warm-up: K7 and cuDNN's plans
+        for name, m in (("dp=1", None), ("dp=2", mesh)):
+            d, walls[name], counts = counted(lambda: pipe.run_raw_parallel(frames, seed=0,
+                                                                          mesh=m))
+            outs[name] = d
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+    launches["dcrafter windows"] = {k: v for k, v in counts.items() if v}
+
+    def u8(d):
+        d = (d - d.min()) / (d.max() - d.min()).clamp(min=1e-9)
+        return (d * 255.0 + 0.5).clamp(0, 255).to(torch.uint8).cpu().numpy().astype(np.int16)
+
+    dm = float(np.abs(u8(outs["dp=2"]) - u8(outs["dp=1"])).mean())
+    finite = bool(torch.isfinite(outs["dp=2"]).all())
+    source = "built in this phase" if built else "phase dcrafter's pipeline"
+    say(f"PHASE mesh DepthCrafter window-parallel ({source}, published widths, bf16, 2 "
+        f"steps): {t_frames} frames 512x288, "
+        f"{len(pipe._windows(t_frames))} windows; dp=1 {walls['dp=1']:.2f} s, dp=2 over {where} "
+        f"{walls['dp=2']:.2f} s; min-max u8 mean |d| dp=2 vs dp=1 {dm:.4f} (need <= 1), finite "
+        f"{finite}; K7 launches at dp=2 {counts['vmem_attention']} [{card}]")
+    expect(finite and dm <= 1.0, f"DepthCrafter dp=2 vs dp=1: mean |d| {dm:.4f} u8")
+    say(f"PHASE mesh launches {json.dumps(launches)}")
+    return launches
+
+
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_LR = 518, 4, 1e-4
+
+
+def _train_batch(n: int, size: int, seed: int):
+    """Synthetic smooth targets [n, size, size] in [0, 1] and
+    ImageNet-normalized frames [n, size, size, 3] that show them (gray
+    levels plus noise), from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    targets = np.stack([0.5 + 0.4 * np.sin(6 * xx + i) * np.cos(4 * yy - i)
+                        for i in range(n)]).astype(np.float32)
+    frames = ((targets[..., None] - 0.45) / 0.225
+              + 0.1 * rng.standard_normal((n, size, size, 3))).astype(np.float32)
+    return frames, targets
+
+
+def _flat(tensors: dict):
+    import torch
+
+    return torch.cat([t.detach().float().reshape(-1).cpu() for t in tensors.values()])
+
+
+def _ddp_rank(rank: int, port: int, out_dir: str):
+    """One rank of the DDP check: gloo, cuda:0, 2 steps of its 2 of 4 frames;
+    rank 0 saves its losses, first gradient and final weights."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from visiondepth3d_tpu_torch.depth.configs import DA_V2_SMALL
+    from visiondepth3d_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    try:
+        frames, targets = _train_batch(4, 140, 11)
+        t = Trainer(DA_V2_SMALL, learning_rate=TRAIN_LR, device="cuda:0").init(
+            torch.Generator().manual_seed(0))
+        losses = []
+        for i in range(2):
+            losses.append(t.step(frames, targets))
+            if i == 0:
+                grad = _flat({k: p.grad for k, p in t.module.named_parameters()})
+        if rank == 0:
+            torch.save({"losses": losses, "grad": grad,
+                        "params": _flat(dict(t.module.named_parameters()))},
+                       Path(out_dir) / "ddp_rank0.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train(card: str, tmp: Path):
+    """The depth trainer: DA-V2-Small at 518^2, batch 4, float32, 5 AdamW
+    steps on one batch (the loss descends, no K7; the K7 opt-in raises); one
+    step at 140^2 on the card against the CPU; two DDP ranks (gloo, both on
+    cuda:0) against one process on the whole batch."""
+    import multiprocessing as mp
+    import socket
+
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.depth.configs import DA_V2_SMALL
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.train import Trainer
+
+    # 1. full width
+    frames, targets = _train_batch(TRAIN_BATCH, TRAIN_SIZE, 10)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(DA_V2_SMALL, learning_rate=TRAIN_LR, device="cuda").init(
+        torch.Generator().manual_seed(0))
+    losses, times = [], []
+    for _ in range(5):
+        loss, wall, counts = counted(lambda: trainer.step(frames, targets))
+        losses.append(loss)
+        times.append(wall)
+        expect(counts["vmem_attention"] == 0, f"a training step launched K7: {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    expect(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"the training loss does not descend: {losses}")
+    try:
+        attn_ops.USE_VMEM_KERNEL = True
+        try:
+            trainer.step(frames, targets)
+            raised = False
+        except RuntimeError as e:
+            raised = "no backward" in str(e)
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+    expect(raised, "with the K7 opt-in a training step did not raise")
+    say(f"PHASE train: DA-V2-Small {TRAIN_SIZE}^2, batch {TRAIN_BATCH}, float32, AdamW lr "
+        f"{TRAIN_LR}, 5 steps on one batch: losses {', '.join(f'{x:.6f}' for x in losses)}; "
+        f"{1 / statistics.median(times[1:]):.3f} steps/s (median of steps 2-5; first "
+        f"{times[0]:.2f} s), peak allocated {peak / 2**30:.3f} GiB; K7 launches 0; with the "
+        f"K7 opt-in the step raises [{card}]")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 2. card against CPU, one step at 140^2, TF32 off
+    small_f, small_t = _train_batch(2, 140, 11)
+    res = {}
+    with no_tf32():
+        for d in ("cpu", "cuda"):
+            t = Trainer(DA_V2_SMALL, learning_rate=TRAIN_LR, device=d).init(
+                torch.Generator().manual_seed(0))
+            loss = t.step(small_f, small_t)
+            res[d] = (loss, _flat({k: p.grad for k, p in t.module.named_parameters()}))
+    rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    gerr = float((res["cuda"][1] - res["cpu"][1]).abs().max() / res["cpu"][1].abs().max())
+    say(f"PHASE train card vs CPU: one step at 140^2, batch 2, float32, TF32 off: loss "
+        f"{res['cuda'][0]:.7f} vs {res['cpu'][0]:.7f} (rel {rel:.2e}, need <= 1e-4), gradient "
+        f"max |d| / max |g| {gerr:.2e} (need <= 1e-4) [{card}]")
+    expect(rel <= 1e-4 and gerr <= 1e-4, f"train card vs CPU: loss rel {rel}, grad {gerr}")
+
+    # 3. DDP: two ranks under gloo, both on cuda:0, against one process (and
+    # against the mean of the two halves' gradients taken in one process:
+    # the same sums as the ranks', so what DDP itself adds)
+    from visiondepth3d_tpu_torch.train import ssi_loss
+
+    frames4, targets4 = _train_batch(4, 140, 11)
+    with no_tf32():
+        t = Trainer(DA_V2_SMALL, learning_rate=TRAIN_LR, device="cuda").init(
+            torch.Generator().manual_seed(0))
+        halves = []
+        for a in (0, 2):
+            t.module.zero_grad(set_to_none=True)
+            x = torch.from_numpy(frames4[a:a + 2]).cuda().permute(0, 3, 1, 2)
+            ssi_loss(t.module(x), torch.from_numpy(targets4[a:a + 2]).cuda()).backward()
+            halves.append(_flat({k: p.grad for k, p in t.module.named_parameters()}))
+        half_grad = (halves[0] + halves[1]) / 2
+        one_losses = []
+        for i in range(2):
+            one_losses.append(t.step(frames4, targets4))
+            if i == 0:
+                one_grad = _flat({k: p.grad for k, p in t.module.named_parameters()})
+        one_params = _flat(dict(t.module.named_parameters()))
+    del t
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_ddp_rank, args=(r, port, str(tmp))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    expect(codes == [0, 0], f"a DDP rank failed: exit codes {codes}")
+    ddp = torch.load(tmp / "ddp_rank0.pt")
+    top = float(one_grad.abs().max())
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(ddp["losses"], one_losses))
+    gerr = float((ddp["grad"] - one_grad).abs().max()) / top
+    gsplit = float((half_grad - one_grad).abs().max()) / top
+    ghalf = float((ddp["grad"] - half_grad).abs().max()) / top
+    pmean = float((ddp["params"] - one_params).abs().mean())
+    say(f"PHASE train DDP: 2 ranks (gloo, both on cuda:0, {time.perf_counter() - t0:.1f} s "
+        f"with the spawn), 2 steps of 2 + 2 frames at 140^2 against one process on 4: losses "
+        f"{ddp['losses']} vs {one_losses} (max rel {lrel:.2e}, need <= 1e-5); first gradient "
+        f"max |d| / max |g| {gerr:.2e} from the whole batch's (need <= 2e-5; the halves' mean "
+        f"in one process is {gsplit:.2e} from it: float32 sums of two batch shapes) and "
+        f"{ghalf:.2e} from the halves' mean (need <= 1e-6); weights mean |d| {pmean:.2e} (need "
+        f"<= {1e-2 * TRAIN_LR:.0e}) [{card}]")
+    expect(lrel <= 1e-5 and gerr <= 2e-5 and ghalf <= 1e-6
+           and pmean <= 1e-2 * TRAIN_LR,
+           f"DDP vs one process: loss {lrel}, grad {gerr} (split {gsplit}, halves {ghalf}), "
+           f"weights {pmean}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="all",
@@ -3237,6 +3761,8 @@ def main(argv=None) -> int:
                              ("dcrafter", phase_dcrafter)):
                 if name in phases:
                     timed(name, fn, card, tmp)
+            if "rifebatch" in phases:
+                timed("rifebatch", phase_rife_batch, card, tmp)
             if "parity" in phases:
                 timed("parity", phase_parity, card, tmp)
                 timed("parity tools", phase_tools_parity, tmp)
@@ -3248,6 +3774,9 @@ def main(argv=None) -> int:
                 timed("product", phase_product, card, tmp)
             if "serve" in phases:
                 timed("serve", phase_serve, card, tmp)
+            for name, fn in (("mesh", phase_mesh), ("train", phase_train)):
+                if name in phases:
+                    timed(name, fn, card, tmp)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                         ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
         expect(not leaked, f"the JAX package or jax was imported: {leaked}")

@@ -243,17 +243,30 @@ def test_tiling_helpers_match_jax():
 
 
 def test_unported_depth_routes_raise(tmp_path):
-    """Meshes stay refused; DepthCrafter routes now (the tiny random
-    pipeline, one 16 x 16 frame)."""
+    """Row and tensor meshes stay refused (ROADMAP Queue 1 item 6b); dp=2
+    runs on the CPU twice, on the feed-forward route (a tiny predictor, 3
+    frames) and on DepthCrafter's (the tiny random pipeline, one 16 x 16
+    frame)."""
+    from visiondepth3d_tpu_torch.depth.registry import load_predictor
+
     clip = tmp_path / "clip.y4m"
     _write_clip(clip, 16, 16, 1)
-    for kw in (dict(mesh="dp=2"), dict(model="depthcrafter", mesh="dp=2")):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(mesh="sp=2"), dict(model="depthcrafter", mesh="dp=2,tp=2")):
+        with pytest.raises(NotImplementedError, match="6b"):
             render_depth_video_file(clip, tmp_path / "x.y4m", DepthConfig(device="cpu", **kw))
-    assert render_depth_video_file(clip, tmp_path / "dc.y4m",
-                                   DepthConfig(model="depthcrafter", device="cpu",
-                                               allow_random=True, window_size=4,
-                                               overlap=2)) == 1
+    three = tmp_path / "three.y4m"
+    _write_clip(three, 16, 16, 3)
+    pred = load_predictor("depth-anything-v2-small", None, inference_size=28,
+                          config=tconfigs.DA_TINY, device="cpu")
+    assert render_depth_video_file(three, tmp_path / "dp.y4m",
+                                   DepthConfig(device="cpu", mesh="dp=2", batch_size=2),
+                                   predictor=pred) == 3
+    assert _read(tmp_path / "dp.y4m").shape == (3, 16, 16)
+    for mesh in ("off", "dp=2"):
+        assert render_depth_video_file(clip, tmp_path / "dc.y4m",
+                                       DepthConfig(model="depthcrafter", device="cpu",
+                                                   allow_random=True, window_size=4,
+                                                   overlap=2, mesh=mesh)) == 1
     # --control is ported: 'cancel' stops the route before its first batch
     ctl = tmp_path / "ctl"
     ctl.write_text("cancel")

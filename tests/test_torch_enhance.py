@@ -329,8 +329,13 @@ def test_merged_pipeline_upscaled_size_and_weights_error(tmp_path):
     with pytest.raises(ValueError, match="converted checkpoints"):
         run_merged_pipeline(src, tmp_path / "x.y4m", EnhanceConfig(rife_scales=(2, 1)),
                             device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_merged_pipeline(src, tmp_path / "x.y4m", cfg, mesh_axes={"dp": 2}, device="cpu")
+    # dp=2 on the CPU twice: the same bytes as one device; tp still refused
+    assert run_merged_pipeline(src, tmp_path / "dp.y4m", cfg, mesh_axes={"dp": 2},
+                               device="cpu") == 3
+    assert (tmp_path / "dp.y4m").read_bytes() == (tmp_path / "out.y4m").read_bytes()
+    with pytest.raises(NotImplementedError, match="6b"):
+        run_merged_pipeline(src, tmp_path / "x.y4m", cfg, mesh_axes={"dp": 2, "tp": 2},
+                            device="cpu")
 
 
 def test_tools_cli_cpu(tmp_path):
@@ -352,9 +357,15 @@ def test_tools_cli_cpu(tmp_path):
     assert rc == 0
     fps, frames = _read(out)
     assert frames.shape == (5, 24, 32, 3) and abs(fps - 48.0) < 1e-3
-    with pytest.raises(NotImplementedError):
+    # --mesh dp=2 with --device cpu: two runs on the CPU, the same frames
+    assert cli_main(["tools", "--input", str(src), "--output", str(tmp_path / "dp.y4m"),
+                     "--esrgan", "--esrgan-model", "BSRGANx2", "--weights-dir", str(wdir),
+                     "--upscaled-size", "--rife", "--allow-random-weights", "--chunk-size",
+                     "2", "--device", "cpu", "--mesh", "dp=2"]) == 0
+    assert (tmp_path / "dp.y4m").read_bytes() == out.read_bytes()
+    with pytest.raises(SystemExit):
         cli_main(["tools", "--input", str(src), "--rife", "--allow-random-weights",
-                  "--device", "cpu", "--mesh", "dp=2"])
+                  "--device", "cpu", "--mesh", "sp=2"])
     # --control is ported: 'cancel' stops before the first chunk
     (tmp_path / "ctl").write_text("cancel")
     out = tmp_path / "cancelled.y4m"

@@ -79,12 +79,11 @@ def _classes(name):
             "StereoParams": (StereoParams, TParams)}[name]
 
 
-# fields only the JAX package has (its device YUV legs and mesh scene snap),
-# fields only the port has, and the one default that differs
-_JAX_ONLY = {"RenderConfig": {"device_yuv", "device_yuv_in", "mesh_snap_scenes"}}
+# fields only the JAX package has (its device YUV legs), fields only the
+# port has, and the defaults that differ (none)
+_JAX_ONLY = {"RenderConfig": {"device_yuv", "device_yuv_in"}}
 _PORT_ONLY = {"StereoParams": {"dof_backend"}}
-_DEFAULTS = {("RenderConfig", "mesh"): ({"kind": "str", "default": "auto"},
-                                        {"kind": "str?", "default": None})}
+_DEFAULTS: dict = {}
 
 
 def _mk_clip(path, t=6, h=48, w=64, depth=False):

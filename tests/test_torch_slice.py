@@ -109,8 +109,8 @@ def test_cli_render_cpu(clip, tmp_path):
 
 
 # the render flags that raised before they were ported, and the output each
-# gives now; --mesh other than off still raises
-CLI_FEATURES = {"mesh": (["--mesh", "dp=2"], None),
+# gives now (--mesh dp=2 with --device cpu: two segments on the CPU)
+CLI_FEATURES = {"mesh": (["--mesh", "dp=2"], (6, 48, 128, 3)),
                 "skip_blank_frames": (["--skip-blank-frames"], (6, 48, 128, 3)),
                 "auto_crop_black_bars": (["--auto-crop-black-bars"], (6, 48, 128, 3)),
                 "vr": (["--format", "VR"], (6, 1600, 2880, 3)),
@@ -173,7 +173,9 @@ for name in ("depth.depth_pro", "depth.vda", "depth.diffusion.schedulers",
              "utils.onnx_reader", "utils.observability", "utils.memory", "utils.scene_detect",
              "utils.verify_checkpoints", "io.audio", "pipeline.image_pipeline",
              "config.i18n", "config.settings", "preview", "preview.diagnostics",
-             "preview.watch", "preview.server", "serve", "serve.jobs", "serve.app"):
+             "preview.watch", "preview.server", "serve", "serve.jobs", "serve.app",
+             "parallel", "parallel.mesh", "parallel.dp", "parallel.pp",
+             "pipeline.mesh_render", "pipeline.pp_render", "train", "train.trainer"):
     assert "visiondepth3d_tpu_torch." + name in sys.modules, name
 from visiondepth3d_tpu_torch.depth import DA_TINY
 from visiondepth3d_tpu_torch.depth.registry import load_predictor
@@ -234,6 +236,15 @@ with tempfile.TemporaryDirectory() as td:
                        "attrs": {"axes": [1], "keepdims": 0}}], {})
     ocfg = DepthConfig(model="onnx:" + td + "/m.onnx", inference_size=32, device="cpu")
     assert render_depth_video_file(td + "/in.y4m", td + "/o.y4m", ocfg) == 3
+    # the mesh routes on the CPU twice, and one training step
+    from visiondepth3d_tpu_torch.pipeline import RenderConfig
+    for spec in ("dp=2", "pp=2"):
+        mcfg = RenderConfig(device="cpu", preserve_original_aspect=True, chunk_size=2,
+                            mesh=spec)
+        render_stereo_video(td + "/in.y4m", None, td + "/m.y4m", params, mcfg, predictor=pred)
+    from visiondepth3d_tpu_torch.train import Trainer
+    trainer = Trainer(DA_TINY, device="cpu").init(torch.Generator().manual_seed(0))
+    assert np.isfinite(trainer.step(torch.rand(2, 28, 28, 3), torch.rand(2, 28, 28)))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
 assert not bad, bad

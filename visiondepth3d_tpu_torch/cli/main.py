@@ -3,6 +3,7 @@
     vd3d-torch render --input clip.y4m --model depth-anything-v2-small \\
         --checkpoint model.safetensors --format Full-SBS --device cuda
     vd3d-torch render --input clip.y4m --allow-random --dof_strength 2
+    vd3d-torch render --input clip.y4m --allow-random --mesh dp=2 --mesh-snap-scenes
     vd3d-torch render --input clip.y4m --depth clip_depth.y4m \\
         --format "Red-Cyan Anaglyph" --preset best3d --control ctl.txt --resume
     vd3d-torch render --batch-videos in/ --batch-depths depth/ --batch-out out/
@@ -39,8 +40,13 @@
 The flags keep the JAX CLI's names, meaning and help strings (translated
 through the language packs, ``--lang``), plus ``--device`` (default cuda; a
 missing card is an error, not a CPU fallback) on the subcommands that run a
-model. Flags of features not ported yet (render --mesh other than off;
-depth --mesh other than auto/off) raise NotImplementedError. As in the JAX
+model. ``--mesh`` spreads render, depth and tools over devices: ``dp=N``
+(frame segments, batch frames, chunk frames), and ``pp=2`` for render
+(depth and stereo stages); with ``--device cpu`` the mesh is the CPU
+repeated, else the visible cards (``auto``, the render and depth default,
+is one device on a one-card machine). Row and tensor sharding (``sp``,
+``tp``, ``pp=2`` with ``dp``) are not ported yet and raise
+NotImplementedError. As in the JAX
 CLI, the fused render refuses the video and diffusion models
 (video-depth-anything, marigold, depthcrafter): their depth goes through
 ``depth`` first. The messages the JAX CLI prints through ``t(key)`` go
@@ -160,7 +166,15 @@ def build_parser() -> _I18nParser:
     p.add_argument("--auto-crop-black-bars", action="store_true")
     p.add_argument("--resume", action="store_true",
                    help="continue an interrupted render from <output>.resume.npz")
-    p.add_argument("--mesh", default="off", help="only 'off' is ported")
+    p.add_argument("--mesh", default="auto",
+                   help="devices: 'auto' (frame-segment DP over every visible card; one "
+                        "device on one card, with --device cpu or with --start/--end), "
+                        "'dp=N' (N segments, no checkpoint; "
+                        "the CPU N times with --device cpu), 'pp=2' (depth and stereo "
+                        "stages), 'off'; sp/tp are not ported yet")
+    p.add_argument("--mesh-snap-scenes", action="store_true",
+                   help="snap DP segment boundaries to scene cuts "
+                        "(extra host decode pass)")
     p.add_argument("--preset", default=None,
                    help="builtin preset name or path to a preset JSON")
     p.add_argument("--control", default=None, metavar="FILE",
@@ -347,7 +361,11 @@ def _add_depth_parser(sub):
                     "instead of the default fast head")
     dp.add_argument("--tile-overlap", type=int, default=64,
                     help="tile overlap in working-resolution pixels")
-    dp.add_argument("--mesh", default="auto", help="'auto' or 'off' (one device)")
+    dp.add_argument("--mesh", default="auto",
+                    help="devices: 'auto' (the batch, or DepthCrafter's windows, over every "
+                         "visible card; one device on one card or with --device cpu), "
+                         "'dp=N' (the CPU N times with --device cpu), 'off'; sp/tp are "
+                         "not ported yet")
     dp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
 
 
@@ -404,7 +422,10 @@ def _add_tools_parser(sub):
     tp.add_argument("--allow-random-weights", action="store_true",
                     help="run without checkpoints (shape/compile testing "
                          "only; output is garbage)")
-    tp.add_argument("--mesh", default="off", help="only 'off' is ported")
+    tp.add_argument("--mesh", default="off",
+                    help="devices: 'dp=N' splits each chunk's frames over N devices (the "
+                         "CPU N times with --device cpu), 'auto' over every visible card, "
+                         "'off' (default) one device")
     tp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
 
 
@@ -445,7 +466,8 @@ def cmd_render(args) -> int:
         fps=args.fps, start_s=start_s, end_s=end_s, chunk_size=args.chunk_size,
         skip_blank_frames=args.skip_blank_frames,
         auto_crop_black_bars=args.auto_crop_black_bars,
-        resume=args.resume or cfg.resume, device=args.device, mesh=args.mesh)
+        resume=args.resume or cfg.resume, device=args.device, mesh=args.mesh,
+        mesh_snap_scenes=args.mesh_snap_scenes or cfg.mesh_snap_scenes)
     cancel_check = _control_check(args)
 
     if args.batch_videos:
@@ -523,8 +545,11 @@ def cmd_tools(args) -> int:
     from ..enhance import (ESRGAN_CATALOG, EnhanceConfig, load_esrgan_weights,
                            load_rife_weights, run_merged_pipeline)
 
-    if args.mesh not in (None, "off"):
-        raise NotImplementedError("vd3d-torch tools --mesh is not ported yet (one device)")
+    from ..pipeline.mesh_render import mesh_axes_for
+
+    mesh_axes = mesh_axes_for(args.mesh, args.device)
+    if mesh_axes and mesh_axes.get("sp", 1) > 1:
+        raise SystemExit("vd3d tools supports only the dp mesh axis")
     cfg = EnhanceConfig(
         use_esrgan=args.esrgan, esrgan_scale=args.esrgan_scale or 4,
         pre_downscale=args.pre_downscale, keep_original_size=not args.upscaled_size,
@@ -553,7 +578,8 @@ def cmd_tools(args) -> int:
 
     n = run_merged_pipeline(args.input, output, cfg, esrgan_params=esrgan_params,
                             rife_params=rife_params, progress_cb=progress,
-                            cancel_check=_control_check(args), device=args.device)
+                            mesh_axes=mesh_axes, cancel_check=_control_check(args),
+                            device=args.device)
     print("\n" + t("tools.done", frames=n, output=output))
     return 0
 

@@ -20,6 +20,18 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
+def same_device(a, b) -> bool:
+    """Whether two devices name one: "cuda" without an index is the
+    current card."""
+    def canonical(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return canonical(a) == canonical(b)
+
+
 def host_to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A host array on ``dev``: through pinned memory and an asynchronous
     copy for a CUDA device (the copy overlaps the host's next work)."""

@@ -6,6 +6,13 @@ back to the source size) -> RIFE in-betweens -> writer at fps x multiplier.
 Chunks overlap by one frame so RIFE keeps its pair context across chunk
 boundaries; a short last chunk is padded by repeating its last frame, so
 every chunk has the same shape.
+
+``mesh_axes={"dp": N}`` splits each chunk's frames over N devices, as the
+JAX package shards the chunk's frame axis: ESRGAN is per frame and RIFE
+per pair of neighbours, so each device takes a contiguous run of the
+chunk's pairs (its frames overlap the next run's by one frame) with its
+own replica of both models, and the runs' outputs are joined in order.
+Every device's run is launched before any is read back.
 """
 
 from __future__ import annotations
@@ -171,24 +178,64 @@ def init_enhance_params(cfg: EnhanceConfig, seed: int = 0):
     return ep, rp
 
 
+def _split_runs(t: int, parts: int, paired: bool) -> list[tuple[int, int]]:
+    """[start, end) frame runs of a t-frame chunk for ``parts`` devices:
+    contiguous and disjoint, or (``paired``: RIFE needs each frame's right
+    neighbour) runs of whole pairs, each sharing its last frame with the
+    next run's first. At most one run per frame (pair)."""
+    units = t - 1 if paired else t
+    parts = max(1, min(parts, units))
+    cuts = [round(i * units / parts) for i in range(parts + 1)]
+    return [(cuts[i], cuts[i + 1] + int(paired)) for i in range(parts)]
+
+
+def make_mesh_enhance_fn(cfg: EnhanceConfig, esrgan_params, rife_params,
+                         in_hw: tuple[int, int], devices) -> Callable:
+    """The chunk function over a device list (a device may repeat): u8 host
+    frames [T, H, W, 3] -> u8 host frames, as ``make_enhance_fn``'s on one
+    device. Each run of ``_split_runs`` goes to its device's replica."""
+    fns = {d: make_enhance_fn(cfg, esrgan_params, rife_params, in_hw, d)
+           for d in dict.fromkeys(devices)}
+    paired = cfg.use_rife and cfg.fps_multiplier > 1
+
+    def fn(frames_u8: torch.Tensor) -> torch.Tensor:
+        runs = _split_runs(frames_u8.shape[0], len(devices), paired)
+        outs = [fns[d](frames_u8[a:b].to(d, non_blocking=True))
+                for (a, b), d in zip(runs, devices)]
+        # a run's last frame opens the next run: keep it once
+        outs = [o[:-1] if paired and i < len(outs) - 1 else o for i, o in enumerate(outs)]
+        return torch.cat([o.cpu() for o in outs])
+
+    return fn
+
+
 def run_merged_pipeline(input_path, output_path, cfg: EnhanceConfig | None = None,
                         esrgan_params=None, rife_params=None,
                         progress_cb: Callable | None = None,
                         mesh_axes: dict[str, int] | None = None,
                         cancel_check: Callable | None = None,
-                        device=DEFAULT_DEVICE) -> int:
+                        device=DEFAULT_DEVICE, devices=None) -> int:
     """Video -> enhanced video; returns the number of frames written.
 
     Overlapping chunks keep RIFE's pair context: each chunk shares its first
     frame with the previous chunk's last. ``cancel_check`` is polled between
     chunks. ``device``: the CUDA card unless "cpu" is passed; without a card
     the default raises. Missing weights are ``init_enhance_params(cfg)``'s
-    seeded random ones when ``cfg.allow_random_weights``. ``mesh_axes``
-    with dp > 1 is not ported (one device only).
+    seeded random ones when ``cfg.allow_random_weights``. ``mesh_axes={"dp":
+    N}`` splits each chunk's frames over N devices: ``devices`` when given
+    (a device may repeat), the CPU N times when ``device`` is the CPU, else
+    the visible cards. Each device runs its share of the chunk's pairs in
+    one call, so the output equals one device's at ``chunk_size / N`` bit
+    for bit; at the whole ``chunk_size`` the library convs round by batch
+    size (RIFE's transpose conv on the card) and the frames may differ.
+    Pick chunk_size >= N for even use of the devices.
     """
     cfg = cfg or EnhanceConfig()
-    if mesh_axes and int(mesh_axes.get("dp", 1)) > 1:
-        raise NotImplementedError("multi-device frame tools (mesh dp > 1) are not ported yet")
+    axes = dict(mesh_axes or {})
+    if any(int(v) > 1 for k, v in axes.items() if k != "dp"):
+        raise NotImplementedError(f"frame tools mesh {axes}: only the dp axis is ported "
+                                  f"(ROADMAP Queue 1 item 6b: row and tensor sharding)")
+    dp = int(axes.get("dp", 1))
     missing = (cfg.use_esrgan and esrgan_params is None) or (
         cfg.use_rife and rife_params is None)
     if missing and not cfg.allow_random_weights:
@@ -197,6 +244,14 @@ def run_merged_pipeline(input_path, output_path, cfg: EnhanceConfig | None = Non
             "pass allow_random_weights=True only for shape/compile testing — random "
             "weights produce garbage frames")
     dev = resolve_device(device)
+    mesh_devs = None
+    if dp > 1:
+        from ..pipeline.mesh_render import mesh_devices
+
+        mesh_devs = mesh_devices(dp, dev, devices)
+        if dp > len(mesh_devs):
+            raise ValueError(f"mesh dp={dp} needs {dp} devices, have {len(mesh_devs)}")
+        mesh_devs = mesh_devs[:dp]
     if missing:
         ep, rp = init_enhance_params(cfg)
         esrgan_params = ep if esrgan_params is None else esrgan_params
@@ -204,7 +259,14 @@ def run_merged_pipeline(input_path, output_path, cfg: EnhanceConfig | None = Non
     rd = open_video(input_path)
     wr = None
     try:
-        fn = make_enhance_fn(cfg, esrgan_params, rife_params, (rd.height, rd.width), dev)
+        if mesh_devs is None:
+            one = make_enhance_fn(cfg, esrgan_params, rife_params, (rd.height, rd.width), dev)
+
+            def fn(frames_u8):
+                return one(frames_u8.to(dev)).cpu()
+        else:
+            fn = make_mesh_enhance_fn(cfg, esrgan_params, rife_params, (rd.height, rd.width),
+                                      mesh_devs)
         mult = cfg.fps_multiplier if cfg.use_rife else 1
         # the writer's geometry is what fn emits: without the resize back,
         # int(dim * pre_downscale) * scale
@@ -232,7 +294,7 @@ def run_merged_pipeline(input_path, output_path, cfg: EnhanceConfig | None = Non
                 break
             n_in = len(batch)
             batch += [batch[-1]] * (cfg.chunk_size + 1 - n_in)
-            out = fn(torch.from_numpy(np.stack(batch)).to(dev)).cpu().numpy()
+            out = fn(torch.from_numpy(np.stack(batch))).numpy()
             valid = (n_in - 1) * mult  # the chunk's last frame opens the next chunk
             for i in range(valid):
                 wr.write(out[i])

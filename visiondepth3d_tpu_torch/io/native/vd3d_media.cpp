@@ -154,6 +154,19 @@ struct Reader {
     return true;
   }
 
+  // Stop the prefetch thread and wait for it. The flag is set under the
+  // mutex: set outside it, the wake-up can land between the thread's check
+  // of its wait condition and its sleep, and the thread then sleeps forever
+  // (the join never returns).
+  void halt() {
+    {
+      std::lock_guard<std::mutex> lk(mu);
+      stop.store(true);
+    }
+    cv.notify_all();
+    if (worker.joinable()) worker.join();
+  }
+
   void prefetch_loop() {
     std::vector<uint8_t> local(raw_planes ? (ysz + 2 * csz)
                                           : (size_t)info.width * info.height * 3);
@@ -235,9 +248,7 @@ int vd3d_y4m_read(void* handle, uint8_t* rgb) {
 
 void vd3d_y4m_close(void* handle) {
   auto* r = (Reader*)handle;
-  r->stop.store(true);
-  r->cv.notify_all();
-  if (r->worker.joinable()) r->worker.join();
+  r->halt();
   fclose(r->f);
   delete r;
 }
@@ -272,9 +283,7 @@ long vd3d_y4m_count(void* handle) {
 int vd3d_y4m_seek(void* handle, long frame_idx) {
   auto* r = (Reader*)handle;
   if (frame_idx < 0) return 0;
-  r->stop.store(true);
-  r->cv.notify_all();
-  if (r->worker.joinable()) r->worker.join();
+  r->halt();
   const long rec = 6 + (long)r->ysz + 2 * (long)r->csz;
   int ok = fseek(r->f, r->info.header_end + frame_idx * rec, SEEK_SET) == 0;
   if (ok) {

@@ -8,8 +8,14 @@ No fast math: the statistics kernels rely on IEEE float32 division.
 
 Every launcher takes raw device pointers, sizes and PyTorch's current CUDA
 stream, and returns the ``cudaError_t`` of its launch; ``check`` raises on a
-nonzero code. ``launch_counts`` counts the launches of each kernel wrapper;
-``device_ops`` counts the device operations one call enqueues.
+nonzero code. The wrappers launch only through ``launch``, which makes the
+input's card the current device for the call: the library's launches and
+its one-time configuration (shared-memory attributes, SM counts, cluster
+sizes, kept per device) follow the current device, so a tensor on
+``cuda:1`` never runs on whatever card happens to be current.
+``launch_counts`` counts the launches of each kernel wrapper (in
+``launch``, nowhere else); ``device_ops`` counts the device operations one
+call enqueues.
 """
 
 from __future__ import annotations
@@ -117,6 +123,19 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, t, fn: str, *args) -> None:
+    """Launch kernel ``name`` through the library function ``fn`` with
+    ``args`` and the current stream of t's device, inside that device (made
+    current for the call, then restored); raise on a failed launch, count
+    one that succeeded."""
+    import torch
+
+    with torch.cuda.device(t.device):
+        rc = getattr(lib(), fn)(*args, stream_of(t))
+    check(rc, name)
+    launch_counts[name] += 1
 
 
 def device_ops(fn) -> int:

@@ -8,6 +8,11 @@ float32 logits and softmax statistics, the normalized probabilities
 rounded to the input type, P V accumulated in float32, one rounding of the
 output. q, k, v: [B, N, H, D] float32 or bfloat16, self-attention
 (one N for all three).
+
+K7 has no backward, nor has the TPU kernel: both versions raise when an
+input requires grad with grad enabled (the launch would hand back a tensor
+cut from the autograd graph, which trains silently wrong). Training takes
+the default attention route.
 """
 
 from __future__ import annotations
@@ -16,9 +21,16 @@ import math
 
 import torch
 
-from ._lib import check, launch_counts, lib, require_cuda, stream_of
+from ._lib import launch, require_cuda
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+
+
+def _refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("vmem_attention: K7 has no backward and an input requires grad; "
+                           "train with the default attention (ops.attention.USE_VMEM_KERNEL "
+                           "off)")
 
 
 def vmem_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -34,6 +46,7 @@ def vmem_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
 def vmem_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The kernel: q, k, v [B, N, H, D] of one type (float32 or bfloat16) on
     one CUDA device, D in HEAD_DIMS. Returns [B, N, H, D] in that type."""
+    _refuse_grad(q, k, v)
     require_cuda("vmem_attention_cuda", q, k, v)
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"vmem_attention_cuda: expected equal [B, N, H, D] self-attention "
@@ -50,16 +63,15 @@ def vmem_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("vmem_attention_cuda: inputs must be 16-byte aligned")
     out = torch.empty_like(q)
-    rc = lib().vd3d_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
-                              h, d, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
-                              stream_of(q))
-    check(rc, "vmem_attention_cuda")
-    launch_counts["vmem_attention"] += 1
+    launch("vmem_attention", q, "vd3d_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), b, n, h, d, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16))
     return out
 
 
 def vmem_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The kernel for CUDA tensors, the plain version for CPU tensors;
+    either raises when an input requires grad."""
+    _refuse_grad(q, k, v)
     if q.device.type == "cuda":
         return vmem_attention_cuda(q, k, v)
     if q.device.type == "cpu":

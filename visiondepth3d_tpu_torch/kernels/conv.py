@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ._lib import check, launch_counts, lib, require_cuda, stream_of
+from ._lib import launch, require_cuda
 
 _ACTS = {None: 0, "relu": 1, "lrelu": 2}
 _IMAGE_TYPES = (torch.float32, torch.bfloat16)
@@ -179,12 +179,10 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
         out = torch.empty(bsz, h, wd, packed.o, dtype=x.dtype, device=x.device)
     out_stride = _check_out(out, x, packed.o)
     vec = int(c % 4 == 0 and x_stride % 4 == 0 and x.data_ptr() % 16 == 0)
-    rc = lib().vd3d_conv3x3(x.data_ptr(), packed.w.data_ptr(), packed.bias.data_ptr(),
-                            out.data_ptr(), bsz, h, wd, c, x_stride, packed.o, out_stride, packed.cp,
-                            packed.op, packed.bn, _ACTS[act], float(slope),
-                            int(x.dtype == torch.bfloat16), vec, stream_of(x))
-    check(rc, "conv3x3_cuda")
-    launch_counts["conv3x3"] += 1
+    launch("conv3x3", x, "vd3d_conv3x3", x.data_ptr(), packed.w.data_ptr(),
+           packed.bias.data_ptr(), out.data_ptr(), bsz, h, wd, c, x_stride, packed.o,
+           out_stride, packed.cp, packed.op, packed.bn, _ACTS[act], float(slope),
+           int(x.dtype == torch.bfloat16), vec)
     return out
 
 

@@ -420,9 +420,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   for (int i = 0; i < 3; ++i)
     if (!vd3d::encode_map_4d(&maps[i], ptrs[i], dims, strides, box, swz))
       return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, T::BYTES);
-  if (e != cudaSuccess) return (int)e;
+  static bool configured[vd3d::MAX_DEVICES] = {};  // the attribute, per device
+  const int dev = vd3d::current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    configured[dev] = true;
+  }
   const dim3 grid((N + WG * 64 - 1) / (WG * 64), H, B);
   attention_wgmma_kernel<D><<<grid, WG_THREADS, T::BYTES, s>>>(
       maps[0], maps[1], maps[2], (__nv_bfloat16*)o, N, H, scale * LOG2E);
@@ -435,9 +441,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N, i
   if (bf16) return launch_wgmma<D>(q, k, v, o, B, N, H, scale, s);
   const dim3 grid((N + BQ - 1) / BQ, H, B);
   constexpr int bytes = FmaSmem<D>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(attention_fma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
+  static bool configured[vd3d::MAX_DEVICES] = {};  // the attribute, per device
+  const int dev = vd3d::current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(attention_fma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured[dev] = true;
+  }
   attention_fma_kernel<D><<<grid, FMA_THREADS, bytes, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, N, H, scale);
   return (int)cudaGetLastError();

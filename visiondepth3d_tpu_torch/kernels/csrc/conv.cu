@@ -313,9 +313,15 @@ int launch_wgmma(const void* x, const void* w, const float* bias, void* out, int
       return (int)cudaErrorInvalidValue;
   }
   const int pair = (uintptr_t)out % 4 == 0 && os % 2 == 0;
-  cudaError_t e = cudaFuncSetAttribute(conv3x3_wgmma_kernel<BN>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  if (e != cudaSuccess) return (int)e;
+  static bool configured[vd3d::MAX_DEVICES] = {};  // the attribute, per device
+  const int dev = vd3d::current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(conv3x3_wgmma_kernel<BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    configured[dev] = true;
+  }
   const dim3 grid(tiles_x * tiles_y, nblk, B);
   conv3x3_wgmma_kernel<BN><<<grid, G_THREADS, L::BYTES, s>>>(
       map, (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, bias, (__nv_bfloat16*)out, H, W,

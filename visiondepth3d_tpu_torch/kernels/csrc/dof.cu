@@ -393,19 +393,22 @@ template <typename T>
 int launch(const void* left, const void* right, const void* depth, const void* focal,
            void* out_left, void* out_right, Geometry G, const DofParams& P, cudaStream_t s) {
   const auto kern = dof_grade_kernel<T>;
-  static bool configured = false;
-  static int sms = 0;
-  static int per_sm[MAX_REACH + 1] = {};
-  if (!configured) {
+  // per device: the attribute, the SM count and the CTAs per SM by reach
+  static int sms_of[vd3d::MAX_DEVICES] = {};
+  static int per_sm_of[vd3d::MAX_DEVICES][MAX_REACH + 1] = {};
+  const int dev = vd3d::current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  int& sms = sms_of[dev];
+  int* per_sm = per_sm_of[dev];
+  if (sms == 0) {
     Geometry widest = G;
     set_layout(widest, MAX_REACH, sizeof(T));
+    int n = 0;
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          widest.bytes);
-    int dev = 0;
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    sms = n;
   }
   const int R = P.reach;
   if (per_sm[R] == 0) {

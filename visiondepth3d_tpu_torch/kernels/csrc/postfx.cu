@@ -599,15 +599,21 @@ int launch(const void* left, const void* right, const void* frame, const void* d
   G.bytes = 128 /* alignment */ + 128 /* mbarriers */ + 2 * G.stage_bytes + (int)sizeof(Rings<T>) +
             2 * G.ce * EP * 4 /* the em ring */;
   const auto kern = feather_heal_kernel<T>;
-  static int sms = 0;
-  static int per_sm[MAX_K + 1] = {};  // by blur size: the em ring's rows
+  // per device: the attribute, the SM count and the CTAs per SM by blur
+  // size (the em ring's rows)
+  static int sms_of[vd3d::MAX_DEVICES] = {};
+  static int per_sm_of[vd3d::MAX_DEVICES][MAX_K + 1] = {};
+  const int dev = vd3d::current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  int& sms = sms_of[dev];
+  int* per_sm = per_sm_of[dev];
   if (sms == 0) {
-    int dev = 0;
+    int n = 0;
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          G.bytes + (MAX_K - G.k) * 2 * EP * 4);
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
+    sms = n;
   }
   if (per_sm[G.k] == 0) {
     cudaError_t e =

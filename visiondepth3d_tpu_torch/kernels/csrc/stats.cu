@@ -221,11 +221,13 @@ quantile_pair_kernel(const float* __restrict__ x, int rows, int cols, long long 
 // resident, as a cooperative launch requires. 0 where the card cannot be
 // queried or cannot hold one CTA per SM.
 int qpair_grid(long long items) {
-  static int sms = 0;
+  static int sms_of[vd3d::MAX_DEVICES] = {};  // per device
+  const int dev = vd3d::current_device();
+  if (dev < 0) return 0;
+  int& sms = sms_of[dev];
   if (sms == 0) {
-    int dev = 0, n = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+    int n = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quantile_pair_kernel<true>,
                                                       Q_THREADS, 0) != cudaSuccess ||
         per_sm < 1)
@@ -388,9 +390,13 @@ cudaLaunchConfig_t subject_config(cudaLaunchAttribute* attr, cudaStream_t s) {
   return cfg;
 }
 
-// 16 where the card schedules a 16-CTA cluster of this kernel, else 8
+// 16 where the current card schedules a 16-CTA cluster of this kernel,
+// else 8; 0 where the device cannot be read
 int subject_cluster_size() {
-  static int size = 0;
+  static int size_of[vd3d::MAX_DEVICES] = {};  // per device, with its attributes
+  const int dev = vd3d::current_device();
+  if (dev < 0) return 0;
+  int& size = size_of[dev];
   if (size == 0) {
     size = 8;
     const auto kern = subject_stats_kernel<16, true>;
@@ -446,7 +452,9 @@ extern "C" int vd3d_subject_stats(const void* x, int rows, int cols, long long l
   const float* xf = (const float*)x;
   float* o = (float*)out;
   const bool vec = ((size_t)x % 16) == 0 && ld % 4 == 0 && cols % 4 == 0;
-  if (subject_cluster_size() == 16)
+  const int cluster = subject_cluster_size();
+  if (cluster == 0) return (int)cudaErrorInvalidDevice;
+  if (cluster == 16)
     return vec ? launch_subject<16, true>(xf, rows, cols, ld, o, s)
                : launch_subject<16, false>(xf, rows, cols, ld, o, s);
   return vec ? launch_subject<8, true>(xf, rows, cols, ld, o, s)

@@ -19,7 +19,7 @@ import torch
 from ..ops import dof as dof_ops
 from ..ops import grade
 from ..ops.filters import _gaussian_kernel_1d
-from ._lib import check, launch_counts, lib, require_cuda, stream_of
+from ._lib import launch, require_cuda
 
 MAX_REACH = 10  # csrc/dof.cu: the shared-memory halo
 MAX_LEVELS = 8
@@ -87,14 +87,12 @@ def dof_grade_cuda(left, right, depth, focal_depth, max_sigma: float,
     left, right = left.contiguous(), right.contiguous()
     depth = depth.float().contiguous()
     out_l, out_r = torch.empty_like(left), torch.empty_like(right)
-    rc = lib().vd3d_dof_grade(
-        left.data_ptr(), right.data_ptr(), depth.data_ptr(), focal_depth.data_ptr(),
-        out_l.data_ptr(), out_r.data_ptr(), h, w, taps.ctypes.data, halves.ctypes.data,
-        num_levels, float(focus_width + 1e-6), float(num_levels - 1 - 1e-6),
-        float(saturation), float(contrast), float(brightness), int(apply_grade),
-        int(left.dtype == torch.bfloat16), stream_of(left))
-    check(rc, "dof_grade_cuda")
-    launch_counts["dof_grade"] += 1
+    launch("dof_grade", left, "vd3d_dof_grade",
+           left.data_ptr(), right.data_ptr(), depth.data_ptr(), focal_depth.data_ptr(),
+           out_l.data_ptr(), out_r.data_ptr(), h, w, taps.ctypes.data, halves.ctypes.data,
+           num_levels, float(focus_width + 1e-6), float(num_levels - 1 - 1e-6),
+           float(saturation), float(contrast), float(brightness), int(apply_grade),
+           int(left.dtype == torch.bfloat16))
     return out_l, out_r
 
 

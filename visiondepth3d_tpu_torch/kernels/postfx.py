@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import edges
-from ._lib import check, launch_counts, lib, require_cuda, stream_of
+from ._lib import launch, require_cuda
 
 MAX_BLUR_KSIZE = 15  # the kernel's edge-mask ring holds 4 + 15 - 1 rows
 
@@ -57,13 +57,11 @@ def feather_heal_cuda(left, right, frame, dleft, dright, blur_ksize: int = 7,
                          f"[1, {MAX_BLUR_KSIZE}]")
     ins = [t.contiguous() for t in (left, right, frame, dleft, dright)]
     out_l, out_r = torch.empty_like(ins[0]), torch.empty_like(ins[0])
-    rc = lib().vd3d_feather_heal(
-        *(t.data_ptr() for t in ins), out_l.data_ptr(), out_r.data_ptr(), h, w,
-        int(blur_ksize), float(feather_strength), float(heal_strength),
-        float(heal_threshold), int(enable_feathering), int(enable_healing),
-        int(left.dtype == torch.bfloat16), stream_of(left))
-    check(rc, "feather_heal_cuda")
-    launch_counts["feather_heal"] += 1
+    launch("feather_heal", left, "vd3d_feather_heal",
+           *(t.data_ptr() for t in ins), out_l.data_ptr(), out_r.data_ptr(), h, w,
+           int(blur_ksize), float(feather_strength), float(heal_strength),
+           float(heal_threshold), int(enable_feathering), int(enable_healing),
+           int(left.dtype == torch.bfloat16))
     return out_l, out_r
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.quantiles import bisect_quantile_01, hist_masked_median, histogram_01
-from ._lib import check, launch_counts, lib, require_cuda, stream_of
+from ._lib import launch, lib, require_cuda
 
 QHIST_BINS = 4097  # 4096 right-closed bins + one above 1
 SUBJECT_BINS = 64
@@ -37,10 +37,8 @@ def quantile_pair_cuda(x: torch.Tensor, q0: float, q1: float) -> torch.Tensor:
     rows, cols, ld = _matrix_view("quantile_pair_cuda", x)
     scratch = torch.empty(QHIST_BINS + 1, dtype=torch.int32, device=x.device)
     out = torch.empty(2, dtype=torch.float32, device=x.device)
-    rc = lib().vd3d_quantile_pair(x.data_ptr(), rows, cols, ld, float(q0), float(q1),
-                                  scratch.data_ptr(), out.data_ptr(), stream_of(x))
-    check(rc, "quantile_pair_cuda")
-    launch_counts["quantile_pair"] += 1
+    launch("quantile_pair", x, "vd3d_quantile_pair", x.data_ptr(), rows, cols, ld,
+           float(q0), float(q1), scratch.data_ptr(), out.data_ptr())
     return out
 
 
@@ -69,16 +67,14 @@ def subject_stats_cuda(crop: torch.Tensor):
     require_cuda("subject_stats_cuda", crop)
     rows, cols, ld = _matrix_view("subject_stats_cuda", crop)
     out = torch.empty(SUBJECT_BINS + 2, dtype=torch.float32, device=crop.device)
-    rc = lib().vd3d_subject_stats(crop.data_ptr(), rows, cols, ld, out.data_ptr(),
-                                  stream_of(crop))
-    check(rc, "subject_stats_cuda")
-    launch_counts["subject_stats"] += 1
+    launch("subject_stats", crop, "vd3d_subject_stats", crop.data_ptr(), rows, cols, ld,
+           out.data_ptr())
     return out[:SUBJECT_BINS], out[SUBJECT_BINS], out[SUBJECT_BINS + 1]
 
 
 def cluster_size() -> int:
-    """The CTAs of subject_stats_cuda's cluster on this card (16, or 8 where
-    a 16-CTA cluster cannot be scheduled)."""
+    """The CTAs of subject_stats_cuda's cluster on the current card (16, or
+    8 where a 16-CTA cluster cannot be scheduled)."""
     return lib().vd3d_subject_cluster()
 
 

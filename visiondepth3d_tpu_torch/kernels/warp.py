@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import warp as warp_ops
-from ._lib import check, launch_counts, lib, require_cuda, stream_of
+from ._lib import launch, require_cuda
 
 _IMAGE_TYPES = (torch.float32, torch.bfloat16)
 
@@ -45,12 +45,10 @@ def stereo_warp_cuda(frame: torch.Tensor, shaped_depth: torch.Tensor,
     frame, shaped_depth, shift_norm = (t.contiguous() for t in (frame, shaped_depth, shift_norm))
     left, right = torch.empty_like(frame), torch.empty_like(frame)
     dleft, dright = torch.empty_like(shaped_depth), torch.empty_like(shaped_depth)
-    rc = lib().vd3d_stereo_warp(
-        frame.data_ptr(), shaped_depth.data_ptr(), shift_norm.data_ptr(),
-        left.data_ptr(), right.data_ptr(), dleft.data_ptr(), dright.data_ptr(),
-        h, w, int(frame.dtype == torch.bfloat16), stream_of(frame))
-    check(rc, "stereo_warp_cuda")
-    launch_counts["stereo_warp"] += 1
+    launch("stereo_warp", frame, "vd3d_stereo_warp",
+           frame.data_ptr(), shaped_depth.data_ptr(), shift_norm.data_ptr(),
+           left.data_ptr(), right.data_ptr(), dleft.data_ptr(), dright.data_ptr(),
+           h, w, int(frame.dtype == torch.bfloat16))
     return left, right, dleft, dright
 
 

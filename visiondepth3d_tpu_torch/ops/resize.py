@@ -93,14 +93,17 @@ def _cubic_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarra
 @functools.lru_cache(maxsize=64)
 def _matrix(kind: str, in_size: int, out_size: int, align_corners: bool,
             dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """The weight matrix as a tensor on ``device``, built once per shape."""
+    """The weight matrix as a tensor on ``device``, built once per shape; a
+    normal tensor even when first asked for under inference mode, so a
+    training step may use it after an inference call made it."""
     if kind == "linear":
         m = _linear_matrix(in_size, out_size, align_corners)
     elif kind == "cubic":
         m = _cubic_matrix(in_size, out_size, align_corners)
     else:
         m = _area_matrix(in_size, out_size)
-    return torch.from_numpy(m).to(device=device, dtype=dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(device=device, dtype=dtype)
 
 
 def _is_channel_last(img: torch.Tensor, channel_last: bool | None) -> bool:

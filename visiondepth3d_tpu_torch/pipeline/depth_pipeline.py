@@ -26,8 +26,15 @@ The video and diffusion routes take one static letterbox crop, bootstrapped
 on the first frames. Resizes, alignment, percentiles and rounding run on
 the device.
 
-Multi-device meshes are not ported (one device) and raise
-NotImplementedError.
+``DepthConfig.mesh`` spreads the work over devices, as in the JAX package:
+the feed-forward route splits each batch's frames over the ``dp`` devices
+(``auto``: every visible card when there is more than one), each with its
+replica of the model (per-frame normalization keeps every frame on its
+device), and stitches them in frame order; DepthCrafter denoises each
+segment's windows in parallel over the devices (``run_raw_parallel``). The
+video and Marigold routes run on one device, as in the JAX package. Row
+(``sp``) and tensor (``tp``) sharding are not ported yet (ROADMAP Queue 1
+item 6b); ``pp`` is a render axis.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch
 
 from ..depth.model import snap
 from ..depth.registry import CATALOG, load_predictor
-from ..device import host_to_device, resolve_device
+from ..device import host_to_device, resolve_device, same_device
 from ..io import letterbox as lb
 from ..io.depth_io import open_depth16_writer
 from ..io.video import open_video, open_writer
@@ -84,7 +91,8 @@ class DepthConfig:
     max_segment_frames: int = 96
     # random weights produce noise; tests and benchmarks opt in explicitly (Marigold)
     allow_random: bool = False
-    # one device: "auto" and "off" run on it; anything else raises
+    # "auto": the batch (DepthCrafter: the windows) over every visible card
+    # when there is more than one; "dp=N" pins it; "off" one device
     mesh: str | None = "auto"
     device: str = "cuda"
 
@@ -93,12 +101,50 @@ def _size_h(size) -> int:
     return int(size[0]) if isinstance(size, (tuple, list)) else int(size)
 
 
-def _check_ported(cfg: DepthConfig):
-    if cfg.mesh not in (None, "auto", "off"):
-        raise NotImplementedError(f"mesh {cfg.mesh!r}: the port's depth route runs on one "
-                                  f"device ('auto' or 'off')")
+def _resolve_mesh(cfg: DepthConfig, devices=None):
+    """-> (the dp devices, dp), or (None, 1) for one device. The depth
+    route takes dp (batch frames, DepthCrafter windows); sp and tp are not
+    ported yet; pp is a render-stage axis."""
+    from ..parallel.dp import NOT_PORTED_6B
+    from .mesh_render import mesh_axes_for, mesh_devices
+
     if cfg.bits not in (8, 16):
         raise ValueError(f"bits {cfg.bits} not in (8, 16)")
+    axes = mesh_axes_for(cfg.mesh, cfg.device, devices)
+    if not axes:
+        return None, 1
+    if axes.get("pp", 1) != 1:
+        raise ValueError("vd3d depth does not pipeline stages; pp is a "
+                         "vd3d render axis (--mesh pp=2)")
+    dp = int(axes.get("dp", 1))
+    if axes.get("sp", 1) > 1 or axes.get("tp", 1) > 1:
+        raise NotImplementedError(f"depth --mesh sp/tp: {NOT_PORTED_6B}")
+    if dp <= 1:
+        return None, 1
+    devs = mesh_devices(dp, cfg.device, devices)
+    if dp > len(devs):
+        raise ValueError(f"mesh dp={dp} needs {dp} devices, have {len(devs)}")
+    return devs[:dp], dp
+
+
+def _batch_runs(n: int, parts: int) -> list[tuple[int, int]]:
+    """[start, end) runs of an n-frame batch over ``parts`` devices: runs of
+    ceil(n / parts) frames in order (fewer runs for a short batch)."""
+    k = -(-n // parts)
+    return [(a, min(a + k, n)) for a in range(0, n, k)]
+
+
+def _queue_readback(out: torch.Tensor):
+    """(host tensor, event): out's copy to (pinned) host memory, queued;
+    wait on the event (None on the CPU) before reading the host tensor."""
+    cuda = out.device.type == "cuda"
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=cuda)
+    host.copy_(out, non_blocking=cuda)
+    event = None
+    if cuda:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(out.device))
+    return host, event
 
 
 def _quantize(d01: torch.Tensor, bits: int) -> torch.Tensor:
@@ -203,18 +249,20 @@ def _random_weights_warning(cfg: DepthConfig):
 
 def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = None,
                             progress_cb: Callable | None = None, predictor=None,
-                            cancel_check: Callable | None = None) -> int:
+                            cancel_check: Callable | None = None, devices=None) -> int:
     """Estimate the depth of every frame; returns the frame count.
-    ``cancel_check`` is polled between batches."""
+    ``cancel_check`` is polled between batches. A dp mesh runs over
+    ``devices`` when given (a device may repeat), the CPU repeated when
+    ``cfg.device`` is the CPU, else the visible cards."""
     cfg = cfg or DepthConfig()
-    _check_ported(cfg)
+    mesh_devs, dp = _resolve_mesh(cfg, devices)
     family = CATALOG[cfg.model].family if cfg.model in CATALOG else None
     if family == "vda":
         return _render_depth_vda(input_path, output_path, cfg, progress_cb, predictor,
                                  cancel_check)
     if cfg.model == "depthcrafter":
         return _render_depth_crafter(input_path, output_path, cfg, progress_cb, predictor,
-                                     cancel_check)
+                                     cancel_check, mesh_devs)
     if family == "diffusion":
         return _render_depth_marigold(input_path, output_path, cfg, progress_cb, predictor,
                                       cancel_check)
@@ -231,8 +279,17 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
             predictor = load_predictor(cfg.model, cfg.checkpoint,
                                        cfg.tile_size if cfg.tiled else cfg.inference_size,
                                        dtype=cfg.dtype, device=dev, fast_head=cfg.fast_head)
-        elif predictor.device != dev:
+        elif not same_device(predictor.device, dev):
             raise ValueError(f"predictor is on {predictor.device}, the route on {dev}")
+        run_devs = [dev]
+        if mesh_devs is not None:
+            from ..parallel.mesh import replicas
+
+            run_devs = mesh_devs
+            if cfg.batch_size % dp:
+                # round the batch up so every device gets equal frames
+                cfg = dataclasses.replace(cfg, batch_size=-(-cfg.batch_size // dp) * dp)
+        preds = replicas(predictor, run_devs) if mesh_devs is not None else {dev: predictor}
 
         # letterbox: bootstrap on up to 9 probe frames, then the tracker runs
         # on every frame; a confirmed bar change closes the batch
@@ -242,10 +299,10 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
 
         fns: dict = {}
 
-        def get_fn(ch):
-            if ch not in fns:
-                fns[ch] = make_depth_batch_fn(predictor, cfg, (ch, rd.width))
-            return fns[ch]
+        def get_fn(d, ch):
+            if (d, ch) not in fns:
+                fns[d, ch] = make_depth_batch_fn(preds[d], cfg, (ch, rd.width))
+            return fns[d, ch]
 
         wr, write = _depth_writer(output_path, rd.width, rd.height, rd.fps, cfg)
 
@@ -253,31 +310,31 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
         t0 = time.time()
         batch: list = []
         batch_bars = (top, bot)
-        pending = None  # (host tensor, frames, bars, event): written while the next batch runs
+        # ([(host tensor, event)] per device run, bars): written while the
+        # next batch runs
+        pending = None
 
         def drain():
             if pending is None:
                 return
-            host, n, bars, event = pending
-            if event is not None:
-                event.synchronize()
-            arr = host.numpy()
-            for i in range(n):
-                write(arr[i], *bars)
+            pieces, bars = pending
+            for host, event in pieces:
+                if event is not None:
+                    event.synchronize()
+                for d in host.numpy():
+                    write(d, *bars)
 
         def flush():
             nonlocal n_done, pending
             if not batch:
                 return
-            out = get_fn(batch[0].shape[0])(host_to_device(np.stack(batch), dev))
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=dev.type == "cuda")
-            host.copy_(out, non_blocking=dev.type == "cuda")
-            event = None
-            if dev.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
+            arr = np.stack(batch)
+            # every device's run is launched before any is read back
+            outs = [get_fn(d, arr.shape[1])(host_to_device(arr[a:b], d))
+                    for (a, b), d in zip(_batch_runs(len(batch), len(run_devs)), run_devs)]
+            pieces = [_queue_readback(out) for out in outs]
             drain()
-            pending = (host, len(batch), batch_bars, event)
+            pending = (pieces, batch_bars)
             n_done += len(batch)
             batch.clear()
             if progress_cb:
@@ -319,7 +376,7 @@ def _video_route_setup(rd, cfg: DepthConfig, dev, predictor, load):
         if cfg.checkpoint is None:
             _random_weights_warning(cfg)
         predictor = load()
-    elif predictor.device != dev:
+    elif not same_device(predictor.device, dev):
         raise ValueError(f"predictor is on {predictor.device}, the route on {dev}")
     pending, _, top, bot = _bootstrap_letterbox(rd, cfg)
     return predictor, pending, top, bot
@@ -460,7 +517,7 @@ def _render_depth_marigold(input_path, output_path, cfg: DepthConfig, progress_c
 
 
 def _render_depth_crafter(input_path, output_path, cfg: DepthConfig, progress_cb=None,
-                          pipeline=None, cancel_check=None) -> int:
+                          pipeline=None, cancel_check=None, mesh_devs=None) -> int:
     """DepthCrafter: the clip strided to ``target_fps`` (the output's fps is
     the input's over the stride), cropped to multiples of 8, in segments of
     max(window, max_segment_frames) frames that share ``overlap`` frames;
@@ -468,10 +525,18 @@ def _render_depth_crafter(input_path, output_path, cfg: DepthConfig, progress_cb
     previous segment's on the shared frames and cross-faded there. Pass 1
     spills the raw depth to a float16 sidecar and keeps its float32 min and
     max; pass 2 normalizes over the whole clip. ``cancel_check`` is polled
-    at segment boundaries. Returns the frames written."""
+    at segment boundaries. With ``mesh_devs`` each segment's windows are
+    denoised in parallel over those devices (``run_raw_parallel``: per-frame
+    noise shared by the windows, instead of the serial re-seeding chain).
+    Returns the frames written."""
     from ..depth.vda import _align_scale_shift
 
     dev = resolve_device(cfg.device)
+    mesh = None
+    if mesh_devs is not None:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(dp=len(mesh_devs), devices=mesh_devs)
     rd = open_video(input_path)
     top = bot = 0
     raw_path = str(output_path) + ".raw16.tmp"
@@ -513,7 +578,7 @@ def _render_depth_crafter(input_path, output_path, cfg: DepthConfig, progress_cb
                 if new <= 0:
                     break
                 x = host_to_device(np.stack(seg), dev).to(torch.float32) / 255.0
-                d = pipeline.run_raw(x)
+                d = pipeline.run_raw(x) if mesh is None else pipeline.run_raw_parallel(x, mesh=mesh)
                 if tail is not None:
                     a, b = _align_scale_shift(d[:ov], tail)
                     d = (d * a + b).float()

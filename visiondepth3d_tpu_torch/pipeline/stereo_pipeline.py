@@ -13,7 +13,11 @@ overlaps chunk n + 1 on the device. Every ``checkpoint_every_chunks``
 chunks the trackers go to an ``<output>.resume.npz`` sidecar, written
 once that chunk's frames are in the file; ``resume`` continues from it.
 
-Not ported yet, and refused with NotImplementedError: multi-device meshes.
+``RenderConfig.mesh`` runs the render over several devices, as in the JAX
+package: ``auto`` (the default) takes every visible card for frame-segment
+data parallelism when there is more than one and is this single-device
+path on one card; ``dp=N`` pins the segments (``mesh_render.py``);
+``pp=2`` pipelines depth against stereo on two devices (``pp_render.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import host_to_device, resolve_device
+from ..device import host_to_device, resolve_device, same_device
 from ..io import Y4MPlaneReader, blackdetect, open_depth_reader, open_video, open_writer
 from ..ops import formats as fmt_ops
 from ..ops.convert import (float_to_u8_round, float_to_u8_trunc, rgb_u8_to_yuv420,
@@ -58,13 +62,14 @@ class RenderConfig:
     resume: bool = False  # continue an interrupted render from its sidecar
     checkpoint_every_chunks: int = 8
     device: str = "cuda"
-    mesh: str | None = None  # not ported yet: only None or "off"
-
-
-def _check_ported(cfg: RenderConfig):
-    if cfg.mesh not in (None, "off"):
-        raise NotImplementedError(f"RenderConfig.mesh {cfg.mesh!r} is not ported yet "
-                                  f"(one device: None or 'off')")
+    # multi-device execution: "auto" = frame-segment DP over every visible
+    # card when there is more than one (this single-device path on one
+    # card); "dp=N" pins the segments, "pp=2" the depth/stereo stages; "off"
+    # forces one device (pipeline/mesh_render.py)
+    mesh: str | None = "auto"
+    # snap the DP segment boundaries to detected scene cuts (an extra decode
+    # pass of the clip on the host)
+    mesh_snap_scenes: bool = False
 
 
 def _detect_black_bars_host(frame_u8: np.ndarray, threshold: float = 10.0):
@@ -107,19 +112,12 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
     return host
 
 
-def make_chunk_fn(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
-                  predictor=None, yuv_in: bool = False) -> Callable:
-    """The chunk function: u8 in -> (trackers, packed u8 [T, out_h, out_w, 3]).
-
-    With ``predictor``: ``fn(trackers, frames_in, blanks=None)``, depth
-    inferred from the cropped frames (the fused route). Without:
-    ``fn(trackers, frames_in, depths_u16, blanks=None)`` with depth as
-    lossless uint16 ([T, Hd, Wd]). ``frames_in`` is RGB u8 [T, H, W, 3], or
-    a (Y, U, V) tuple of u8 plane batches when ``yuv_in``; ``blanks`` an
-    optional [T] bool tensor of blank frames.
-    """
+def _chunk_pieces(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
+                  yuv_in: bool = False):
+    """The pieces every chunk function is made of: ``decode`` (u8 frames or
+    (Y, U, V) planes -> float RGB), ``crop`` and ``finish`` (the stereo step
+    over the eye-sized frames and depths, the eyes packed, u8 out)."""
     params = params.replace(warp_hw=(geom.warp_h, geom.warp_w)).with_shift_bound(geom.warp_w)
-    eye_hw = (geom.eye_h, geom.eye_w)
     to_u8 = float_to_u8_trunc if params.parity_quantize else float_to_u8_round
 
     def crop(x):
@@ -139,6 +137,23 @@ def make_chunk_fn(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
                 left, right, cfg.output_format,
                 anaglyph_bgr_convention=cfg.anaglyph_bgr_convention))
         return trackers, to_u8(torch.stack(packed))
+
+    return decode, crop, finish
+
+
+def make_chunk_fn(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
+                  predictor=None, yuv_in: bool = False) -> Callable:
+    """The chunk function: u8 in -> (trackers, packed u8 [T, out_h, out_w, 3]).
+
+    With ``predictor``: ``fn(trackers, frames_in, blanks=None)``, depth
+    inferred from the cropped frames (the fused route). Without:
+    ``fn(trackers, frames_in, depths_u16, blanks=None)`` with depth as
+    lossless uint16 ([T, Hd, Wd]). ``frames_in`` is RGB u8 [T, H, W, 3], or
+    a (Y, U, V) tuple of u8 plane batches when ``yuv_in``; ``blanks`` an
+    optional [T] bool tensor of blank frames.
+    """
+    decode, crop, finish = _chunk_pieces(params, geom, cfg, yuv_in)
+    eye_hw = (geom.eye_h, geom.eye_w)
 
     if predictor is not None:
         @torch.inference_mode()
@@ -162,6 +177,33 @@ def make_chunk_fn(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
     return chunk_fn
 
 
+def make_pp_bodies(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
+                   predictor, yuv_in: bool = False) -> tuple[Callable, Callable]:
+    """The fused chunk function cut at the depth/stereo boundary, for the
+    two-stage pipeline (``parallel/pp.py``):
+
+      depth_body(frames_in) -> depths01 [T, eye_h, eye_w]
+      stereo_body(trackers, frames_in, depths01, blanks=None)
+          -> (trackers, packed u8)
+
+    Each stage decodes and crops the u8 frames itself, so only the frames
+    and the depth cross between the stages. ``stereo_body(depth_body(x))``
+    computes what the fused ``make_chunk_fn`` does, op for op."""
+    decode, crop, finish = _chunk_pieces(params, geom, cfg, yuv_in)
+    eye_hw = (geom.eye_h, geom.eye_w)
+
+    @torch.inference_mode()
+    def depth_body(frames_in):
+        return predictor.predict_01(crop(decode(frames_in)), out_hw=eye_hw)
+
+    @torch.inference_mode()
+    def stereo_body(trackers, frames_in, depths01, blanks=None):
+        return finish(trackers, resize_bilinear(crop(decode(frames_in)), eye_hw), depths01,
+                      blanks)
+
+    return depth_body, stereo_body
+
+
 @dataclasses.dataclass
 class RenderProgress:
     frames_done: int = 0
@@ -175,18 +217,171 @@ class RenderProgress:
         return (self.total_frames - self.frames_done) / self.fps
 
 
+class ChunkStream:
+    """Chunks of one stream of frames through a chunk function on one
+    device. ``read`` takes up to ``cfg.chunk_size`` frames (and as many
+    depth frames) from the readers, pads a short chunk with its last frame
+    (static chunk shape) and puts it on the device; ``emit`` converts a
+    chunk's packed output to YUV420 planes on the device, queues its
+    readback and writes the previous chunk's (one readback in flight);
+    ``launch`` is read, the chunk function, emit. ``flush`` writes the last
+    readback. ``frame``: a frame already read from ``rd`` (the probe frame
+    of an RGB reader); ``limit``: the frames to render, None for all;
+    ``frame_idx``: the absolute index of the next frame (blank frames are
+    indexed so). With ``output_path`` the trackers are checkpointed beside
+    the output every ``cfg.checkpoint_every_chunks`` chunks."""
+
+    def __init__(self, rd, dd, wr, chunk_fn, trackers, dev: torch.device, geom: RenderGeometry,
+                 cfg: RenderConfig, yuv_in: bool, blank_set: set[int], frame_idx: int = 0,
+                 frame=None, limit: int | None = None, output_path=None):
+        self.rd, self.dd, self.wr = rd, dd, wr
+        self.chunk_fn, self.trackers, self.dev = chunk_fn, trackers, dev
+        self.geom, self.cfg, self.yuv_in, self.blank_set = geom, cfg, yuv_in, blank_set
+        self.frame_idx, self.frame, self.limit = frame_idx, frame, limit
+        self.output_path = output_path
+        self.yuv_out = (hasattr(wr, "write_yuv420") and geom.out_w % 2 == 0
+                        and geom.out_h % 2 == 0)
+        self.eof = False
+        self.pending = None  # (host array, frame count, event, checkpoint)
+        self.chunks_since_ckpt = 0
+
+    def read(self):
+        """(frames_in, depths_u16 or None, blanks or None, n) on the
+        device, or None (and ``eof``) when the stream has no frame left."""
+        frames, depths, blanks = [], [], []
+        while len(frames) < self.cfg.chunk_size:
+            if self.limit is not None and self.limit <= 0:
+                self.eof = True
+                break
+            if self.frame is None:
+                self.frame = self.rd.read()
+            d = self.dd.read() if (self.dd is not None and self.frame is not None) else None
+            if self.frame is None or (self.dd is not None and d is None):
+                self.eof = True
+                break
+            frames.append(self.frame)
+            depths.append(d)
+            blanks.append(self.frame_idx in self.blank_set)
+            self.frame_idx += 1
+            self.frame = None
+            if self.limit is not None:
+                self.limit -= 1
+        if not frames:
+            self.eof = True
+            return None
+        n = len(frames)
+        pad = self.cfg.chunk_size - n
+        frames += [frames[-1]] * pad  # static chunk shape
+        depths += [depths[-1]] * pad
+        blanks += [False] * pad  # padded tail frames are not blank
+        dev = self.dev
+        if self.yuv_in:
+            frames_in = tuple(host_to_device(np.stack([f[i] for f in frames]), dev)
+                              for i in range(3))
+        else:
+            frames_in = host_to_device(np.stack(frames), dev)
+        # a chunk without a blank frame takes the step without the passthrough
+        blanks_in = host_to_device(np.asarray(blanks), dev) if any(blanks) else None
+        depths_in = None
+        if self.dd is not None:
+            db = np.clip(np.stack(depths) * 65535.0 + 0.5, 0, 65535).astype(np.uint16)
+            depths_in = host_to_device(db, dev)
+        return frames_in, depths_in, blanks_in, n
+
+    def launch(self) -> int:
+        """Read, run and emit one chunk; the frames it holds (0 at the end)."""
+        item = self.read()
+        if item is None:
+            return 0
+        frames_in, depths_in, blanks_in, n = item
+        with torch.inference_mode():
+            if depths_in is None:
+                self.trackers, out_u8 = self.chunk_fn(self.trackers, frames_in, blanks_in)
+            else:
+                self.trackers, out_u8 = self.chunk_fn(self.trackers, frames_in, depths_in,
+                                                      blanks_in)
+        self.emit(out_u8, n)
+        return n
+
+    def emit(self, out_u8: torch.Tensor, n: int) -> None:
+        with torch.inference_mode():
+            if self.yuv_out:
+                planes = rgb_u8_to_yuv420(out_u8)
+                out_u8 = torch.cat([p.reshape(p.shape[0], -1) for p in planes], dim=1)
+        host = _to_host(out_u8)
+        self.chunks_since_ckpt += 1
+        ckpt = None
+        if self.output_path is not None and \
+                0 < self.cfg.checkpoint_every_chunks <= self.chunks_since_ckpt:
+            # the trackers as this chunk left them, copied behind its output
+            ckpt = (self.frame_idx, dataclasses.replace(self.trackers, **{
+                f.name: _to_host(getattr(self.trackers, f.name))
+                for f in dataclasses.fields(self.trackers)}))
+            self.chunks_since_ckpt = 0
+        event = None
+        if out_u8.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(out_u8.device))
+        self.flush()
+        self.pending = (host, n, event, ckpt)
+
+    def flush(self) -> None:
+        """Write the chunk whose readback is in flight."""
+        if self.pending is None:
+            return
+        host, n, event, ckpt = self.pending
+        self.pending = None
+        if event is not None:
+            event.synchronize()
+        arr = host.numpy()
+        hh, ww = self.geom.out_h, self.geom.out_w
+        for i in range(n):
+            if self.yuv_out:
+                y = arr[i, : hh * ww].reshape(hh, ww)
+                u, v = arr[i, hh * ww:].reshape(2, hh // 2, ww // 2)
+                self.wr.write_yuv420(y, u, v)
+            else:
+                self.wr.write(arr[i])
+        if ckpt is not None:  # after the chunk's frames are in the file
+            resume.save_checkpoint(self.output_path, *ckpt)
+
+
+def plane_input(input_path, cfg: RenderConfig, rd) -> bool:
+    """Whether the render reads raw YUV420 planes (the host only freads, the
+    device converts): a .y4m of even size without a clip window."""
+    return (str(input_path).endswith(".y4m") and cfg.start_s is None and cfg.end_s is None
+            and rd.width % 2 == 0 and rd.height % 2 == 0)
+
+
+def probe_geometry(rd, cfg: RenderConfig):
+    """(first frame, geometry) of an opened clip: the black bars are
+    detected on its first frame when asked."""
+    first = rd.read()  # black-bar detection reads it before any reopen
+    if first is None:
+        raise ValueError("empty input video")
+    top, bottom = _detect_black_bars_host(first) if cfg.auto_crop_black_bars else (0, 0)
+    geom = resolve_geometry(rd.width, rd.height, cfg.output_format, cfg.output_height,
+                            cfg.aspect, cfg.preserve_original_aspect, top, bottom)
+    return first, geom
+
+
 def render_stereo_video(input_path, depth_path, output_path,
                         params: StereoParams | None = None,
                         cfg: RenderConfig | None = None,
                         progress_cb: Callable[[RenderProgress], None] | None = None,
                         cancel_check: Callable[[], bool] | None = None,
-                        predictor=None) -> RenderProgress:
+                        predictor=None, devices=None) -> RenderProgress:
     """Render a whole video; returns the final progress.
 
     ``depth_path=None`` with a ``predictor`` is the fused 2D->3D route.
     ``cancel_check`` is polled between chunks; a cancelled render keeps its
     last checkpoint, and ``cfg.resume`` continues it (a .y4m output is cut
-    back to the checkpoint and appended to).
+    back to the checkpoint and appended to). ``cfg.mesh`` other than one
+    device dispatches to the mesh routes (not with ``resume``), over
+    ``devices`` when given (a device may repeat), else over the visible
+    cards, or over the CPU repeated when ``cfg.device`` is the CPU. The
+    default 'auto' stays on one device for a clip window, which the mesh
+    routes do not take.
     """
     if depth_path is None and predictor is None:
         raise ValueError("need a depth video or a depth predictor")
@@ -194,26 +389,37 @@ def render_stereo_video(input_path, depth_path, output_path,
         raise ValueError("pass either depth_path or predictor, not both")
     params = params or StereoParams()
     cfg = cfg or RenderConfig()
-    _check_ported(cfg)
+    windowed = cfg.start_s is not None or cfg.end_s is not None
+    if not cfg.resume and not (windowed and str(cfg.mesh).strip().lower() == "auto"):
+        from .mesh_render import mesh_axes_for
+
+        axes = mesh_axes_for(cfg.mesh, cfg.device, devices)
+        if axes is not None and axes.get("pp", 1) == 2:
+            from .pp_render import render_stereo_video_pp
+
+            return render_stereo_video_pp(input_path, output_path, params, cfg, progress_cb,
+                                          cancel_check, predictor, mesh_axes=axes,
+                                          devices=devices)
+        if axes is not None:
+            from .mesh_render import render_stereo_video_mesh
+
+            return render_stereo_video_mesh(input_path, depth_path, output_path, params, cfg,
+                                            progress_cb, cancel_check, predictor,
+                                            mesh_axes=axes, snap_scenes=cfg.mesh_snap_scenes,
+                                            devices=devices)
     dev = resolve_device(cfg.device)
-    if predictor is not None and predictor.device != dev:
+    if predictor is not None and not same_device(predictor.device, dev):
         raise ValueError(f"predictor is on {predictor.device}, the render on {dev}")
 
     rd = open_video(input_path, cfg.start_s, cfg.end_s)
     dd = open_depth_reader(depth_path) if depth_path is not None else None
     wr = None
+    stream = None
     try:
         fps = cfg.fps or rd.fps or 30.0
-        first = rd.read()  # black-bar detection reads it before any reopen
-        if first is None:
-            raise ValueError("empty input video")
-        top, bottom = _detect_black_bars_host(first) if cfg.auto_crop_black_bars else (0, 0)
-        geom = resolve_geometry(rd.width, rd.height, cfg.output_format, cfg.output_height,
-                                cfg.aspect, cfg.preserve_original_aspect, top, bottom)
+        first, geom = probe_geometry(rd, cfg)
         blank_set = _blank_frames(input_path, fps) if cfg.skip_blank_frames else set()
-        # raw planes in: the host only freads, the device converts
-        yuv_in = (str(input_path).endswith(".y4m") and cfg.start_s is None
-                  and cfg.end_s is None and rd.width % 2 == 0 and rd.height % 2 == 0)
+        yuv_in = plane_input(input_path, cfg, rd)
         if yuv_in:
             rd.close()
             rd = Y4MPlaneReader(input_path)
@@ -229,28 +435,7 @@ def render_stereo_video(input_path, depth_path, output_path,
                 resume.truncate_y4m_to(output_path, skip_n)
         wr = open_writer(output_path, geom.out_w, geom.out_h, fps, cfg.codec, cfg.crf,
                          append=skip_n > 0)
-        yuv_out = (hasattr(wr, "write_yuv420") and geom.out_w % 2 == 0
-                   and geom.out_h % 2 == 0)
         prog = RenderProgress(frames_done=skip_n)
-        pending = None  # (host array, frame count, event, checkpoint): encode overlaps compute
-
-        def flush(pending):
-            if pending is None:
-                return
-            host, n, event, ckpt = pending
-            if event is not None:
-                event.synchronize()
-            arr = host.numpy()
-            hh, ww = geom.out_h, geom.out_w
-            for i in range(n):
-                if yuv_out:
-                    y = arr[i, : hh * ww].reshape(hh, ww)
-                    u, v = arr[i, hh * ww:].reshape(2, hh // 2, ww // 2)
-                    wr.write_yuv420(y, u, v)
-                else:
-                    wr.write(arr[i])
-            if ckpt is not None:  # after the chunk's frames are in the file
-                resume.save_checkpoint(output_path, *ckpt)
 
         frame = None if yuv_in else first  # the plane reader starts at frame 0
         eof = False
@@ -262,69 +447,21 @@ def render_stereo_video(input_path, depth_path, output_path,
                 eof = True
                 break
             frame = None
-        frame_idx = skip_n
-
-        chunks_since_ckpt = 0
-        while not eof:
+        stream = ChunkStream(rd, dd, wr, chunk_fn, trackers, dev, geom, cfg, yuv_in, blank_set,
+                             frame_idx=skip_n, frame=frame, output_path=output_path)
+        stream.eof = eof
+        while not stream.eof:
             if cancel_check and cancel_check():
                 break
-            frames, depths, blanks = [], [], []
-            while len(frames) < cfg.chunk_size:
-                if frame is None:
-                    frame = rd.read()
-                d = dd.read() if (dd is not None and frame is not None) else None
-                if frame is None or (dd is not None and d is None):
-                    eof = True
-                    break
-                frames.append(frame)
-                depths.append(d)
-                blanks.append(frame_idx in blank_set)
-                frame_idx += 1
-                frame = None
-            if not frames:
+            n = stream.launch()
+            if n == 0:
                 break
-            n = len(frames)
-            frames += [frames[-1]] * (cfg.chunk_size - n)  # static chunk shape
-            depths += [depths[-1]] * (cfg.chunk_size - n)
-            blanks += [False] * (cfg.chunk_size - n)  # padded tail frames are not blank
-            if yuv_in:
-                frames_in = tuple(host_to_device(np.stack([f[i] for f in frames]), dev)
-                                  for i in range(3))
-            else:
-                frames_in = host_to_device(np.stack(frames), dev)
-            # a chunk without a blank frame takes the step without the passthrough
-            blanks_in = host_to_device(np.asarray(blanks), dev) if any(blanks) else None
-            with torch.inference_mode():
-                if dd is None:
-                    trackers, out_u8 = chunk_fn(trackers, frames_in, blanks_in)
-                else:
-                    db = np.clip(np.stack(depths) * 65535.0 + 0.5, 0, 65535).astype(np.uint16)
-                    trackers, out_u8 = chunk_fn(trackers, frames_in, host_to_device(db, dev),
-                                                blanks_in)
-                if yuv_out:
-                    planes = rgb_u8_to_yuv420(out_u8)
-                    out_u8 = torch.cat([p.reshape(p.shape[0], -1) for p in planes], dim=1)
-            host = _to_host(out_u8)
-            chunks_since_ckpt += 1
-            ckpt = None
-            if 0 < cfg.checkpoint_every_chunks <= chunks_since_ckpt:
-                # the trackers as this chunk left them, copied behind its output
-                ckpt = (frame_idx, dataclasses.replace(trackers, **{
-                    f.name: _to_host(getattr(trackers, f.name))
-                    for f in dataclasses.fields(trackers)}))
-                chunks_since_ckpt = 0
-            event = None
-            if dev.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
-            flush(pending)
-            pending = (host, n, event, ckpt)
             prog.frames_done += n
             prog.fps = (prog.frames_done - skip_n) / max(time.time() - prog.started, 1e-6)
             if progress_cb:
                 progress_cb(prog)
-        flush(pending)
-        if eof:
+        stream.flush()
+        if stream.eof:
             resume.clear_checkpoint(output_path)
     finally:
         rd.close()
