@@ -21,7 +21,9 @@ Phases, each printed on its own line; any failure exits nonzero:
      device time from torch.profiler where the profiler sees the card.
      Library calls are timed by graph replay too, plain versions by the
      host loop. An empty kernel timed both ways is the launch floor. K1-K4
-     at the shapes of the 1080p render (1080x1920 frames, 648x1152 subject crop, and an unaligned crop), K5 (the 3x3
+     at the shapes of the 1080p render (1080x1920 frames, 648x1152 subject crop, and an unaligned crop;
+     K3's and K4's band forms and finishes over 2 and 3 row bands, bit for
+     bit against the one-shot kernels), K5 (the 3x3
      conv) in f32 and bf16 at five shapes of the frame-tools path and on
      the dense block's strided views (input a channel slice of the
      192-channel buffer, output written into a slice of it), K6 (DOF +
@@ -165,7 +167,14 @@ Phases, each printed on its own line; any failure exits nonzero:
      one device at chunks of 2 pairs, K5 launched;
      DepthCrafter's run_raw_parallel (phase dcrafter's pipeline, else built
      at the published widths; bf16, 2 steps) over 50 frames of 512x288 (3
-     windows) at dp=2 against dp=1, min-max u8 within a mean of 1;
+     windows) at dp=2 against dp=1, min-max u8 within a mean of 1; then
+     the row- and tensor-sharded meshes (mesh_sharded), each against its
+     one-device twin: sp=2 (16 frames; the model on 8 frames a device, the
+     stereo step in two row bands: K1, K2 once per band per frame, K3's
+     and K4's band forms and finishes), with depth of field (K6 per band),
+     dp=2,sp=2 (32 frames), pp=2,dp=2 (16), sp=2 at 3840x2160 (8 frames),
+     byte for byte; the tp=2 depth route (K7 opt-in at [8, 1370, 3, 64])
+     and the tp=2 render within their gates;
  18. (train) the depth trainer: DA-V2-Small at 518^2, batch 4, float32, 5
      AdamW steps on one synthetic batch (the loss finite and descending,
      steps/s, peak GiB, no K7 launch; with the K7 opt-in the step raises);
@@ -175,7 +184,10 @@ Phases, each printed on its own line; any failure exits nonzero:
      against one process on the 4 (losses within 1e-5 relative; the first
      gradient within 1e-6 x max |g| of the mean of the two halves'
      gradients taken in one process, and within 2e-5 x max |g| of the
-     whole batch's; the weights' mean |d| within 1e-2 x lr).
+     whole batch's; the weights' mean |d| within 1e-2 x lr); 5 steps at
+     tp=2 over [cuda:0, cuda:0] (the ViT split Megatron-style) against 5
+     on one device from the same weights, TF32 off: the first loss within
+     1e-5 relative, the first gradient within 1e-5 x max |g|.
 
 Optional, run only when named: (k2shapes) K2 built at other strip widths,
 rows per step and CTAs per SM, each checked and timed against the default
@@ -232,6 +244,9 @@ KERNEL_TABLE = {
 # the kernels of each main path: the render's four, the DOF render's K6 (on
 # top of the four), the depth route's attention, the frame tools' conv
 RENDER_KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats")
+# K3's and K4's band forms (the row-sharded renders): (band entry, finish entry)
+BAND_ENTRIES = {"quantile_pair": ("quantile_hist_band", "quantile_pair_finish"),
+                "subject_stats": ("subject_hist_band", "subject_stats_finish")}
 DOF_KERNELS = ("dof_grade",)
 DEPTH_KERNELS = ("vmem_attention",)
 TOOLS_KERNELS = ("conv3x3",)
@@ -698,11 +713,90 @@ def phase_kernels(card: str) -> dict:
     say(f"PHASE kernels subject_stats bit-exact on 4 crops ({', '.join(crops)}), "
         f"max_abs_err=0, cluster of {stats.cluster_size()} CTAs, 1 device event per call "
         f"{line}; {floor_note}")
+    band_kernels(card, depth, results, floor_note)
     del frame, depth, shift, base, left, right, dl, dr, args, got, ref, diff, crops, crop
     phase_conv_kernel(card, results)
     phase_dof_kernel(card, results)
     phase_attention_kernel(card, results)
     return results
+
+
+def band_kernels(card: str, depth, results: dict, floor_note: str):
+    """K3's and K4's band forms, the statistics of a frame held as row bands
+    (the sp and pp=2,dp>1 renders): the 1080p map cut into 2 and 3 bands
+    (the 3-way cuts at rows 360 and 720 fall inside K4's crop, rows 216 to
+    864), each band counted into its device's buffer, the buffers summed
+    and finished; held bit for bit against the one-shot kernels and the
+    plain band forms (the buffers too). Times by graph replay: a band
+    kernel on the first of 2 bands (540 rows), a finish on the summed
+    counts; plain versions by the host loop. Bound (bytes): a band reads
+    its values once and writes its counts once (4097 or 4161 int32); a
+    finish reads the counts and writes 2 or 66 float32. Stored under the
+    K3 and K4 rows as their "band" entries."""
+    import torch
+
+    from visiondepth3d_tpu_torch.kernels import stats
+
+    r0, r1, c0, c1 = H // 5, H * 4 // 5, W // 5, W * 4 // 5
+    one_q = stats.quantile_pair_cuda(depth, 0.02, 0.98)
+    one_s = stats.subject_stats_cuda(depth[r0:r1, c0:c1])
+    host = depth.cpu()
+    for cuts in ((0, 540, H), (0, 360, 720, H)):
+        bands = list(zip(cuts[:-1], cuts[1:]))
+        hist, hist_p, buf, buf_p = None, None, None, None
+        for a, b in bands:
+            hist = stats.quantile_hist_band_cuda(depth[a:b], hist if hist is not None else
+                                                 torch.zeros(stats.QHIST_BINS, dtype=torch.int32,
+                                                             device=depth.device))
+            hist_p = stats.quantile_hist_band(host[a:b], hist_p)
+            lo, hi = max(a, r0), min(b, r1)
+            buf = stats.subject_hist_band(depth[lo:hi, c0:c1], buf)
+            buf_p = stats.subject_hist_band(host[lo:hi, c0:c1], buf_p)
+        q = stats.quantile_pair_finish_cuda(hist, H * W, 0.02, 0.98)
+        subj = stats.subject_stats_finish_cuda(buf)
+        plain_q = stats.quantile_pair_finish_torch(hist_p, H * W, 0.02, 0.98)
+        plain_s = stats.subject_stats_finish_torch(buf_p)
+        expect(torch.equal(hist.cpu(), hist_p) and torch.equal(buf.cpu(), buf_p),
+               f"band counts over {cuts} differ from the plain band forms")
+        expect(torch.equal(q, one_q) and torch.equal(q.cpu(), plain_q),
+               f"quantile pair over bands {cuts}: {q.tolist()}, one-shot {one_q.tolist()}, "
+               f"plain {plain_q.tolist()}")
+        for part, a, b, c in zip(("hist", "count", "median"), subj, one_s, plain_s):
+            expect(torch.equal(a, b) and torch.equal(a.cpu(), c),
+                   f"subject stats over bands {cuts}: {part} {a} vs {b} vs {c}")
+    band, crop_band = depth[:540], depth[r0:540, c0:c1]
+    zq = torch.zeros(stats.QHIST_BINS, dtype=torch.int32, device=depth.device)
+    zs = torch.zeros(stats.SUBJECT_BAND, dtype=torch.int32, device=depth.device)
+    entries = {
+        "quantile_pair": (
+            lambda: stats.quantile_hist_band_cuda(band, zq),
+            lambda: stats.quantile_hist_band_torch(band, torch.zeros_like(zq)),
+            lambda: stats.quantile_pair_finish_cuda(hist, H * W, 0.02, 0.98),
+            lambda: stats.quantile_pair_finish_torch(hist, H * W, 0.02, 0.98),
+            4 * band.numel() + 4 * stats.QHIST_BINS, 4 * stats.QHIST_BINS + 8),
+        "subject_stats": (
+            lambda: stats.subject_hist_band_cuda(crop_band, zs),
+            lambda: stats.subject_hist_band_torch(crop_band, torch.zeros_like(zs)),
+            lambda: stats.subject_stats_finish_cuda(buf),
+            lambda: stats.subject_stats_finish_torch(buf),
+            4 * crop_band.numel() + 4 * stats.SUBJECT_BAND, 4 * stats.SUBJECT_BAND + 4 * 66),
+    }
+    for name, (band_fn, band_plain, fin_fn, fin_plain, band_bytes, fin_bytes) in entries.items():
+        bt, ft = kernel_times(band_fn, runs=100), kernel_times(fin_fn, runs=100)
+        entry = {"band_ms": bt["ms"], "band_bound_ms": bound(0, band_bytes, "float32")[0],
+                 "plain_band_ms": time_ms(band_plain), "finish_ms": ft["ms"],
+                 "finish_bound_ms": bound(0, fin_bytes, "float32")[0],
+                 "plain_finish_ms": time_ms(fin_plain)}
+        results[(name, torch.float32)]["band"] = entry
+        rows = (f"{band.shape[0]} rows" if name == "quantile_pair"
+                else f"rows {r0}-540 x {crop_band.shape[1]} of the crop")
+        say(f"PHASE kernels {name} band forms bit-exact over 2 and 3 bands (against the one-shot "
+            f"kernel and the plain band forms); band ({rows}): {fmt_times(bt)} plain "
+            f"{entry['plain_band_ms']:.4f} ms bound {entry['band_bound_ms']:.6f} ms (bytes); "
+            f"finish: {fmt_times(ft)} plain {entry['plain_finish_ms']:.4f} ms bound "
+            f"{entry['finish_bound_ms']:.6f} ms (bytes); {floor_note} [{card}]")
+        expect(bt["events"] == 1 and ft["events"] == 1,
+               f"{name} band forms: {bt['events']} and {ft['events']} device operations a call")
 
 
 # K2 shapes (strip width TW, rows per step RB, CTAs per SM the registers
@@ -3532,8 +3626,216 @@ def phase_mesh(card: str, tmp: Path) -> dict:
         f"{walls['dp=2']:.2f} s; min-max u8 mean |d| dp=2 vs dp=1 {dm:.4f} (need <= 1), finite "
         f"{finite}; K7 launches at dp=2 {counts['vmem_attention']} [{card}]")
     expect(finite and dm <= 1.0, f"DepthCrafter dp=2 vs dp=1: mean |d| {dm:.4f} u8")
+    mesh_sharded(card, tmp, pred, params, base, launches)
     say(f"PHASE mesh launches {json.dumps(launches)}")
     return launches
+
+
+def band_launches(frames: int, bands: int, dof: bool = False) -> dict:
+    """The kernel launches of a render whose stereo step runs in row bands:
+    K1, K2 (and K6) once per band per frame; K3's band form twice and K4's
+    three times per band per frame, each finish once per use per frame."""
+    want = {"stereo_warp": frames * bands, "feather_heal": frames * bands,
+            "quantile_hist_band": 2 * frames * bands, "quantile_pair_finish": 2 * frames,
+            "subject_hist_band": 3 * frames * bands, "subject_stats_finish": 3 * frames}
+    if dof:
+        want["dof_grade"] = frames * bands
+    return want
+
+
+def gray_diff(a_path, b_path, every: int = 8) -> tuple[float, float]:
+    """(mean |d| in u8 over the first channel of every frame, min SSIM over
+    every `every`-th frame) of two y4m clips."""
+    import numpy as np
+
+    a, b = (read_clip(p)[2][..., 0] for p in (a_path, b_path))
+    expect(a.shape == b.shape, f"clip shapes {a.shape} and {b.shape}")
+    dm = float(np.abs(a.astype(np.int16) - b.astype(np.int16)).mean())
+    return dm, min(ssim_gray(x, y) for x, y in zip(a[::every], b[::every]))
+
+
+def mesh_sharded(card: str, tmp: Path, pred, params, base, launches: dict):
+    """The row- and tensor-sharded meshes on cuda:0 repeated (their
+    overhead, not their scaling), each against its one-device twin:
+    sp=2 fused render (16 frames of 1080p, the model on each device's 8
+    frames, the stereo step in two row bands), byte for byte against one
+    device at chunks of 8 (the model's batch per device), and within mean
+    |d| <= 1 u8 and SSIM >= 0.99 of one device at chunks of 16; sp=2 with
+    depth of field; dp=2,sp=2 (32 frames) against the segments alone;
+    pp=2,dp=2 (16 frames) against one device at chunks of 8; sp=2 at
+    3840x2160 (8 frames, the size sp exists for) against one device at
+    chunks of 4; the tp=2 depth route (K7 opt-in, batch 8: K7 at [8, 1370,
+    3, 64] twice a layer), in bf16 no further from the float32 one-device
+    route than one device in bf16 (+ 0.25 u8) and within SSIM 0.99 of it,
+    in float32 within mean |d| <= 0.5 u8 and SSIM >= 0.995 of one device;
+    the tp=2 fused render within mean |d| <= 1 u8 and SSIM >= 0.99 of one
+    device. Launches counted on each."""
+    import torch
+
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
+                                                                 render_depth_video_file)
+    from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import render_stereo_video
+
+    dev = torch.device("cuda", 0)
+    clip = warm_clip(tmp)
+    one8 = dataclasses.replace(base, mesh="off", chunk_size=8)
+    one16 = dataclasses.replace(base, mesh="off")
+
+    def render(src, out, cfg, n_dev, p=params, **kw):
+        return counted(lambda: render_stereo_video(src, None, tmp / out, p, cfg, predictor=pred,
+                                                   devices=[dev] * n_dev, **kw))
+
+    def check(counts, want, what):
+        got = {k: v for k, v in counts.items() if v}
+        expect(got == want, f"{what} launches {got}, want {want}")
+        launches[what] = got
+
+    # 1. sp=2 fused render, 16 frames
+    sp_cfg = dataclasses.replace(base, mesh="sp=2")
+    render(clip, "sp_warm.y4m", sp_cfg, 2)
+    _, wall, counts = render(clip, "sp.y4m", sp_cfg, 2)
+    check(counts, band_launches(16, 2), "sp render")
+    render(clip, "sp_one8.y4m", one8, 1)
+    _, wall1, _ = render(clip, "sp_one16.y4m", one16, 1)
+    same = y4m_body(tmp / "sp.y4m") == y4m_body(tmp / "sp_one8.y4m")
+    dm, ssim = gray_diff(tmp / "sp.y4m", tmp / "sp_one16.y4m")
+    prof = device_profile(lambda: render_stereo_video(clip, None, tmp / "sp_prof.y4m", params,
+                                                      sp_cfg, predictor=pred,
+                                                      devices=[dev, dev]))
+    prof1 = device_profile(lambda: render_stereo_video(clip, None, tmp / "one_prof.y4m",
+                                                       params, one16, predictor=pred))
+
+    def per_frame(p):
+        return "not measured" if p is None else f"{p['device_ms'] / 16:.3f} ms"
+
+    say(f"PHASE mesh sp render: sp=2 over [cuda:0, cuda:0], 16 frames 1920x1080 -> Full-SBS "
+        f"(DA-V2-S 518 bf16, chunks of 16: 8 frames a device for the model, two row bands of "
+        f"540 for the stereo step): {16 / wall:.2f} fps (one device {16 / wall1:.2f}), device "
+        f"time per frame {per_frame(prof)} (one device {per_frame(prof1)}); byte-identical to "
+        f"one device at chunks of 8: {same}; against chunks of 16 mean |d| {dm:.4f} u8 (need "
+        f"<= 1), min SSIM {ssim:.5f} (need >= 0.99); launches "
+        f"{json.dumps(launches['sp render'])} [{card}]")
+    expect(same and dm <= 1.0 and ssim >= 0.99,
+           f"sp render: identical {same}, mean |d| {dm:.4f}, SSIM {ssim:.5f}")
+
+    # 2. sp=2 with depth of field
+    dof = params.replace(dof_strength=2.0)
+    _, wall, counts = render(clip, "sp_dof.y4m", sp_cfg, 2, p=dof)
+    check(counts, band_launches(16, 2, dof=True), "sp DOF render")
+    render(clip, "sp_dof_one8.y4m", one8, 1, p=dof)
+    same = y4m_body(tmp / "sp_dof.y4m") == y4m_body(tmp / "sp_dof_one8.y4m")
+    say(f"PHASE mesh sp DOF render: sp=2, dof_strength 2, 16 frames: {16 / wall:.2f} fps; "
+        f"byte-identical to one device at chunks of 8: {same}; launches "
+        f"{json.dumps(launches['sp DOF render'])} [{card}]")
+    expect(same, "the sp=2 DOF render differs from one device")
+
+    # 3. dp=2,sp=2 over the card 4 times: 32 frames, two segments of 16
+    seg_cfg = dataclasses.replace(base, mesh="dp=2,sp=2")
+    _, wall, counts = render(tmp / "mesh_1080p.y4m", "dpsp.y4m", seg_cfg, 4)
+    check(counts, band_launches(MESH_FRAMES, 2), "dp x sp render")
+    for g in range(2):
+        render(tmp / f"mesh_seg{g}.y4m", f"dpsp_seg{g}.y4m", one8, 1)
+    twin = b"".join(y4m_body(tmp / f"dpsp_seg{g}.y4m") for g in range(2))
+    same = y4m_body(tmp / "dpsp.y4m") == twin
+    say(f"PHASE mesh dp x sp render: dp=2,sp=2 over [cuda:0] * 4, {MESH_FRAMES} frames: "
+        f"{MESH_FRAMES / wall:.2f} fps; byte-identical to the segments alone at chunks of 8: "
+        f"{same}; launches {json.dumps(launches['dp x sp render'])} [{card}]")
+    expect(same, "the dp=2,sp=2 render differs from its segments")
+
+    # 4. pp=2,dp=2 over the card 4 times: 16 frames
+    pp_cfg = dataclasses.replace(base, mesh="pp=2,dp=2")
+    _, wall, counts = render(clip, "ppdp.y4m", pp_cfg, 4)
+    check(counts, band_launches(16, 2), "pp x dp render")
+    same = y4m_body(tmp / "ppdp.y4m") == y4m_body(tmp / "sp_one8.y4m")
+    say(f"PHASE mesh pp x dp render: pp=2,dp=2 over [cuda:0] * 4 (slice A: the frames split "
+        f"over 2, slice B: 2 row bands), 16 frames: {16 / wall:.2f} fps; byte-identical to "
+        f"one device at chunks of 8: {same}; launches "
+        f"{json.dumps(launches['pp x dp render'])} [{card}]")
+    expect(same, "the pp=2,dp=2 render differs from one device")
+
+    # 5. sp=2 at 3840x2160, 8 frames, the eye at the source size
+    clip4k = tmp / "clip_2160p.y4m"
+    write_clip(clip4k, 3840, 2160, 8)
+    cfg4k = dataclasses.replace(base, preserve_original_aspect=True, chunk_size=8)
+    sp4k = dataclasses.replace(cfg4k, mesh="sp=2")
+    render(clip4k, "sp4k_warm.y4m", sp4k, 2)
+    _, wall, counts = render(clip4k, "sp4k.y4m", sp4k, 2)
+    check(counts, band_launches(8, 2), "sp 2160p render")
+    render(clip4k, "sp4k_one4.y4m", dataclasses.replace(cfg4k, mesh="off", chunk_size=4), 1)
+    _, wall1, _ = render(clip4k, "sp4k_one8.y4m", dataclasses.replace(cfg4k, mesh="off"), 1)
+    same = y4m_body(tmp / "sp4k.y4m") == y4m_body(tmp / "sp4k_one4.y4m")
+    say(f"PHASE mesh sp 2160p render: sp=2, 8 frames 3840x2160 -> 7680x2160 Full-SBS (two "
+        f"row bands of 1080): {8 / wall:.2f} fps (one device {8 / wall1:.2f}); byte-identical "
+        f"to one device at chunks of 4: {same} [{card}]")
+    expect(same, "the 2160p sp=2 render differs from one device")
+
+    # 6. tp=2 depth route, K7 opt-in: 16 frames, batch 8
+    layers = pred.cfg.backbone.num_layers
+    dcfg = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda", mesh="tp=2")
+    shapes = []
+    spy_of = attn_ops.kattention.vmem_attention
+
+    def spy(q, k, v):
+        shapes.append(tuple(q.shape))
+        return spy_of(q, k, v)
+
+    try:
+        attn_ops.USE_VMEM_KERNEL = True
+        attn_ops.kattention.vmem_attention = spy
+        render_depth_video_file(tmp / "mesh_depth.y4m", tmp / "tp_depth_warm.y4m", dcfg,
+                                predictor=pred, devices=[dev, dev])
+        shapes.clear()
+        n, wall, counts = counted(lambda: render_depth_video_file(
+            tmp / "mesh_depth.y4m", tmp / "tp_depth.y4m", dcfg, predictor=pred,
+            devices=[dev, dev]))
+    finally:
+        attn_ops.USE_VMEM_KERNEL = False
+        attn_ops.kattention.vmem_attention = spy_of
+    check(counts, {"vmem_attention": layers * 2 * 2}, "tp depth")
+    expect(n == 16 and set(shapes) == {(8, 1370, 3, 64)}, f"tp depth: {n} frames, K7 at "
+                                                          f"{sorted(set(shapes))}")
+    # The split sums each row-wise GEMM's float32 partials in another order
+    # than one GEMM does, so about 0.02-0.08 % of a block's bf16 outputs
+    # move by one ulp; the random-weight model amplifies such moves as it
+    # amplifies bf16 against float32. So in bf16 the split is held, as K7 is
+    # (phase depth), to be no further from the float32 one-device route than
+    # one device in bf16 is (+ 0.25 u8), and within SSIM 0.99 of it; in
+    # float32 (TF32 off, SDPA) the split is held within mean |d| <= 0.5 u8
+    # and SSIM >= 0.995 of one device.
+    f32 = da_predictor("cuda", "float32")
+    fcfg = DepthConfig(batch_size=8, device="cuda", mesh="off")
+    with no_tf32():
+        render_depth_video_file(tmp / "mesh_depth.y4m", tmp / "tp_depth_f32_one.y4m", fcfg,
+                                predictor=f32)
+        render_depth_video_file(tmp / "mesh_depth.y4m", tmp / "tp_depth_f32.y4m",
+                                dataclasses.replace(fcfg, mesh="tp=2"), predictor=f32,
+                                devices=[dev, dev])
+    dm, ssim = gray_diff(tmp / "tp_depth.y4m", tmp / "mesh_depth_b8.y4m", every=4)
+    d_tp, _ = gray_diff(tmp / "tp_depth.y4m", tmp / "tp_depth_f32_one.y4m", every=16)
+    d_one, _ = gray_diff(tmp / "mesh_depth_b8.y4m", tmp / "tp_depth_f32_one.y4m", every=16)
+    dm32, ssim32 = gray_diff(tmp / "tp_depth_f32.y4m", tmp / "tp_depth_f32_one.y4m", every=4)
+    say(f"PHASE mesh tp depth: tp=2 over [cuda:0, cuda:0], 16 frames 1080p, batch 8, K7 opt-in "
+        f"(K7 at [8, 1370, 3, 64], {counts['vmem_attention']} launches): {16 / wall:.2f} fps; "
+        f"bf16 against one device mean |d| {dm:.4f} u8, min SSIM {ssim:.5f} (need >= 0.99); "
+        f"against the float32 one-device route tp=2 bf16 {d_tp:.4f} u8, one device bf16 "
+        f"{d_one:.4f} u8 (need tp <= one device + 0.25); float32 (TF32 off) tp=2 against one "
+        f"device mean |d| {dm32:.4f} u8 (need <= 0.5), min SSIM {ssim32:.5f} (need >= 0.995) "
+        f"[{card}]")
+    expect(ssim >= 0.99 and d_tp <= d_one + 0.25 and dm32 <= 0.5 and ssim32 >= 0.995,
+           f"tp depth: bf16 mean |d| {dm:.4f}, SSIM {ssim:.5f}, {d_tp:.4f} vs {d_one:.4f} "
+           f"from float32; float32 {dm32:.4f}, SSIM {ssim32:.5f}")
+
+    # 7. tp=2 fused render, 16 frames
+    tp_cfg = dataclasses.replace(base, mesh="tp=2")
+    render(clip, "tp_warm.y4m", tp_cfg, 2)
+    _, wall, counts = render(clip, "tp.y4m", tp_cfg, 2)
+    check(counts, {k: v * 16 for k, v in PER_FRAME.items()}, "tp render")
+    dm, ssim = gray_diff(tmp / "tp.y4m", tmp / "sp_one16.y4m")
+    say(f"PHASE mesh tp render: tp=2 over [cuda:0, cuda:0], 16 frames: {16 / wall:.2f} fps; "
+        f"against one device mean |d| {dm:.4f} u8 (need <= 1), min SSIM {ssim:.5f} (need >= "
+        f"0.99); launches {json.dumps(launches['tp render'])} [{card}]")
+    expect(dm <= 1.0 and ssim >= 0.99, f"tp render: mean |d| {dm:.4f}, SSIM {ssim:.5f}")
 
 
 TRAIN_SIZE, TRAIN_BATCH, TRAIN_LR = 518, 4, 1e-4
@@ -3635,6 +3937,46 @@ def phase_train(card: str, tmp: Path):
         f"{times[0]:.2f} s), peak allocated {peak / 2**30:.3f} GiB; K7 launches 0; with the "
         f"K7 opt-in the step raises [{card}]")
     del trainer
+    torch.cuda.empty_cache()
+
+    # 1b. tp=2 over [cuda:0, cuda:0] against one device: the same 5 steps
+    # from the same weights, the ViT's attention and MLP blocks split
+    # Megatron-style; TF32 off on both (TF32 convolutions round the neck's
+    # inputs to 10 bits, which turns the split's float32 summation order
+    # into differences of 1e-4 x max |g|)
+    from visiondepth3d_tpu_torch.parallel import make_mesh
+    from visiondepth3d_tpu_torch.parallel.tp import full_state_dict
+
+    dev = torch.device("cuda", 0)
+    runs = {}
+    with no_tf32():
+        for name, mesh in (("one", None), ("tp", make_mesh(dp=1, tp=2, devices=[dev, dev]))):
+            t = Trainer(DA_V2_SMALL, learning_rate=TRAIN_LR, device="cuda").init(
+                torch.Generator().manual_seed(0), mesh=mesh)
+            run_losses, run_times = [], []
+            for i in range(5):
+                loss, wall, _ = counted(lambda: t.step(frames, targets))
+                run_losses.append(loss)
+                run_times.append(wall)
+                if i == 0:
+                    grad = full_state_dict(t.module, grads=True)
+            runs[name] = (run_losses, run_times, grad)
+            del t
+            torch.cuda.empty_cache()
+    (one_l, one_t, one_g), (tp_l, tp_t, tp_g) = runs["one"], runs["tp"]
+    expect(set(tp_g) == set(one_g), "tp=2 gradients under other names")
+    top = max(float(g.abs().max()) for g in one_g.values())
+    gerr = max(float((tp_g[k] - g).abs().max()) for k, g in one_g.items()) / top
+    lrel = [abs(a - b) / abs(b) for a, b in zip(tp_l, one_l)]
+    say(f"PHASE train tp: tp=2 over [cuda:0, cuda:0] against one device, DA-V2-Small "
+        f"{TRAIN_SIZE}^2, batch {TRAIN_BATCH}, TF32 off, 5 steps from the same weights: losses "
+        f"{', '.join(f'{x:.6f}' for x in tp_l)} (one device "
+        f"{', '.join(f'{x:.6f}' for x in one_l)}), relative "
+        f"{', '.join(f'{x:.2e}' for x in lrel)} (need the first <= 1e-5); first gradient max "
+        f"|d| / max |g| {gerr:.2e} (need <= 1e-5); {1 / statistics.median(tp_t[1:]):.3f} "
+        f"steps/s (one device {1 / statistics.median(one_t[1:]):.3f}) [{card}]")
+    expect(lrel[0] <= 1e-5 and gerr <= 1e-5, f"tp=2 train: loss rel {lrel}, grad {gerr}")
+    del runs, one_g, tp_g
     torch.cuda.empty_cache()
 
     # 2. card against CPU, one step at 140^2, TF32 off
@@ -3774,9 +4116,11 @@ def main(argv=None) -> int:
                 timed("product", phase_product, card, tmp)
             if "serve" in phases:
                 timed("serve", phase_serve, card, tmp)
-            for name, fn in (("mesh", phase_mesh), ("train", phase_train)):
-                if name in phases:
-                    timed(name, fn, card, tmp)
+            mesh_counts = {}
+            if "mesh" in phases:
+                mesh_counts = timed("mesh", phase_mesh, card, tmp)
+            if "train" in phases:
+                timed("train", phase_train, card, tmp)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                         ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))
         expect(not leaked, f"the JAX package or jax was imported: {leaked}")
@@ -3796,10 +4140,17 @@ def main(argv=None) -> int:
         if key not in kernels:
             continue
         k = kernels[key]
-        table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                      "launches": counts.get(name), "max_abs_err": k["err"], "ms": k["ms"],
-                      "plain_ms": k["plain"], "bound_ms": k["bound_ms"],
-                      "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": counts.get(name), "max_abs_err": k["err"], "ms": k["ms"],
+               "plain_ms": k["plain"], "bound_ms": k["bound_ms"],
+               "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+        if "band" in k:
+            # the band forms, with their launches on the sp=2 render of the mesh phase
+            band, finish = BAND_ENTRIES[name]
+            sp = mesh_counts.get("sp render", {})
+            row["band"] = dict(k["band"], bound_by="bytes", band_launches=sp.get(band),
+                               finish_launches=sp.get(finish))
+        table.append(row)
     say(card_line())
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -243,16 +243,17 @@ def test_tiling_helpers_match_jax():
 
 
 def test_unported_depth_routes_raise(tmp_path):
-    """Row and tensor meshes stay refused (ROADMAP Queue 1 item 6b); dp=2
-    runs on the CPU twice, on the feed-forward route (a tiny predictor, 3
-    frames) and on DepthCrafter's (the tiny random pipeline, one 16 x 16
-    frame)."""
+    """The depth route's row mesh stays refused (ROADMAP Queue 1 item 6c);
+    dp=2 runs on the CPU twice, on the feed-forward route (a tiny
+    predictor, 3 frames) and on DepthCrafter's (the tiny random pipeline,
+    one 16 x 16 frame), whose windows spread over the dp devices only
+    under dp=2,tp=2, as in the JAX package."""
     from visiondepth3d_tpu_torch.depth.registry import load_predictor
 
     clip = tmp_path / "clip.y4m"
     _write_clip(clip, 16, 16, 1)
-    for kw in (dict(mesh="sp=2"), dict(model="depthcrafter", mesh="dp=2,tp=2")):
-        with pytest.raises(NotImplementedError, match="6b"):
+    for kw in (dict(mesh="sp=2"), dict(model="depthcrafter", mesh="dp=2,sp=2")):
+        with pytest.raises(NotImplementedError, match="6c"):
             render_depth_video_file(clip, tmp_path / "x.y4m", DepthConfig(device="cpu", **kw))
     three = tmp_path / "three.y4m"
     _write_clip(three, 16, 16, 3)
@@ -262,7 +263,7 @@ def test_unported_depth_routes_raise(tmp_path):
                                    DepthConfig(device="cpu", mesh="dp=2", batch_size=2),
                                    predictor=pred) == 3
     assert _read(tmp_path / "dp.y4m").shape == (3, 16, 16)
-    for mesh in ("off", "dp=2"):
+    for mesh in ("off", "dp=2", "dp=2,tp=2"):
         assert render_depth_video_file(clip, tmp_path / "dc.y4m",
                                        DepthConfig(model="depthcrafter", device="cpu",
                                                    allow_random=True, window_size=4,

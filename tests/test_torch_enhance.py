@@ -329,11 +329,11 @@ def test_merged_pipeline_upscaled_size_and_weights_error(tmp_path):
     with pytest.raises(ValueError, match="converted checkpoints"):
         run_merged_pipeline(src, tmp_path / "x.y4m", EnhanceConfig(rife_scales=(2, 1)),
                             device="cpu")
-    # dp=2 on the CPU twice: the same bytes as one device; tp still refused
+    # dp=2 on the CPU twice: the same bytes as one device; tp refused (dp only)
     assert run_merged_pipeline(src, tmp_path / "dp.y4m", cfg, mesh_axes={"dp": 2},
                                device="cpu") == 3
     assert (tmp_path / "dp.y4m").read_bytes() == (tmp_path / "out.y4m").read_bytes()
-    with pytest.raises(NotImplementedError, match="6b"):
+    with pytest.raises(ValueError, match="only the dp"):
         run_merged_pipeline(src, tmp_path / "x.y4m", cfg, mesh_axes={"dp": 2, "tp": 2},
                             device="cpu")
 

@@ -24,8 +24,15 @@ says otherwise:
 - DepthCrafter's ``run_raw_parallel`` with JAX's noise injected through
   the one noise method: within 1e-4 of the depth's range, float32; the
   route with ``mesh="dp=2"`` writes every frame;
-- ``sp``, ``tp`` and ``pp=2,dp>1`` raise NotImplementedError naming item
-  6b; ``resume`` or a clip window with a ``dp`` mesh raises ValueError;
+- ``dp=2,sp=2`` over [cpu] * 4 equals the two segments rendered alone,
+  byte for byte; ``sp=2`` on the fused route and ``pp=2,dp=2`` equal one
+  device at the per-device chunk (``chunk_size / 2``) byte for byte, and
+  JAX's one-device render within the bound (the row bands themselves are
+  held to one device in ``tests/test_torch_halo.py``);
+- ``render_chunk_spatial`` equals ``render_chunk``; a mesh with too few
+  devices for its axes raises ValueError, ``depth --mesh sp`` raises
+  NotImplementedError naming item 6c; ``resume`` or a clip window with a
+  ``dp`` mesh raises ValueError;
   the default ``auto`` with a window renders the window on one device; a
   cancelled ``dp=2`` render keeps a gapless start of the clip;
 - every kernel wrapper launches through ``kernels/_lib.launch``, which
@@ -194,7 +201,7 @@ def test_make_mesh_and_replicas(weights):
 def test_render_segments_match_render_chunk():
     """parallel.render_segments: each segment on its mesh device with its
     own trackers, equal to render_chunk of that segment alone; the row
-    split (sp) is not ported."""
+    split (sp, render_chunk_spatial) equals render_chunk too."""
     from visiondepth3d_tpu_torch.parallel import init_trackers_batch, render_chunk_spatial
     from visiondepth3d_tpu_torch.parallel import render_segments
     from visiondepth3d_tpu_torch.state import init_trackers
@@ -210,9 +217,15 @@ def test_render_segments_match_render_chunk():
         t, want = render_chunk(params, init_trackers(24, 32, "cpu"), frames[i], depths[i])
         assert torch.equal(outs[i].left, want.left) and torch.equal(outs[i].right, want.right)
         assert torch.equal(trackers[i].prev_depth, t.prev_depth)
-    with pytest.raises(NotImplementedError, match="6b"):
-        render_chunk_spatial(params, trackers[0], frames[0], depths[0],
-                             make_mesh(dp=1, sp=2, devices=CPU2))
+    from visiondepth3d_tpu_torch.parallel.dp import spatial_layout
+    from visiondepth3d_tpu_torch.stereo.bands import init_band_trackers
+
+    mesh = make_mesh(dp=1, sp=2, devices=CPU2)
+    layout = spatial_layout(params, 24, 32, mesh)
+    _, got = render_chunk_spatial(params, init_band_trackers(layout, 32), frames[0], depths[0],
+                                  mesh)
+    _, want = render_chunk(params, init_trackers(24, 32, "cpu"), frames[0], depths[0])
+    assert torch.equal(got.left, want.left) and torch.equal(got.right, want.right)
 
 
 # ------------------------------------------------------------------ renders
@@ -274,6 +287,48 @@ def test_pp_render_matches_fused_and_jax(tmp_path, weights):
             JConfig(mesh="pp=2", preserve_original_aspect=True, chunk_size=4),
             predictor=_jax_predictor(params))
     _within_bound(_read(tmp_path / "pp.y4m"), _read(tmp_path / "jax.y4m"))
+
+
+def test_dp_sp_render_matches_segments(tmp_path):
+    """dp=2,sp=2 over [cpu] * 4 (two segments, each in two row bands): the
+    segments rendered alone on one device, concatenated, byte for byte."""
+    _write_clip(tmp_path / "clip.y4m")
+    _write_depth(tmp_path / "depth.y4m")
+    render_stereo_video(tmp_path / "clip.y4m", tmp_path / "depth.y4m", tmp_path / "m.y4m",
+                        None, _cfg(mesh="dp=2,sp=2"), devices=CPU2 * 2)
+    twin = []
+    for s, e in segment_bounds(T, 2):
+        _write_clip(tmp_path / f"c{s}.y4m", e - s, s)
+        _write_depth(tmp_path / f"d{s}.y4m", e - s, s)
+        render_stereo_video(tmp_path / f"c{s}.y4m", tmp_path / f"d{s}.y4m",
+                            tmp_path / f"o{s}.y4m", None, _cfg(mesh="off"))
+        twin.append(_read(tmp_path / f"o{s}.y4m"))
+    assert np.array_equal(_read(tmp_path / "m.y4m"), np.concatenate(twin))
+
+
+@pytest.mark.parametrize("spec", ["sp=2", "pp=2,dp=2"])
+def test_frame_split_renders_match_one_device_and_jax(tmp_path, weights, spec):
+    """The fused sp=2 render (the model on each sp device's frames, the
+    stereo step in two row bands) and pp=2,dp=2 (slice A splits the frames,
+    slice B renders row bands) over the CPU: one device at chunks of 2 (the
+    model's batch per device) byte for byte; JAX's one-device render
+    within the bound."""
+    from visiondepth3d_tpu.pipeline.stereo_pipeline import RenderConfig as JConfig
+    from visiondepth3d_tpu.pipeline.stereo_pipeline import render_stereo_video as jrender
+
+    params, pred = weights
+    _write_clip(tmp_path / "clip.y4m", t=10)
+    n = 2 if spec == "sp=2" else 4
+    prog = render_stereo_video(tmp_path / "clip.y4m", None, tmp_path / "mesh.y4m", None,
+                               _cfg(mesh=spec), predictor=pred, devices=CPU2[:1] * n)
+    render_stereo_video(tmp_path / "clip.y4m", None, tmp_path / "one.y4m", None,
+                        dataclasses.replace(_cfg(mesh="off"), chunk_size=2), predictor=pred)
+    assert prog.frames_done == 10
+    assert (tmp_path / "mesh.y4m").read_bytes() == (tmp_path / "one.y4m").read_bytes()
+    jrender(tmp_path / "clip.y4m", None, tmp_path / "jax.y4m", None,
+            JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4),
+            predictor=_jax_predictor(params))
+    _within_bound(_read(tmp_path / "mesh.y4m"), _read(tmp_path / "jax.y4m"))
 
 
 def test_degenerate_clip_and_snapped_segments(tmp_path):
@@ -495,9 +550,9 @@ def test_depthcrafter_mesh_route(tmp_path):
 # ------------------------------------------------------------------ refusals
 
 REFUSED = {
-    "render_sp": ("render", dict(mesh="dp=2,sp=2"), NotImplementedError),
-    "render_tp": ("render", dict(mesh="tp=2"), NotImplementedError),
-    "render_pp_dp": ("render", dict(mesh="dp=2,pp=2"), NotImplementedError),
+    "render_sp": ("render", dict(mesh="dp=2,sp=2"), ValueError),  # 4 devices, 2 given
+    "render_tp": ("render", dict(mesh="tp=3"), ValueError),
+    "render_pp_dp": ("render", dict(mesh="dp=2,pp=2"), ValueError),
     "depth_sp": ("depth", dict(mesh="sp=2"), NotImplementedError),
     "depth_pp": ("depth", dict(mesh="pp=2"), ValueError),
     "render_window": ("render", dict(mesh="dp=2", start_s=0.1), ValueError),
@@ -509,7 +564,7 @@ REFUSED = {
 def test_still_refused(tmp_path, weights, case):
     what, kw, err = REFUSED[case]
     _write_clip(tmp_path / "clip.y4m", t=6)
-    match = "6b" if err is NotImplementedError else None
+    match = "6c" if err is NotImplementedError else None
     with pytest.raises(err, match=match):
         if what == "render":
             render_stereo_video(tmp_path / "clip.y4m", None, tmp_path / "o.y4m", None,
@@ -581,6 +636,16 @@ def _kernel_calls(dev, dtype=torch.float32):
     x, w, b = r(1, 10, 12, 16), r(3, 3, 16, 8) * 0.1, r(8)
     q = r(2, 520, 2, 32)
     fd = depth.float()
+
+    def qhist(d):
+        return torch.zeros(stats.QHIST_BINS, dtype=torch.int32, device=d)
+
+    def sbuf(d):
+        return torch.zeros(stats.SUBJECT_BAND, dtype=torch.int32, device=d)
+
+    # the counts of the finish calls: the whole map's, and the crop's
+    hist = stats.quantile_hist_band_torch(fd.cpu(), qhist("cpu")).to(dev)
+    subj = stats.subject_hist_band_torch(fd[4:20, 6:34].cpu(), sbuf("cpu")).to(dev)
     return {
         "stereo_warp": (lambda: warp.stereo_warp_cuda(frame, depth, shift),
                         lambda: warp.stereo_warp_torch(frame, depth, shift)),
@@ -597,6 +662,15 @@ def _kernel_calls(dev, dtype=torch.float32):
                                                   2.0)),
         "vmem_attention": (lambda: attention.vmem_attention_cuda(q, q, q),
                            lambda: attention.vmem_attention_torch(q, q, q)),
+        "quantile_hist_band": (lambda: stats.quantile_hist_band_cuda(fd[3:17], qhist(dev)),
+                               lambda: stats.quantile_hist_band_torch(fd[3:17], qhist(dev))),
+        "quantile_pair_finish": (lambda: stats.quantile_pair_finish_cuda(hist, 960, 0.02, 0.98),
+                                 lambda: stats.quantile_pair_finish_torch(hist, 960, 0.02,
+                                                                          0.98)),
+        "subject_hist_band": (lambda: stats.subject_hist_band_cuda(fd[4:12, 6:34], sbuf(dev)),
+                              lambda: stats.subject_hist_band_torch(fd[4:12, 6:34], sbuf(dev))),
+        "subject_stats_finish": (lambda: stats.subject_stats_finish_cuda(subj),
+                                 lambda: stats.subject_stats_finish_torch(subj)),
     }
 
 
@@ -677,16 +751,20 @@ def test_cuda_kernels_launch_inside_the_entered_device_from_a_fresh_thread(cuda)
     if failure:
         raise failure[0]
     assert errs["quantile_pair"] == 0 and errs["subject_stats"] == 0, errs
+    assert all(errs[k] == 0 for k in ("quantile_hist_band", "quantile_pair_finish",
+                                      "subject_hist_band", "subject_stats_finish")), errs
     assert errs["feather_heal"] <= 1e-3, errs
     assert all(errs[k] <= 1e-4 for k in ("stereo_warp", "conv3x3", "dof_grade",
                                          "vmem_attention")), errs
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("spec", ["dp=2", "pp=2"])
+@pytest.mark.parametrize("spec", ["dp=2", "pp=2", "sp=2", "pp=2,dp=2"])
 def test_cuda_mesh_render_on_one_card_twice(tmp_path, cuda, spec):
     """dp=2 and pp=2 over [cuda:0, cuda:0]: dp equals the per-segment
-    renders concatenated, pp the single-device fused render, byte for byte."""
+    renders concatenated, pp the single-device fused render, byte for byte;
+    sp=2 and pp=2,dp=2 (over the card 2 and 4 times) equal one device at
+    chunks of 2 (the model's batch per device)."""
     model = DepthAnything(tconfigs.DA_TINY)
     from visiondepth3d_tpu_torch.depth.model import init_random_
 
@@ -696,7 +774,12 @@ def test_cuda_mesh_render_on_one_card_twice(tmp_path, cuda, spec):
     _write_clip(tmp_path / "clip.y4m")
     render_stereo_video(tmp_path / "clip.y4m", None, tmp_path / "mesh.y4m", None,
                         dataclasses.replace(cfg, mesh=spec), predictor=pred,
-                        devices=[cuda, cuda])
+                        devices=[cuda] * (4 if spec == "pp=2,dp=2" else 2))
+    if spec in ("sp=2", "pp=2,dp=2"):
+        render_stereo_video(tmp_path / "clip.y4m", None, tmp_path / "one.y4m", None,
+                            dataclasses.replace(cfg, mesh="off", chunk_size=2), predictor=pred)
+        assert (tmp_path / "mesh.y4m").read_bytes() == (tmp_path / "one.y4m").read_bytes()
+        return
     if spec == "pp=2":
         render_stereo_video(tmp_path / "clip.y4m", None, tmp_path / "one.y4m", None,
                             dataclasses.replace(cfg, mesh="off"), predictor=pred)

@@ -174,7 +174,8 @@ for name in ("depth.depth_pro", "depth.vda", "depth.diffusion.schedulers",
              "utils.verify_checkpoints", "io.audio", "pipeline.image_pipeline",
              "config.i18n", "config.settings", "preview", "preview.diagnostics",
              "preview.watch", "preview.server", "serve", "serve.jobs", "serve.app",
-             "parallel", "parallel.mesh", "parallel.dp", "parallel.pp",
+             "parallel", "parallel.mesh", "parallel.dp", "parallel.pp", "parallel.halo",
+             "parallel.tp", "stereo.bands",
              "pipeline.mesh_render", "pipeline.pp_render", "train", "train.trainer"):
     assert "visiondepth3d_tpu_torch." + name in sys.modules, name
 from visiondepth3d_tpu_torch.depth import DA_TINY
@@ -238,12 +239,24 @@ with tempfile.TemporaryDirectory() as td:
     assert render_depth_video_file(td + "/in.y4m", td + "/o.y4m", ocfg) == 3
     # the mesh routes on the CPU twice, and one training step
     from visiondepth3d_tpu_torch.pipeline import RenderConfig
-    for spec in ("dp=2", "pp=2"):
+    for spec in ("dp=2", "pp=2", "tp=2"):
         mcfg = RenderConfig(device="cpu", preserve_original_aspect=True, chunk_size=2,
                             mesh=spec)
         render_stereo_video(td + "/in.y4m", None, td + "/m.y4m", params, mcfg, predictor=pred)
+    from visiondepth3d_tpu_torch.parallel import make_mesh, render_chunk_spatial
+    from visiondepth3d_tpu_torch.parallel.dp import spatial_layout
+    from visiondepth3d_tpu_torch.stereo.bands import init_band_trackers
+    sp_params = StereoParams(enable_edge_masking=False, blur_ksize=3).with_shift_bound(32)
+    mesh = make_mesh(dp=1, sp=2, devices=["cpu", "cpu"])
+    layout = spatial_layout(sp_params, 24, 32, mesh)
+    _, out = render_chunk_spatial(sp_params, init_band_trackers(layout, 32), frames, depths,
+                                  mesh)
+    assert out.left.shape == (2, 24, 32, 3)
     from visiondepth3d_tpu_torch.train import Trainer
     trainer = Trainer(DA_TINY, device="cpu").init(torch.Generator().manual_seed(0))
+    assert np.isfinite(trainer.step(torch.rand(2, 28, 28, 3), torch.rand(2, 28, 28)))
+    trainer = Trainer(DA_TINY, device="cpu").init(
+        torch.Generator().manual_seed(0), mesh=make_mesh(dp=1, tp=2, devices=["cpu", "cpu"]))
     assert np.isfinite(trainer.step(torch.rand(2, 28, 28, 3), torch.rand(2, 28, 28)))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "visiondepth3d_tpu"))

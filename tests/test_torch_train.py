@@ -18,10 +18,17 @@
   the parameters after two steps with a mean |d| within 1e-2 x lr; JAX's
   ``dp=2`` trainer on two virtual CPU devices gives the first loss within
   1e-4.
-- The state dict round-trips; a tp mesh raises NotImplementedError naming
-  item 6b; with the K7 opt-in a step raises (K7 has no backward); a step
+- The state dict round-trips; a mesh with sp raises ValueError (the JAX
+  trainer shards no rows); with the K7 opt-in a step raises (K7 has no
+  backward); a step
   after an inference call of the same shapes runs (the cached resize
   matrices are normal tensors).
+- ``tp=2`` on [cpu, cpu] (the ViT's attention and MLP blocks split
+  Megatron-style, ``parallel/tp.py``) against one device from the same
+  weights, after one step: the loss within 1e-5 relative and every
+  gradient within 1e-5 x max |g| (compared under the unsharded names);
+  a second step's loss too, and the weights after it with a mean |d|
+  within 1e-2 x lr.
 - On a card (``cuda`` marker): one step on the card against the CPU.
 """
 
@@ -174,14 +181,35 @@ def test_state_dict_round_trip_and_refusals():
     b.load_state_dict(a.state_dict())
     assert a.step(frames, targets) == b.step(frames, targets)
     assert all(torch.equal(x, y) for x, y in zip(_state(a).values(), _state(b).values()))
-    with pytest.raises(NotImplementedError, match="6b"):
+    with pytest.raises(ValueError, match="shards no rows"):
         Trainer(tconfigs.DA_TINY, device="cpu").init(
-            mesh=make_mesh(dp=1, tp=2, devices=["cpu", "cpu"]))
+            mesh=make_mesh(dp=1, sp=2, devices=["cpu", "cpu"]))
     with pytest.raises(RuntimeError, match="init"):
         Trainer(tconfigs.DA_TINY, device="cpu").step(frames, targets)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             Trainer(tconfigs.DA_TINY)  # the card by default: no CPU fallback
+
+
+def test_tp_two_devices_match_one_device():
+    from visiondepth3d_tpu_torch.parallel.tp import TPAttention, full_state_dict
+
+    frames, targets = _batch(2, seed=3)
+    one = Trainer(tconfigs.DA_TINY, learning_rate=LR, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    split = Trainer(tconfigs.DA_TINY, learning_rate=LR, device="cpu").init(
+        torch.Generator().manual_seed(0), mesh=make_mesh(dp=1, tp=2, devices=["cpu", "cpu"]))
+    assert any(isinstance(m, TPAttention) for m in split.module.modules())
+    losses = [(one.step(frames, targets), split.step(frames, targets))]
+    want = _grads(one)
+    got = full_state_dict(split.module, grads=True)
+    assert set(got) == set(want)
+    assert abs(losses[0][1] - losses[0][0]) <= 1e-5 * abs(losses[0][0])
+    assert _max_rel(got, want) <= 1e-5
+    losses.append((one.step(frames, targets), split.step(frames, targets)))
+    assert abs(losses[1][1] - losses[1][0]) <= 1e-5 * abs(losses[1][0])
+    state = {k: v.float() for k, v in full_state_dict(split.module).items()}
+    assert _mean_abs_diff(state, _state(one)) <= 1e-2 * LR
 
 
 def test_step_after_inference_in_one_process():

@@ -41,12 +41,13 @@ The flags keep the JAX CLI's names, meaning and help strings (translated
 through the language packs, ``--lang``), plus ``--device`` (default cuda; a
 missing card is an error, not a CPU fallback) on the subcommands that run a
 model. ``--mesh`` spreads render, depth and tools over devices: ``dp=N``
-(frame segments, batch frames, chunk frames), and ``pp=2`` for render
-(depth and stereo stages); with ``--device cpu`` the mesh is the CPU
-repeated, else the visible cards (``auto``, the render and depth default,
-is one device on a one-card machine). Row and tensor sharding (``sp``,
-``tp``, ``pp=2`` with ``dp``) are not ported yet and raise
-NotImplementedError. As in the JAX
+(frame segments, batch frames, chunk frames), ``sp=M`` for render (frame
+row bands), ``tp=K`` for render and depth (the ViT split Megatron-style),
+and ``pp=2[,dp=N]`` for render (depth and stereo stages); with ``--device
+cpu`` the mesh is the CPU repeated, else the visible cards (``auto``, the
+render and depth default, is one device on a one-card machine). ``depth
+--mesh sp`` (a row-sharded model) is not ported yet and raises
+NotImplementedError; the frame tools take dp only. As in the JAX
 CLI, the fused render refuses the video and diffusion models
 (video-depth-anything, marigold, depthcrafter): their depth goes through
 ``depth`` first. The messages the JAX CLI prints through ``t(key)`` go
@@ -170,8 +171,10 @@ def build_parser() -> _I18nParser:
                    help="devices: 'auto' (frame-segment DP over every visible card; one "
                         "device on one card, with --device cpu or with --start/--end), "
                         "'dp=N' (N segments, no checkpoint; "
-                        "the CPU N times with --device cpu), 'pp=2' (depth and stereo "
-                        "stages), 'off'; sp/tp are not ported yet")
+                        "the CPU N times with --device cpu), 'sp=M' (M row bands per "
+                        "frame), 'tp=K' (the depth model split over K devices), combined "
+                        "as 'dp=N,sp=M,tp=K'; 'pp=2[,dp=N]' (depth and stereo stages, "
+                        "each N devices), 'off'")
     p.add_argument("--mesh-snap-scenes", action="store_true",
                    help="snap DP segment boundaries to scene cuts "
                         "(extra host decode pass)")
@@ -364,8 +367,9 @@ def _add_depth_parser(sub):
     dp.add_argument("--mesh", default="auto",
                     help="devices: 'auto' (the batch, or DepthCrafter's windows, over every "
                          "visible card; one device on one card or with --device cpu), "
-                         "'dp=N' (the CPU N times with --device cpu), 'off'; sp/tp are "
-                         "not ported yet")
+                         "'dp=N' (the CPU N times with --device cpu), 'tp=K' (the model "
+                         "split over K devices), 'dp=N,tp=K', 'off'; sp is not ported "
+                         "yet")
     dp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
 
 

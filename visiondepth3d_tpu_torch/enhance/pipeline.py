@@ -233,8 +233,8 @@ def run_merged_pipeline(input_path, output_path, cfg: EnhanceConfig | None = Non
     cfg = cfg or EnhanceConfig()
     axes = dict(mesh_axes or {})
     if any(int(v) > 1 for k, v in axes.items() if k != "dp"):
-        raise NotImplementedError(f"frame tools mesh {axes}: only the dp axis is ported "
-                                  f"(ROADMAP Queue 1 item 6b: row and tensor sharding)")
+        raise ValueError(f"frame tools mesh {axes}: the frame tools support only the dp mesh "
+                         f"axis (as in the JAX package: no sp or tp route)")
     dp = int(axes.get("dp", 1))
     missing = (cfg.use_esrgan and esrgan_params is None) or (
         cfg.use_rife and rife_params is None)

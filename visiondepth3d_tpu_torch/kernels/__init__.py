@@ -11,6 +11,9 @@ PyTorch version.
 | ``dof.dof_grade``            | csrc/dof.cu       | pallas_dof.py:dof_grade_pallas       |
 | ``attention.vmem_attention`` | csrc/attention.cu | pallas_attention.py:vmem_attention   |
 
+K3 and K4 have band forms for a frame held as row bands
+(``stats.quantile_hist_band`` / ``quantile_pair_finish`` and
+``stats.subject_hist_band`` / ``subject_stats_finish``, csrc/stats.cu).
 Each dispatcher sends a CUDA tensor to the kernel and a CPU tensor to the
 plain version (``*_torch``); there is no fallback from a failed build or
 launch. The sources build at first use (``_lib.build_library``).

@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats", "conv3x3",
-           "dof_grade", "vmem_attention")
+           "dof_grade", "vmem_attention", "quantile_hist_band", "quantile_pair_finish",
+           "subject_hist_band", "subject_stats_finish")
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
@@ -100,6 +101,10 @@ def _declare(L: ctypes.CDLL) -> ctypes.CDLL:
         "vd3d_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, i, p],
         "vd3d_dof_grade": [p, p, p, p, p, p, i, i, p, p, i, f, f, f, f, f, i, i, p],
         "vd3d_attention": [p, p, p, p, i, i, i, i, f, i, p],
+        "vd3d_quantile_hist_band": [p, i, i, ll, p, p],
+        "vd3d_quantile_pair_finish": [p, ll, f, f, p, p],
+        "vd3d_subject_hist_band": [p, i, i, ll, p, p],
+        "vd3d_subject_stats_finish": [p, p, p],
         "vd3d_subject_cluster": [],
         "vd3d_empty": [p],
     }

@@ -138,43 +138,14 @@ __device__ __forceinline__ int qbin(float v) {
   return !(v <= 1.0f) ? QBINS : (v <= 0.0f ? 0 : b);
 }
 
-// out[0], out[1]: the bisection quantiles q0, q1 of the [rows, cols] view.
-// scratch: QHIST int32 counts and a ticket, any contents on entry.
-// Launched cooperatively: every CTA is resident.
-template <bool VEC>
-__global__ void __launch_bounds__(Q_THREADS)
-quantile_pair_kernel(const float* __restrict__ x, int rows, int cols, long long ld, float q0,
-                     float q1, int* __restrict__ scratch, float* __restrict__ out) {
-  __shared__ int hist[QHIST];
-  __shared__ int wtot[Q_THREADS / 32][2];
-  __shared__ int is_last;
+// The 12 bisection decisions of both quantiles, replayed on the 4096
+// right-closed counts in hist (bin 4096, above 1, is never read) over
+// `count` values; run by all Q_THREADS threads of one CTA. Cum over bins
+// 4 tid .. 4 tid + 3 is count(x <= k / 4096) at k - 1.
+__device__ __forceinline__ void replay_pair(const int* hist, float count, float q0, float q1,
+                                            int (&wtot)[Q_THREADS / 32][2], float* out) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int* ghist = scratch;
-  unsigned int* ticket = reinterpret_cast<unsigned int*>(scratch + QHIST);
-
-  for (int i = blockIdx.x * Q_THREADS + tid; i <= QHIST; i += gridDim.x * Q_THREADS)
-    scratch[i] = 0;
-  for (int i = tid; i < QHIST; i += Q_THREADS) hist[i] = 0;
-  __syncthreads();
-  const int groups = VEC ? cols / 4 : cols;
-  const long long n = (long long)rows * groups;  // <= 2^31 - 2^13: the wrapper checks
-  count_part<Q_THREADS, VEC>(x, groups, ld, (int)(n * blockIdx.x / gridDim.x),
-                             (int)(n * (blockIdx.x + 1) / gridDim.x),
-                             [&](float v) { atomicAdd(&hist[qbin(v)], 1); });
-  cg::this_grid().sync();  // every CTA's share of the scratch is zero
-  // a contiguous band of a depth map touches a fraction of the bins
-  for (int i = tid; i < QHIST; i += Q_THREADS)
-    if (hist[i]) atomicAdd(&ghist[i], hist[i]);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!is_last) return;
-
-  // the last CTA: every count is in ghist (in L2, where the atomics left
-  // it); cum over bins 4 tid .. 4 tid + 3 is count(x <= k / 4096) at k - 1.
-  __threadfence();
-  const int4 h4 = __ldcg(reinterpret_cast<const int4*>(ghist) + tid);
+  const int4 h4 = __ldcg(reinterpret_cast<const int4*>(hist) + tid);
   const int hv[4] = {h4.x, h4.y, h4.z, h4.w};
   int cum[4], s = 0;
 #pragma unroll
@@ -189,7 +160,6 @@ quantile_pair_kernel(const float* __restrict__ x, int rows, int cols, long long 
   if (warp == 0) wtot[lane][1] = warp_inclusive_scan(wtot[lane][0], lane) - wtot[lane][0];
   __syncthreads();
   const int base = wtot[warp][1] + incl - s;
-  const float count = (float)((long long)rows * cols);
   int h0 = 0, h1 = 0;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -214,6 +184,44 @@ quantile_pair_kernel(const float* __restrict__ x, int rows, int cols, long long 
       out[1] = ((float)K1 / (float)QBINS + (float)(K1 + 1) / (float)QBINS) * 0.5f;
     }
   }
+}
+
+// out[0], out[1]: the bisection quantiles q0, q1 of the [rows, cols] view.
+// scratch: QHIST int32 counts and a ticket, any contents on entry.
+// Launched cooperatively: every CTA is resident.
+template <bool VEC>
+__global__ void __launch_bounds__(Q_THREADS)
+quantile_pair_kernel(const float* __restrict__ x, int rows, int cols, long long ld, float q0,
+                     float q1, int* __restrict__ scratch, float* __restrict__ out) {
+  __shared__ int hist[QHIST];
+  __shared__ int wtot[Q_THREADS / 32][2];
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  int* ghist = scratch;
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(scratch + QHIST);
+
+  for (int i = blockIdx.x * Q_THREADS + tid; i <= QHIST; i += gridDim.x * Q_THREADS)
+    scratch[i] = 0;
+  for (int i = tid; i < QHIST; i += Q_THREADS) hist[i] = 0;
+  __syncthreads();
+  const int groups = VEC ? cols / 4 : cols;
+  const long long n = (long long)rows * groups;  // <= 2^31 - 2^13: the wrapper checks
+  count_part<Q_THREADS, VEC>(x, groups, ld, (int)(n * blockIdx.x / gridDim.x),
+                             (int)(n * (blockIdx.x + 1) / gridDim.x),
+                             [&](float v) { atomicAdd(&hist[qbin(v)], 1); });
+  cg::this_grid().sync();  // every CTA's share of the scratch is zero
+  // a contiguous band of a depth map touches a fraction of the bins
+  for (int i = tid; i < QHIST; i += Q_THREADS)
+    if (hist[i]) atomicAdd(&ghist[i], hist[i]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+
+  // the last CTA: every count is in ghist (in L2, where the atomics left it)
+  __threadfence();
+  replay_pair(ghist, (float)((long long)rows * cols), q0, q1, wtot, out);
 }
 
 // CTAs of one call: one per SM (two per SM measured slower: more partial
@@ -269,14 +277,14 @@ struct SubjectSmem {
 
 // One value into the CTA's counts when it lies in the valid band
 // 0.05 < v < 0.95.
-__device__ __forceinline__ void count_value(float v, SubjectSmem& sm) {
+__device__ __forceinline__ void count_value(float v, int* hist, int* edge) {
   if (!(v > 0.05f && v < 0.95f)) return;
   const float t = v * (float)QBINS;   // exact
   const float up = ceil_biased(t);
   const int c = unbias(up);           // ceil(t): 205 .. 3892
-  atomicAdd(&sm.hist[c - 1], 1);
+  atomicAdd(&hist[c - 1], 1);
   // on a 64-bin edge: t is whole and a multiple of 64
-  if ((c & 63) == 0 && __fsub_rn(up, 8388608.0f) == t) atomicAdd(&sm.edge[c >> 6], 1);
+  if ((c & 63) == 0 && __fsub_rn(up, 8388608.0f) == t) atomicAdd(&edge[c >> 6], 1);
 }
 
 // out[0..63]: the 64-bin histogram, out[64]: the valid count, out[65]: the
@@ -299,7 +307,7 @@ subject_stats_kernel(const float* __restrict__ x, int rows, int cols, long long 
   const int n = rows * groups;  // <= 2^31 - 2^13: the wrapper checks
   count_part<SUBJ_THREADS, VEC>(x, groups, ld, (int)((long long)n * rank / C),
                                 (int)((long long)n * (rank + 1) / C),
-                                [&](float v) { count_value(v, sm); });
+                                [&](float v) { count_value(v, sm.hist, sm.edge); });
   cluster.sync();  // every CTA's counts are final
 
   // this CTA's slice of bins summed over the cluster and scanned, into
@@ -424,6 +432,140 @@ int launch_subject(const float* x, int rows, int cols, long long ld, float* out,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// ------------------------------------------- K3 and K4 over row bands
+//
+// Under row sharding a frame's rows lie in bands on several devices, and
+// every statistic is still the whole frame's. The counts are exact
+// integers, so they sum in any order: each band is counted into a
+// histogram on its own device (the band kernels), the histograms are
+// summed on one device, and one small launch there replays the bisection
+// on the sum (the finish kernels). The decisions, and so the results, are
+// those of the one-shot kernels on the whole frame, bit for bit.
+//
+// - quantile_hist_band_kernel adds the QHIST qbin counts of a [rows, cols]
+//   view into a caller's int32 buffer (zeroed by the caller; the bands of
+//   one frame on one device add into one buffer). One CTA per SM, each a
+//   shared-memory histogram of its items flushed by global atomics.
+// - subject_hist_band_kernel adds, for the valid values of a view, the
+//   4096 right-closed counts and the 65 counts of values exactly on j / 64
+//   (K4's edge counts) into a SUBJ_BAND int32 buffer the same way.
+// - quantile_pair_finish_kernel replays K3's two bisections on a summed
+//   QHIST buffer over n values (one CTA, K3's own replay).
+// - subject_stats_finish_kernel writes K4's 66 outputs from a summed
+//   SUBJ_BAND buffer (one CTA): the 64-bin histogram, the count and the
+//   masked lower-middle median.
+// Bound: the band kernels read their view once; the finish kernels read
+// 16 KB.
+
+constexpr int SUBJ_BAND = QBINS + SUBJECT_BINS + 1;  // counts, then the 65 edge counts
+
+template <bool VEC>
+__global__ void __launch_bounds__(Q_THREADS)
+quantile_hist_band_kernel(const float* __restrict__ x, int rows, int cols, long long ld,
+                          int* __restrict__ hist) {
+  __shared__ int sh[QHIST];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < QHIST; i += Q_THREADS) sh[i] = 0;
+  __syncthreads();
+  const int groups = VEC ? cols / 4 : cols;
+  const long long n = (long long)rows * groups;  // <= 2^31 - 2^13: the wrapper checks
+  count_part<Q_THREADS, VEC>(x, groups, ld, (int)(n * blockIdx.x / gridDim.x),
+                             (int)(n * (blockIdx.x + 1) / gridDim.x),
+                             [&](float v) { atomicAdd(&sh[qbin(v)], 1); });
+  __syncthreads();
+  for (int i = tid; i < QHIST; i += Q_THREADS)
+    if (sh[i]) atomicAdd(&hist[i], sh[i]);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(SUBJ_THREADS)
+subject_hist_band_kernel(const float* __restrict__ x, int rows, int cols, long long ld,
+                         int* __restrict__ buf) {
+  __shared__ int sh[SUBJ_BAND];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < SUBJ_BAND; i += SUBJ_THREADS) sh[i] = 0;
+  __syncthreads();
+  const int groups = VEC ? cols / 4 : cols;
+  const long long n = (long long)rows * groups;
+  count_part<SUBJ_THREADS, VEC>(x, groups, ld, (int)(n * blockIdx.x / gridDim.x),
+                                (int)(n * (blockIdx.x + 1) / gridDim.x),
+                                [&](float v) { count_value(v, sh, sh + QBINS); });
+  __syncthreads();
+  for (int i = tid; i < SUBJ_BAND; i += SUBJ_THREADS)
+    if (sh[i]) atomicAdd(&buf[i], sh[i]);
+}
+
+__global__ void __launch_bounds__(Q_THREADS)
+quantile_pair_finish_kernel(const int* __restrict__ hist, long long n, float q0, float q1,
+                            float* __restrict__ out) {
+  __shared__ int wtot[Q_THREADS / 32][2];
+  replay_pair(hist, (float)n, q0, q1, wtot, out);
+}
+
+// out[0..63]: the 64-bin histogram, out[64]: the valid count, out[65]: the
+// masked lower-middle median, as subject_stats_kernel writes them.
+__global__ void __launch_bounds__(Q_THREADS)
+subject_stats_finish_kernel(const int* __restrict__ buf, float* __restrict__ out) {
+  __shared__ int wtot[Q_THREADS / 32];
+  __shared__ int ends[SUBJECT_BINS];  // the prefix count at each 64-bin group's last bin
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int4 h4 = __ldcg(reinterpret_cast<const int4*>(buf) + tid);
+  const int hv[4] = {h4.x, h4.y, h4.z, h4.w};
+  int cum[4], s = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s += hv[j];
+    cum[j] = s;
+  }
+  const int incl = warp_inclusive_scan(s, lane);
+  if (lane == 31) wtot[warp] = incl;
+  __syncthreads();
+  int base = incl - s;  // the count of the bins before 4 tid
+  for (int w = 0; w < warp; ++w) base += wtot[w];
+  if ((tid & 15) == 15) ends[tid >> 4] = base + cum[3];
+  __syncthreads();
+  if (tid < SUBJECT_BINS) {
+    // right-closed bins 64 i .. 64 i + 63, plus the values on i / 64, less
+    // those on (i + 1) / 64
+    const int* edge = buf + QBINS;
+    out[tid] = (float)(ends[tid] - (tid ? ends[tid - 1] : 0) + __ldcg(edge + tid) -
+                       __ldcg(edge + tid + 1));
+  }
+  const float cnt = (float)ends[SUBJECT_BINS - 1];
+  const float count = fmaxf(cnt, 1.0f);
+  const float q = (floorf((count - 1.0f) * 0.5f) + 1.0f) / count;
+  int holds = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k1 = 4 * tid + j;  // k - 1
+    holds += k1 < QBINS - 1 && (float)(base + cum[j]) / count < q;
+  }
+  holds = __reduce_add_sync(FULL, holds);
+  __syncthreads();  // wtot is read
+  if (lane == 0) wtot[warp] = holds;
+  __syncthreads();
+  if (warp == 0) {
+    const int K = __reduce_add_sync(FULL, wtot[lane]);
+    if (lane == 0) {
+      out[SUBJECT_BINS] = cnt;
+      out[SUBJECT_BINS + 1] = ((float)K / (float)QBINS + (float)(K + 1) / (float)QBINS) * 0.5f;
+    }
+  }
+}
+
+template <typename Kern>
+int launch_band(Kern kern, const float* x, int rows, int cols, long long ld, int* buf,
+                int threads, cudaStream_t s) {
+  const int grid = qpair_grid((long long)rows * cols / 4 + 1);
+  if (grid == 0) return (int)cudaErrorInvalidConfiguration;
+  kern<<<grid, threads, 0, s>>>(x, rows, cols, ld, buf);
+  return (int)cudaGetLastError();
+}
+
+bool vec_view(const void* x, int cols, long long ld) {
+  return ((size_t)x % 16) == 0 && ld % 4 == 0 && cols % 4 == 0;
+}
+
 __global__ void empty_kernel() {}
 
 }  // namespace
@@ -459,6 +601,48 @@ extern "C" int vd3d_subject_stats(const void* x, int rows, int cols, long long l
                : launch_subject<16, false>(xf, rows, cols, ld, o, s);
   return vec ? launch_subject<8, true>(xf, rows, cols, ld, o, s)
              : launch_subject<8, false>(xf, rows, cols, ld, o, s);
+}
+
+// x: a [rows, cols] float32 view with row stride ld (elements); hist: QHIST
+// int32 the counts are added into. rows * cols <= 2^31 - 2^13.
+extern "C" int vd3d_quantile_hist_band(const void* x, int rows, int cols, long long ld,
+                                       void* hist, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  return vec_view(x, cols, ld)
+             ? launch_band(quantile_hist_band_kernel<true>, xf, rows, cols, ld, (int*)hist,
+                           Q_THREADS, s)
+             : launch_band(quantile_hist_band_kernel<false>, xf, rows, cols, ld, (int*)hist,
+                           Q_THREADS, s);
+}
+
+// hist: QHIST int32 summed over a frame's bands; n: the frame's values;
+// out: 2 float32.
+extern "C" int vd3d_quantile_pair_finish(const void* hist, long long n, float q0, float q1,
+                                         void* out, void* stream) {
+  quantile_pair_finish_kernel<<<1, Q_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)hist, n, q0, q1, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// x: a [rows, cols] float32 view (a band's rows of the subject crop); buf:
+// SUBJ_BAND int32 the counts are added into.
+extern "C" int vd3d_subject_hist_band(const void* x, int rows, int cols, long long ld,
+                                      void* buf, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xf = (const float*)x;
+  return vec_view(x, cols, ld)
+             ? launch_band(subject_hist_band_kernel<true>, xf, rows, cols, ld, (int*)buf,
+                           SUBJ_THREADS, s)
+             : launch_band(subject_hist_band_kernel<false>, xf, rows, cols, ld, (int*)buf,
+                           SUBJ_THREADS, s);
+}
+
+// buf: SUBJ_BAND int32 summed over a frame's bands; out: 66 float32.
+extern "C" int vd3d_subject_stats_finish(const void* buf, void* out, void* stream) {
+  subject_stats_finish_kernel<<<1, Q_THREADS, 0, (cudaStream_t)stream>>>((const int*)buf,
+                                                                         (float*)out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int vd3d_subject_cluster() { return subject_cluster_size(); }

@@ -25,7 +25,15 @@ def shape_depth_for_pop(depth01: torch.Tensor, subject_depth: torch.Tensor, *,
     (hi - lo < 1e-5) leaves the values unstretched."""
     d = torch.clamp(depth01, 0.0, 1.0)
     q = quantile_01(d, (stretch_lo, stretch_hi), mode=quantile_mode)
-    lo, hi = q[0], q[1]
+    return shape_depth_apply(d, q[0], q[1], subject_depth, depth_mid=depth_mid, gamma=gamma)
+
+
+def shape_depth_apply(d: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                      subject_depth: torch.Tensor, *, depth_mid: float = 0.50,
+                      gamma: float = 0.85) -> torch.Tensor:
+    """The pointwise part of ``shape_depth_for_pop``: d (clamped to [0, 1])
+    stretched by the frame's quantiles lo, hi, recentered on the subject
+    and curved."""
     degenerate = (hi - lo) < 1e-5
     d_stretched = torch.where(
         degenerate, d, torch.clamp((d - lo) / (hi - lo + 1e-6), 0.0, 1.0))
@@ -37,10 +45,15 @@ def shape_depth_for_pop(depth01: torch.Tensor, subject_depth: torch.Tensor, *,
     return torch.clamp(shaped, 0.0, 1.0)
 
 
-def enhance_curvature(depth: torch.Tensor, strength: float = 0.08) -> torch.Tensor:
-    """Add the centered dome 1 - (x^2 + y^2) * strength (not clamped)."""
+def enhance_curvature(depth: torch.Tensor, strength: float = 0.08, row0: int = 0,
+                      height: int | None = None) -> torch.Tensor:
+    """Add the centered dome 1 - (x^2 + y^2) * strength (not clamped). A
+    row band of a taller frame passes its first row ``row0`` and the
+    frame's ``height``: it takes its slice of the frame's ramp."""
     h, w = depth.shape[-2], depth.shape[-1]
-    yy = torch.linspace(-1.0, 1.0, h, dtype=depth.dtype, device=depth.device)[:, None]
+    height = h if height is None else height
+    yy = torch.linspace(-1.0, 1.0, height, dtype=depth.dtype,
+                        device=depth.device)[row0:row0 + h, None]
     xx = torch.linspace(-1.0, 1.0, w, dtype=depth.dtype, device=depth.device)[None, :]
     curvature = 1.0 - (xx * xx + yy * yy)
     return depth + curvature * strength

@@ -118,3 +118,24 @@ def masked_median_01(x: torch.Tensor, mask: torch.Tensor,
     if mode == "exact":
         return exact_masked_median(x, mask)
     return hist_masked_median(x, mask)
+
+
+def quantile_pair_bands(bands: list[torch.Tensor], q: tuple[float, float], lead: torch.device,
+                        mode: QuantileMode = "hist") -> torch.Tensor:
+    """``quantile_01(frame, q)`` of a 2-D frame held as row bands, -> [2] on
+    ``lead``. In hist mode each band adds its counts (K3's band form) into
+    one buffer per device, the buffers are summed on ``lead`` and the
+    bisection is replayed there on the sum: the whole frame's result, bit
+    for bit. Exact mode gathers the frame on ``lead``."""
+    from ..parallel.halo import lead_cat, lead_sum
+
+    if mode == "exact":
+        return exact_quantile(lead_cat(bands, lead), q)
+    from ..kernels.stats import quantile_hist_band, quantile_pair_finish
+
+    bufs: dict = {}
+    for x in bands:
+        bufs[x.device] = quantile_hist_band(x, bufs.get(x.device))
+    n = sum(x.numel() for x in bands)
+    return quantile_pair_finish(lead_sum(list(bufs.values()), lead), n, float(q[0]),
+                                float(q[1]))

@@ -11,8 +11,8 @@ they are known, so the warm-up lands on a cut.
 Where the JAX package vmaps the chunk over the segment axis under a ``dp``
 sharding, each segment here runs on its device in turn: every segment's
 launches are enqueued before any result is read, so distinct cards
-overlap. Row sharding (``render_chunk_spatial``, the ``sp`` axis) needs
-halo exchanges between cards and is not ported yet.
+overlap. ``render_chunk_spatial`` splits a chunk's frame rows over the
+``sp`` axis instead (``stereo/bands.py``).
 """
 
 from __future__ import annotations
@@ -22,9 +22,8 @@ import torch
 from ..state import StereoTrackers, init_trackers
 from ..stereo import StereoParams
 from ..stereo.step import StereoFrameOut, render_chunk
+from .halo import BandLayout
 from .mesh import Mesh
-
-NOT_PORTED_6B = "not ported yet (ROADMAP Queue 1 item 6b: row and tensor sharding)"
 
 
 def _segment_devices(g: int, mesh: Mesh | None, default) -> list[torch.device]:
@@ -82,7 +81,24 @@ def segment_bounds(total_frames: int, g: int,
     return [(even[i], even[i + 1]) for i in range(g)]
 
 
-def render_chunk_spatial(params: StereoParams, trackers: StereoTrackers, frames: torch.Tensor,
-                         depths: torch.Tensor, mesh: Mesh):
-    """A stereo chunk with frame rows split over the ``sp`` axis."""
-    raise NotImplementedError(f"render_chunk_spatial (sp): {NOT_PORTED_6B}")
+def spatial_layout(params: StereoParams, height: int, width: int, mesh: Mesh,
+                   segment: int = 0) -> BandLayout:
+    """The row bands of a [height, width] frame over segment ``segment``'s
+    ``sp`` devices, with the stereo step's halo."""
+    from ..stereo.bands import stereo_halo
+
+    return BandLayout.make(height, list(mesh.devices[segment, :, 0]), stereo_halo(params),
+                           width)
+
+
+def render_chunk_spatial(params: StereoParams, trackers, frames: torch.Tensor,
+                         depths: torch.Tensor, mesh: Mesh, blanks: torch.Tensor | None = None):
+    """A stereo chunk with frame rows split over the first segment's ``sp``
+    devices: frames [T, H, W, 3], depths [T, H, W]. ``trackers``: a
+    ``stereo.bands.BandTrackers`` of ``spatial_layout``'s bands
+    (``stereo.bands.init_band_trackers``). Equal to ``render_chunk`` on the
+    whole frames. Returns (trackers, StereoFrameOut on the lead device)."""
+    from ..stereo.bands import render_chunk_bands
+
+    layout = spatial_layout(params, frames.shape[1], frames.shape[2], mesh)
+    return render_chunk_bands(params, trackers, frames, depths, layout, blanks)

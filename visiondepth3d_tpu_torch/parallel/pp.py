@@ -14,15 +14,14 @@ Shape contract:
 
 An item is a tensor or a tuple/list of tensors and host values (the
 tensors are moved to each slice; other values pass as they are). The carry
-(the tracker state) stays on slice B. Each slice is one device here: a
-wider slice shards frames on A and rows on B, which is not ported yet.
+(the tracker state) stays on slice B. A wider slice shards frames on A
+(the depth is then a list of frame groups, one per A device, which stage B
+scatters to its row bands itself) and rows on B (``stereo/bands.py``).
 """
 
 from __future__ import annotations
 
 import torch
-
-from .dp import NOT_PORTED_6B
 
 
 def to_device(x, device: torch.device):
@@ -37,23 +36,27 @@ def to_device(x, device: torch.device):
 
 class TwoStagePipeline:
     def __init__(self, devices, split: int, depth_fn, stage_b_fn):
-        """devices: flat device list; split: how many go to stage A."""
+        """devices: flat device list; split: how many go to stage A. Items
+        land on each slice's first device."""
         devices = [torch.device(d) for d in devices]
         if not 0 < split < len(devices):
             raise ValueError(f"split {split} of {len(devices)} devices")
-        if split != 1 or len(devices) != 2:
-            raise NotImplementedError(f"stage slices wider than one device: {NOT_PORTED_6B}")
-        self.device_a, self.device_b = devices
+        self.device_a, self.device_b = devices[0], devices[split]
         self._depth = depth_fn
         self._stage_b = stage_b_fn
 
     def _hand_off(self, item, depths):
-        """(item, depths) on slice B, after everything enqueued on A so far."""
+        """(item, depths) on slice B, after everything enqueued on A so far.
+        A list of depth groups stays where it is: stage B copies each band's
+        rows straight from the groups (copies across cards order
+        themselves after their source's stream)."""
         a, b = self.device_a, self.device_b
         if a != b and a.type == "cuda" and b.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(a))
             torch.cuda.current_stream(b).wait_event(done)
+        if isinstance(depths, list):
+            return to_device(item, b), depths
         return to_device(item, b), to_device(depths, b)
 
     def run(self, chunks, carry):

@@ -32,9 +32,12 @@ the feed-forward route splits each batch's frames over the ``dp`` devices
 replica of the model (per-frame normalization keeps every frame on its
 device), and stitches them in frame order; DepthCrafter denoises each
 segment's windows in parallel over the devices (``run_raw_parallel``). The
-video and Marigold routes run on one device, as in the JAX package. Row
-(``sp``) and tensor (``tp``) sharding are not ported yet (ROADMAP Queue 1
-item 6b); ``pp`` is a render axis.
+video and Marigold routes run on one device, as in the JAX package. With
+``tp=K`` each ``dp`` run holds the model Megatron-split over its K devices
+(``parallel/tp.py``; the feed-forward route: DepthCrafter's windows spread
+over the ``dp`` devices only). Row sharding of the model (``sp``) is not
+ported yet (ROADMAP Queue 1 item 6c: a token-parallel ViT and neck);
+``pp`` is a render axis.
 """
 
 from __future__ import annotations
@@ -101,11 +104,15 @@ def _size_h(size) -> int:
     return int(size[0]) if isinstance(size, (tuple, list)) else int(size)
 
 
+NOT_PORTED_6C = ("depth --mesh sp (a row-sharded depth model) is not ported yet (ROADMAP "
+                 "Queue 1 item 6c: a token-parallel ViT and neck); use dp or tp")
+
+
 def _resolve_mesh(cfg: DepthConfig, devices=None):
-    """-> (the dp devices, dp), or (None, 1) for one device. The depth
-    route takes dp (batch frames, DepthCrafter windows); sp and tp are not
-    ported yet; pp is a render-stage axis."""
-    from ..parallel.dp import NOT_PORTED_6B
+    """-> (the device groups, dp), or (None, 1) for one device: one group
+    of ``tp`` devices per ``dp`` run (batch frames, DepthCrafter windows),
+    the run's inputs on the group's first device. sp raises (ROADMAP item
+    6c); pp is a render-stage axis."""
     from .mesh_render import mesh_axes_for, mesh_devices
 
     if cfg.bits not in (8, 16):
@@ -116,15 +123,15 @@ def _resolve_mesh(cfg: DepthConfig, devices=None):
     if axes.get("pp", 1) != 1:
         raise ValueError("vd3d depth does not pipeline stages; pp is a "
                          "vd3d render axis (--mesh pp=2)")
-    dp = int(axes.get("dp", 1))
-    if axes.get("sp", 1) > 1 or axes.get("tp", 1) > 1:
-        raise NotImplementedError(f"depth --mesh sp/tp: {NOT_PORTED_6B}")
-    if dp <= 1:
+    dp, tp = int(axes.get("dp", 1)), int(axes.get("tp", 1))
+    if axes.get("sp", 1) > 1:
+        raise NotImplementedError(NOT_PORTED_6C)
+    if dp * tp <= 1:
         return None, 1
-    devs = mesh_devices(dp, cfg.device, devices)
-    if dp > len(devs):
-        raise ValueError(f"mesh dp={dp} needs {dp} devices, have {len(devs)}")
-    return devs[:dp], dp
+    devs = mesh_devices(dp * tp, cfg.device, devices)
+    if dp * tp > len(devs):
+        raise ValueError(f"mesh dp={dp},tp={tp} needs {dp * tp} devices, have {len(devs)}")
+    return [tuple(devs[g * tp:(g + 1) * tp]) for g in range(dp)], dp
 
 
 def _batch_runs(n: int, parts: int) -> list[tuple[int, int]]:
@@ -255,7 +262,8 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
     ``devices`` when given (a device may repeat), the CPU repeated when
     ``cfg.device`` is the CPU, else the visible cards."""
     cfg = cfg or DepthConfig()
-    mesh_devs, dp = _resolve_mesh(cfg, devices)
+    groups, dp = _resolve_mesh(cfg, devices)
+    mesh_devs = [g[0] for g in groups] if groups is not None else None
     family = CATALOG[cfg.model].family if cfg.model in CATALOG else None
     if family == "vda":
         return _render_depth_vda(input_path, output_path, cfg, progress_cb, predictor,
@@ -282,14 +290,19 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
         elif not same_device(predictor.device, dev):
             raise ValueError(f"predictor is on {predictor.device}, the route on {dev}")
         run_devs = [dev]
-        if mesh_devs is not None:
-            from ..parallel.mesh import replicas
+        preds = {dev: predictor}
+        if groups is not None:
+            from ..parallel.mesh import replicate
+            from ..parallel.tp import tp_predictor
 
             run_devs = mesh_devs
             if cfg.batch_size % dp:
                 # round the batch up so every device gets equal frames
                 cfg = dataclasses.replace(cfg, batch_size=-(-cfg.batch_size // dp) * dp)
-        preds = replicas(predictor, run_devs) if mesh_devs is not None else {dev: predictor}
+            # one model per distinct group: a replica, or split over tp devices
+            models = {g: (tp_predictor(predictor, g) if len(g) > 1 else replicate(predictor, g[0]))
+                      for g in dict.fromkeys(groups)}
+            preds = {g[0]: models[g] for g in groups}
 
         # letterbox: bootstrap on up to 9 probe frames, then the tracker runs
         # on every frame; a confirmed bar change closes the batch

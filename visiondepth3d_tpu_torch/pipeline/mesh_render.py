@@ -1,4 +1,4 @@
-"""Multi-device rendering: ``vd3d-torch render --mesh dp=N``.
+"""Multi-device rendering: ``vd3d-torch render --mesh dp=N[,sp=M][,tp=K]``.
 
 Counterpart of ``visiondepth3d_tpu/pipeline/mesh_render.py``. Frame-level
 DP follows ``parallel/dp.py``: the clip is cut into ``dp`` contiguous
@@ -12,9 +12,27 @@ chunk function, its own reader seeked to its first frame and its own
 chunk before it waits for any readback, so distinct cards overlap. The
 output equals the single-device renders of the segments, concatenated.
 
+With ``sp=M`` each segment's frames are split into M row bands over its
+``sp`` devices (``stereo/bands.py``): the stereo step runs on every band
+with a halo exchange per frame and whole-frame statistics summed on the
+segment's lead device, so the output equals the unsharded render's byte
+for byte. Decoding, the depth-file resize, the packing and the YUV legs
+run on the lead. On the fused route the depth model does not run
+row-sharded: the chunk's frames are split by frame over the ``sp``
+devices, each runs the model on its frames, and each frame's depth map is
+then scattered to the row bands. The model is per frame and normalizes
+each frame by its own range, so this is a placement choice and nothing is
+reduced; a row-sharded model (token-parallel attention and a sharded
+neck) is ROADMAP item 6c. The output then equals the one-device render at
+``chunk_size / M`` frames per chunk (the model's batch per device): the
+library GEMMs round by batch size.
+
+With ``tp=K`` each (segment, row group) runs the depth model
+Megatron-split over its ``tp`` devices (``parallel/tp.py``).
+
 The depth model is replicated once per distinct device (a device may
-repeat: ``[cuda:0, cuda:0]`` shares one copy). Row sharding (``sp``) and
-tensor sharding (``tp``) are not ported yet (ROADMAP Queue 1 item 6b).
+repeat: ``[cuda:0, cuda:0]`` shares one copy), or split once per distinct
+``tp`` group.
 """
 
 from __future__ import annotations
@@ -31,10 +49,13 @@ import torch
 from ..io import Y4MPlaneReader
 from ..io.depth_io import open_depth_reader
 from ..io.video import open_video, open_writer
-from ..parallel.dp import NOT_PORTED_6B, segment_bounds
-from ..parallel.mesh import make_mesh, replicas, visible_devices
+from ..parallel.dp import segment_bounds
+from ..parallel.halo import BandLayout, band_bounds
+from ..parallel.mesh import make_mesh, replicate, visible_devices
+from ..parallel.tp import tp_predictor
 from ..state import init_trackers
 from ..stereo import StereoParams
+from ..stereo.bands import init_band_trackers, stereo_halo
 from .stereo_pipeline import (ChunkStream, RenderConfig, RenderProgress, _blank_frames,
                               make_chunk_fn, plane_input, probe_geometry)
 
@@ -199,16 +220,18 @@ def render_stereo_video_mesh(
     snap_scenes: bool = False,
     devices=None,
 ) -> RenderProgress:
-    """Segment-parallel render over a dp device mesh (``devices`` as in
-    ``mesh_devices``; a device may repeat).
+    """Segment-parallel render over a dp x sp x tp device mesh
+    (``devices`` as in ``mesh_devices``; a device may repeat).
 
     Output is identical to rendering each segment on its own with the
-    single-device path (fresh trackers per segment) and concatenating. The
-    geometry (and the black-bar crop) comes from the clip's first frame;
-    blank frames are detected over the whole clip. Resume and a clip window
-    are not supported here: render segments are already the natural
-    restart unit, and no checkpoint is written. A cancelled render keeps
-    the frames from the clip's start up to the first segment left short.
+    single-device path (fresh trackers per segment) and concatenating; with
+    ``sp`` on the fused route, at ``chunk_size / sp`` per chunk (see the
+    module docstring). The geometry (and the black-bar crop) comes from the
+    clip's first frame; blank frames are detected over the whole clip.
+    Resume and a clip window are not supported here: render segments are
+    already the natural restart unit, and no checkpoint is written. A
+    cancelled render keeps the frames from the clip's start up to the
+    first segment left short.
     """
     params = params or StereoParams()
     cfg = cfg or RenderConfig()
@@ -229,15 +252,20 @@ def render_stereo_video_mesh(
     if tp > 1 and predictor is None:
         raise ValueError("--mesh tp=K shards the depth model and needs the "
                          "fused route (no --depth input)")
-    if sp > 1 or tp > 1:
-        raise NotImplementedError(f"--mesh sp/tp: {NOT_PORTED_6B}")
-    devices = mesh_devices(dp, cfg.device, devices)
-    if dp > len(devices):
-        raise ValueError(f"mesh dp={dp},sp={sp},tp={tp} needs {dp * sp * tp} devices, "
+    n = dp * sp * tp
+    devices = mesh_devices(n, cfg.device, devices)
+    if n > len(devices):
+        raise ValueError(f"mesh dp={dp},sp={sp},tp={tp} needs {n} devices, "
                          f"have {len(devices)}")
-    mesh = make_mesh(dp=dp, sp=1, tp=1, devices=devices[:dp])
-    seg_devices = mesh.device_list
-    preds = replicas(predictor, seg_devices) if predictor is not None else None
+    mesh = make_mesh(dp=dp, sp=sp, tp=tp, devices=devices[:n])
+    seg_devices = [mesh.devices[g, 0, 0] for g in range(dp)]
+    # the depth model of each (segment, row group): a replica on its
+    # device, or split over its tp devices; one per distinct device group
+    models: dict = {}
+    if predictor is not None:
+        for group in {tuple(mesh.devices[g, s, :]) for g in range(dp) for s in range(sp)}:
+            models[group] = (tp_predictor(predictor, group) if tp > 1
+                             else replicate(predictor, group[0]))
 
     total = count_video_frames(input_path)
     if depth_path is not None:
@@ -249,7 +277,7 @@ def render_stereo_video_mesh(
         return render_stereo_video(
             input_path, depth_path, output_path, params,
             dataclasses.replace(cfg, mesh="off", device=str(dev0)), progress_cb, cancel_check,
-            preds[dev0] if preds is not None else None)
+            replicate(predictor, dev0) if predictor is not None else None)
 
     # probe geometry exactly like the single-device path
     rd0 = open_video(input_path)
@@ -269,10 +297,23 @@ def render_stereo_video_mesh(
     bounds = segment_bounds(total, dp, cuts)
     blank_set = _blank_frames(input_path, fps) if cfg.skip_blank_frames else set()
 
-    chunk_fns = {d: make_chunk_fn(params, geom, cfg,
-                                  predictor=preds[d] if preds is not None else None,
-                                  yuv_in=yuv_in)
-                 for d in dict.fromkeys(seg_devices)}
+    halo = stereo_halo(params)
+    if sp > 1:
+        band_bounds(geom.warp_h, sp, halo)  # a warp-size band too thin raises here
+
+    def segment(g):
+        """(chunk function, fresh trackers) of segment g."""
+        groups = [tuple(mesh.devices[g, s, :]) for s in range(sp)]
+        pred = None
+        if predictor is not None:
+            pred = [models[k] for k in groups] if sp > 1 else models[groups[0]]
+        bands = (BandLayout.make(geom.eye_h, [k[0] for k in groups], halo, geom.eye_w)
+                 if sp > 1 else None)
+        fn = make_chunk_fn(params, geom, cfg, predictor=pred, yuv_in=yuv_in, bands=bands)
+        trackers = (init_band_trackers(bands, geom.eye_w) if bands is not None
+                    else init_trackers(geom.eye_h, geom.eye_w, seg_devices[g]))
+        return fn, trackers
+
     seg_paths = [f"{output_path}.seg{g}.y4m" for g in range(dp)]
     streams: list[ChunkStream] = []
     opened: list = []  # every reader and writer, closed at the end
@@ -287,9 +328,9 @@ def render_stereo_video_mesh(
                 opened.append(dd)
             wr = open_writer(seg_paths[g], geom.out_w, geom.out_h, fps)
             opened.append(wr)
-            streams.append(ChunkStream(
-                rd, dd, wr, chunk_fns[dev], init_trackers(geom.eye_h, geom.eye_w, dev), dev,
-                geom, cfg, yuv_in, blank_set, frame_idx=start, limit=end - start))
+            fn, trackers = segment(g)
+            streams.append(ChunkStream(rd, dd, wr, fn, trackers, dev, geom, cfg, yuv_in,
+                                       blank_set, frame_idx=start, limit=end - start))
         while any(not s.eof for s in streams):
             if cancel_check and cancel_check():
                 break

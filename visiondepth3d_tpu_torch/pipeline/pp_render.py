@@ -12,8 +12,13 @@ single-device fused route byte for byte (the stage cut moves no arithmetic
 across frames: ``make_pp_bodies``). The reads, the YUV legs and the one
 readback in flight are the single-device loop's (``ChunkStream``).
 
-With ``dp=N`` each slice is N devices wide and slice B shards frame rows:
-not ported yet (ROADMAP Queue 1 item 6b).
+With ``dp=N`` each slice is N devices wide, as in the JAX package: slice
+A splits each chunk's frames over its N devices (one model replica each)
+and slice B renders the chunk in N row bands (``stereo/bands.py``); each
+band takes its rows of every frame group straight from slice A. The output
+then equals the single-device fused render at ``chunk_size / N`` frames
+per chunk (the model's batch per device; the library GEMMs round by batch
+size).
 """
 
 from __future__ import annotations
@@ -23,11 +28,12 @@ from typing import Callable
 
 from ..io import Y4MPlaneReader
 from ..io.video import open_video, open_writer
-from ..parallel.dp import NOT_PORTED_6B
+from ..parallel.halo import BandLayout, band_bounds
 from ..parallel.mesh import replicate
 from ..parallel.pp import TwoStagePipeline
 from ..state import init_trackers
 from ..stereo import StereoParams
+from ..stereo.bands import init_band_trackers, stereo_halo
 from .mesh_render import mesh_devices
 from .stereo_pipeline import (ChunkStream, RenderConfig, RenderProgress, _blank_frames,
                               make_pp_bodies, plane_input, probe_geometry)
@@ -45,8 +51,9 @@ def render_stereo_video_pp(
     devices=None,
 ) -> RenderProgress:
     """Two-slice pipelined fused 2D->3D render (see the module docstring):
-    depth on the first device, stereo on the second (``devices`` as in
-    ``mesh_render.mesh_devices``; they may be one device twice)."""
+    depth on the first ``dp`` devices, stereo on the next ``dp``
+    (``devices`` as in ``mesh_render.mesh_devices``; a device may
+    repeat)."""
     params = params or StereoParams()
     cfg = cfg or RenderConfig()
     axes = dict(mesh_axes or {})
@@ -60,13 +67,12 @@ def render_stereo_video_pp(
         raise ValueError("--mesh pp=2 composes with dp only "
                          "(dp=N gives each slice N devices)")
     w = int(axes.get("dp", 1))
-    if w > 1:
-        raise NotImplementedError(f"--mesh pp=2,dp={w} (slice B shards rows): {NOT_PORTED_6B}")
-    devices = mesh_devices(2, cfg.device, devices)
+    devices = mesh_devices(2 * w, cfg.device, devices)
     if 2 * w > len(devices):
         raise ValueError(f"mesh pp=2,dp={w} needs {2 * w} devices, "
                          f"have {len(devices)}")
-    dev_a, dev_b = devices[:2]
+    slice_a, slice_b = devices[:w], devices[w:2 * w]
+    dev_a, dev_b = slice_a[0], slice_b[0]
 
     rd = open_video(input_path, cfg.start_s, cfg.end_s)
     wr = None
@@ -78,8 +84,15 @@ def render_stereo_video_pp(
         if yuv_in:
             rd.close()
             rd = Y4MPlaneReader(input_path)
-        depth_body, _ = make_pp_bodies(params, geom, cfg, replicate(predictor, dev_a), yuv_in)
-        _, stereo_body = make_pp_bodies(params, geom, cfg, None, yuv_in)
+        bands = None
+        if w > 1:
+            halo = stereo_halo(params)
+            band_bounds(geom.warp_h, w, halo)  # a warp-size band too thin raises here
+            bands = BandLayout.make(geom.eye_h, slice_b, halo, geom.eye_w)
+        preds = {d: replicate(predictor, d) for d in dict.fromkeys(slice_a)}
+        depth_body, _ = make_pp_bodies(
+            params, geom, cfg, [preds[d] for d in slice_a] if w > 1 else preds[dev_a], yuv_in)
+        _, stereo_body = make_pp_bodies(params, geom, cfg, None, yuv_in, bands)
         wr = open_writer(output_path, geom.out_w, geom.out_h, fps, cfg.codec, cfg.crf)
         # the reads land on slice A; the outputs are read back from slice B
         stream = ChunkStream(rd, None, wr, None, None, dev_a, geom, cfg, yuv_in, blank_set,
@@ -98,9 +111,12 @@ def render_stereo_video_pp(
             trackers, out_u8 = stereo_body(trackers, frames_in, depths, blanks_in)
             return trackers, (out_u8, n)
 
-        pipe = TwoStagePipeline([dev_a, dev_b], 1, lambda item: depth_body(item[0]), stage_b)
+        pipe = TwoStagePipeline([*slice_a, *slice_b], w, lambda item: depth_body(item[0]),
+                                stage_b)
+        trackers = (init_band_trackers(bands, geom.eye_w) if bands is not None
+                    else init_trackers(geom.eye_h, geom.eye_w, dev_b))
         prog = RenderProgress()
-        for out_u8, n in pipe.run(chunks(), init_trackers(geom.eye_h, geom.eye_w, dev_b)):
+        for out_u8, n in pipe.run(chunks(), trackers):
             stream.emit(out_u8, n)
             prog.frames_done += n
             prog.fps = prog.frames_done / max(time.time() - prog.started, 1e-6)

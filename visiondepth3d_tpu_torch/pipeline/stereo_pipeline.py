@@ -39,6 +39,7 @@ from ..ops.convert import (float_to_u8_round, float_to_u8_trunc, rgb_u8_to_yuv42
 from ..ops.resize import resize_bilinear
 from ..state import init_trackers
 from ..stereo import StereoParams
+from ..stereo.bands import render_chunk_bands
 from ..stereo.step import render_chunk
 from . import resume
 from .geometry import RenderGeometry, resolve_geometry
@@ -113,10 +114,13 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_pieces(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
-                  yuv_in: bool = False):
+                  yuv_in: bool = False, bands=None):
     """The pieces every chunk function is made of: ``decode`` (u8 frames or
     (Y, U, V) planes -> float RGB), ``crop`` and ``finish`` (the stereo step
-    over the eye-sized frames and depths, the eyes packed, u8 out)."""
+    over the eye-sized frames and depths, the eyes packed, u8 out). With
+    ``bands`` (a ``parallel.halo.BandLayout`` at the eye size) the stereo
+    step runs over its row bands (``stereo/bands.py``); everything else
+    runs on the chunk's device."""
     params = params.replace(warp_hw=(geom.warp_h, geom.warp_w)).with_shift_bound(geom.warp_w)
     to_u8 = float_to_u8_trunc if params.parity_quantize else float_to_u8_round
 
@@ -128,7 +132,10 @@ def _chunk_pieces(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
         return u8_to_float(yuv420_to_rgb_u8(*frames_in) if yuv_in else frames_in)
 
     def finish(trackers, frames, depths, blanks):
-        trackers, outs = render_chunk(params, trackers, frames, depths, blanks)
+        if bands is None:
+            trackers, outs = render_chunk(params, trackers, frames, depths, blanks)
+        else:
+            trackers, outs = render_chunk_bands(params, trackers, frames, depths, bands, blanks)
         packed = []
         for left, right in zip(outs.left, outs.right):
             left, right = fmt_ops.pack_per_eye(left, right, cfg.output_format,
@@ -141,25 +148,39 @@ def _chunk_pieces(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
     return decode, crop, finish
 
 
+def predict_groups(predictor, frames: torch.Tensor, out_hw):
+    """Depth of a chunk's frames: ``predictor.predict_01`` of the whole
+    chunk, or, for a list of predictors, the frames split by frame over
+    them (as even as possible, in order), each group's depth left on its
+    predictor's device -> a list of [T_g, h, w]. The model is per frame and
+    normalizes each frame by its own range, so nothing crosses groups."""
+    if not isinstance(predictor, (list, tuple)):
+        return predictor.predict_01(frames, out_hw=out_hw)
+    parts = torch.tensor_split(frames, len(predictor))
+    return [pr.predict_01(x, out_hw=out_hw) for pr, x in zip(predictor, parts) if x.shape[0]]
+
+
 def make_chunk_fn(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
-                  predictor=None, yuv_in: bool = False) -> Callable:
+                  predictor=None, yuv_in: bool = False, bands=None) -> Callable:
     """The chunk function: u8 in -> (trackers, packed u8 [T, out_h, out_w, 3]).
 
     With ``predictor``: ``fn(trackers, frames_in, blanks=None)``, depth
-    inferred from the cropped frames (the fused route). Without:
+    inferred from the cropped frames (the fused route; a list of predictors
+    splits the chunk's frames over them, ``predict_groups``). Without:
     ``fn(trackers, frames_in, depths_u16, blanks=None)`` with depth as
     lossless uint16 ([T, Hd, Wd]). ``frames_in`` is RGB u8 [T, H, W, 3], or
     a (Y, U, V) tuple of u8 plane batches when ``yuv_in``; ``blanks`` an
-    optional [T] bool tensor of blank frames.
+    optional [T] bool tensor of blank frames. ``bands``: see
+    ``_chunk_pieces``.
     """
-    decode, crop, finish = _chunk_pieces(params, geom, cfg, yuv_in)
+    decode, crop, finish = _chunk_pieces(params, geom, cfg, yuv_in, bands)
     eye_hw = (geom.eye_h, geom.eye_w)
 
     if predictor is not None:
         @torch.inference_mode()
         def chunk_fused(trackers, frames_in, blanks=None):
             frames = crop(decode(frames_in))  # [T, ch, cw, 3]
-            depths = predictor.predict_01(frames, out_hw=eye_hw)
+            depths = predict_groups(predictor, frames, eye_hw)
             return finish(trackers, resize_bilinear(frames, eye_hw), depths, blanks)
 
         return chunk_fused
@@ -178,23 +199,25 @@ def make_chunk_fn(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
 
 
 def make_pp_bodies(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
-                   predictor, yuv_in: bool = False) -> tuple[Callable, Callable]:
+                   predictor, yuv_in: bool = False, bands=None) -> tuple[Callable, Callable]:
     """The fused chunk function cut at the depth/stereo boundary, for the
     two-stage pipeline (``parallel/pp.py``):
 
-      depth_body(frames_in) -> depths01 [T, eye_h, eye_w]
+      depth_body(frames_in) -> depths01 [T, eye_h, eye_w] (a list of frame
+          groups for a list of predictors, ``predict_groups``)
       stereo_body(trackers, frames_in, depths01, blanks=None)
           -> (trackers, packed u8)
 
     Each stage decodes and crops the u8 frames itself, so only the frames
     and the depth cross between the stages. ``stereo_body(depth_body(x))``
-    computes what the fused ``make_chunk_fn`` does, op for op."""
-    decode, crop, finish = _chunk_pieces(params, geom, cfg, yuv_in)
+    computes what the fused ``make_chunk_fn`` does, op for op. ``bands``:
+    the stereo body's row bands (``_chunk_pieces``)."""
+    decode, crop, finish = _chunk_pieces(params, geom, cfg, yuv_in, bands)
     eye_hw = (geom.eye_h, geom.eye_w)
 
     @torch.inference_mode()
     def depth_body(frames_in):
-        return predictor.predict_01(crop(decode(frames_in)), out_hw=eye_hw)
+        return predict_groups(predictor, crop(decode(frames_in)), eye_hw)
 
     @torch.inference_mode()
     def stereo_body(trackers, frames_in, depths01, blanks=None):

@@ -77,9 +77,15 @@ def _true(like: torch.Tensor) -> torch.Tensor:
     return torch.ones((), dtype=torch.bool, device=like.device)
 
 
+def smooth_plane(initialized: torch.Tensor, prev_depth: torch.Tensor, depth: torch.Tensor,
+                 alpha: float = 0.5) -> torch.Tensor:
+    """The temporal filter on a plane (a whole frame or a row band of it)."""
+    prev = torch.where(initialized, prev_depth, depth)
+    return alpha * prev + (1.0 - alpha) * depth
+
+
 def temporal_depth_smooth(t: StereoTrackers, depth: torch.Tensor, alpha: float = 0.5):
-    prev = torch.where(t.initialized, t.prev_depth, depth)
-    smoothed = alpha * prev + (1.0 - alpha) * depth
+    smoothed = smooth_plane(t.initialized, t.prev_depth, depth, alpha)
     return t.replace(prev_depth=smoothed), smoothed
 
 
@@ -89,16 +95,29 @@ def percentile_ema_normalize(t: StereoTrackers, depth01: torch.Tensor,
                              quantile_mode: QuantileMode = "hist"):
     d = torch.clamp(depth01, 0.0, 1.0)
     q = quantile_01(d, (p_lo, p_hi), mode=quantile_mode)
-    lo, hi = q[0], q[1]
+    t, new_lo, new_hi, degenerate = percentile_ema_update(t, q[0], q[1], alpha)
+    return t, percentile_ema_apply(d, new_lo, new_hi, degenerate)
+
+
+def percentile_ema_update(t: StereoTrackers, lo: torch.Tensor, hi: torch.Tensor,
+                          alpha: float = 0.92):
+    """The EMA of the frame's quantiles lo, hi. Returns (trackers, new_lo,
+    new_hi, degenerate)."""
     degenerate = (hi - lo) < 1e-5
     new_lo = torch.where(t.norm_init, alpha * t.norm_lo + (1 - alpha) * lo, lo)
     new_hi = torch.where(t.norm_init, alpha * t.norm_hi + (1 - alpha) * hi, hi)
     new_lo = torch.where(degenerate, t.norm_lo, new_lo)
     new_hi = torch.where(degenerate, t.norm_hi, new_hi)
-    new_init = torch.where(degenerate, t.norm_init, _true(d))
-    out = torch.where(degenerate, d,
-                      torch.clamp((d - new_lo) / (new_hi - new_lo + 1e-6), 0.0, 1.0))
-    return t.replace(norm_lo=new_lo, norm_hi=new_hi, norm_init=new_init), out
+    new_init = torch.where(degenerate, t.norm_init, _true(lo))
+    return (t.replace(norm_lo=new_lo, norm_hi=new_hi, norm_init=new_init), new_lo, new_hi,
+            degenerate)
+
+
+def percentile_ema_apply(d: torch.Tensor, new_lo: torch.Tensor, new_hi: torch.Tensor,
+                         degenerate: torch.Tensor) -> torch.Tensor:
+    """The normalization of d (clamped to [0, 1]; a frame or a row band)."""
+    return torch.where(degenerate, d,
+                       torch.clamp((d - new_lo) / (new_hi - new_lo + 1e-6), 0.0, 1.0))
 
 
 def convergence_ema_update(t: StereoTrackers, x: torch.Tensor, alpha: float = 0.97):

@@ -43,15 +43,17 @@ def _maybe_quantize(x: torch.Tensor, p: StereoParams) -> torch.Tensor:
 def compute_shift_map(p: StereoParams, t: trk.StereoTrackers, shaped: torch.Tensor,
                       subject_depth: torch.Tensor, fg, mg, bg):
     """Layer-weighted disparity with subject-anchored zero parallax."""
-    width = shaped.shape[-1]
-    half_width = width / 2.0
-    fg_weight = torch.clamp((1.0 - shaped) ** 1.5, 0.0, 1.0)
-    mg_weight = torch.clamp(1.0 - torch.abs(shaped - p.depth_pop_mid) * 3.0, 0.0, 1.0)
-    bg_weight = torch.clamp(shaped, 0.0, 1.0)
-    raw_shift = (fg_weight * fg * p.fg_pop_multiplier + mg_weight * mg
-                 + bg_weight * bg * p.bg_push_multiplier)
-    total_shift = (raw_shift * p.parallax_balance) / half_width
+    t, zero_parallax, convergence = shift_scalars(p, t, subject_depth, fg, mg, bg,
+                                                  shaped.shape[-1])
+    return t, shift_plane(p, shaped, fg, mg, bg, zero_parallax, convergence)
 
+
+def shift_scalars(p: StereoParams, t: trk.StereoTrackers, subject_depth: torch.Tensor,
+                  fg, mg, bg, width: int):
+    """The frame-level terms of the shift map: (trackers, the zero-parallax
+    offset or None without subject tracking, the convergence term)."""
+    half_width = width / 2.0
+    zero_parallax = None
     if p.use_subject_tracking:
         adjusted = subject_depth * p.parallax_balance
         zero_parallax = ((-adjusted * fg * p.fg_pop_multiplier) + (-adjusted * mg)
@@ -63,23 +65,38 @@ def compute_shift_map(p: StereoParams, t: trk.StereoTrackers, shaped: torch.Tens
             zero_parallax = torch.clamp(zero_parallax * subject_weight, -0.35, 0.35)
             t, zero_parallax = trk.floating_window_update(t, zero_parallax, alpha=0.97,
                                                           threshold=0.0015)
-        total_shift = total_shift - zero_parallax
-
-    max_shift_norm = (width * p.max_pixel_shift_percent) / half_width
-    total_shift = torch.clamp(total_shift, -max_shift_norm, max_shift_norm)
     # a convergence strength of exactly 0 is a no-op either way
     if p.enable_dynamic_convergence:
         convergence_bias = subject_depth * p.convergence_strength
     else:
         convergence_bias = p.convergence_strength
-    total_shift = total_shift - convergence_bias / half_width
+    return t, zero_parallax, convergence_bias / half_width
+
+
+def shift_plane(p: StereoParams, shaped: torch.Tensor, fg, mg, bg, zero_parallax,
+                convergence) -> torch.Tensor:
+    """The per-pixel shift map of ``shaped`` (a frame or a row band of it)
+    from the frame-level terms of ``shift_scalars``."""
+    width = shaped.shape[-1]
+    half_width = width / 2.0
+    fg_weight = torch.clamp((1.0 - shaped) ** 1.5, 0.0, 1.0)
+    mg_weight = torch.clamp(1.0 - torch.abs(shaped - p.depth_pop_mid) * 3.0, 0.0, 1.0)
+    bg_weight = torch.clamp(shaped, 0.0, 1.0)
+    raw_shift = (fg_weight * fg * p.fg_pop_multiplier + mg_weight * mg
+                 + bg_weight * bg * p.bg_push_multiplier)
+    total_shift = (raw_shift * p.parallax_balance) / half_width
+    if zero_parallax is not None:
+        total_shift = total_shift - zero_parallax
+    max_shift_norm = (width * p.max_pixel_shift_percent) / half_width
+    total_shift = torch.clamp(total_shift, -max_shift_norm, max_shift_norm)
+    total_shift = total_shift - convergence
 
     if p.enable_edge_masking:
         mask_strength = min(max(p.feather_strength / 10.0, 0.05), 0.3)
         suppressed = edges.suppress_artifacts_with_edge_mask(shaped, total_shift,
                                                              p.feather_strength)
-        return t, (1.0 - mask_strength) * total_shift + mask_strength * suppressed
-    return t, total_shift
+        return (1.0 - mask_strength) * total_shift + mask_strength * suppressed
+    return total_shift
 
 
 def _dispatch_warp(p: StereoParams, frame, shaped, final_shift):
@@ -149,6 +166,35 @@ def pixel_shift(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
     return t, left, right, final_shift, subject_depth, frame_i
 
 
+def color_grade(p: StereoParams, x: torch.Tensor) -> torch.Tensor:
+    return grade.apply_color_grade(x, p.color_saturation, p.color_contrast, p.color_brightness)
+
+
+def hold_on_blank(t: trk.StereoTrackers, t_in: trk.StereoTrackers,
+                  is_blank: torch.Tensor) -> trk.StereoTrackers:
+    """A blank frame keeps the floating-window and focal trackers at their
+    input values."""
+    return t.replace(**{name: torch.where(is_blank, getattr(t_in, name), getattr(t, name))
+                        for name in ("fw_offset", "fw_counter", "focal", "focal_init")})
+
+
+def side_mask_terms(p: StereoParams, t: trk.StereoTrackers, subj_window: torch.Tensor,
+                    fg, mg, bg, width: int):
+    """The floating window's convergence EMA and bar easer for a frame
+    ``width`` wide: (trackers, (bar width, side sign) for
+    ``formats.apply_side_mask``, or None when the window is off)."""
+    raw_zero = (-subj_window * fg - subj_window * mg + subj_window * bg) / (width / 2.0 + 1e-6)
+    t, stable_zero = trk.convergence_ema_update(t, raw_zero, alpha=0.97)
+    if not (p.enable_floating_window and p.use_subject_tracking):
+        return t, None
+    raw_bar = torch.floor(torch.abs(stable_zero) * width * 0.75)
+    t, eased = trk.bar_easer_update(t, raw_bar, alpha=0.85)
+    bar_width = torch.clamp(eased, 0.0, 80.0)
+    side_sign = torch.where(stable_zero > 0.005, 1.0,
+                            torch.where(stable_zero < -0.005, -1.0, 0.0))
+    return t, (bar_width, side_sign)
+
+
 def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
                       depth01: torch.Tensor, is_blank: torch.Tensor | None = None):
     """One frame through the stereo stage. frame: [H, W, 3] float RGB in
@@ -185,10 +231,7 @@ def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tenso
         left, right, graded = _dispatch_dof(p, left, right, depth_w, focal)
 
     if not graded:
-        left = grade.apply_color_grade(left, p.color_saturation, p.color_contrast,
-                                       p.color_brightness)
-        right = grade.apply_color_grade(right, p.color_saturation, p.color_contrast,
-                                        p.color_brightness)
+        left, right = color_grade(p, left), color_grade(p, right)
     left = _maybe_quantize(left, p)
     right = _maybe_quantize(right, p)
 
@@ -197,22 +240,13 @@ def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tenso
         # above ran as on any frame
         left = torch.where(is_blank, frame_w, left)
         right = torch.where(is_blank, frame_w, right)
-        t = t.replace(**{name: torch.where(is_blank, getattr(t_in, name), getattr(t, name))
-                         for name in ("fw_offset", "fw_counter", "focal", "focal_init")})
+        t = hold_on_blank(t, t_in, is_blank)
 
     # floating-window side masks: bar geometry at the warp-stage width
-    width = left.shape[1]
-    subj_window = candidate_focal
-    raw_zero = (-subj_window * fg - subj_window * mg + subj_window * bg) / (width / 2.0 + 1e-6)
-    t, stable_zero = trk.convergence_ema_update(t, raw_zero, alpha=0.97)
-    if p.enable_floating_window and p.use_subject_tracking:
-        raw_bar = torch.floor(torch.abs(stable_zero) * width * 0.75)
-        t, eased = trk.bar_easer_update(t, raw_bar, alpha=0.85)
-        bar_width = torch.clamp(eased, 0.0, 80.0)
-        side_sign = torch.where(stable_zero > 0.005, 1.0,
-                                torch.where(stable_zero < -0.005, -1.0, 0.0))
-        left = formats.apply_side_mask(left, bar_width, side_sign)
-        right = formats.apply_side_mask(right, bar_width, side_sign)
+    t, bars = side_mask_terms(p, t, candidate_focal, fg, mg, bg, left.shape[1])
+    if bars is not None:
+        left = formats.apply_side_mask(left, *bars)
+        right = formats.apply_side_mask(right, *bars)
 
     left = _maybe_quantize(filters.sharpen(left, p.sharpness_factor), p)
     right = _maybe_quantize(filters.sharpen(right, p.sharpness_factor), p)

@@ -13,9 +13,12 @@ initialized; every rank is handed the whole batch and takes its own
 contiguous shard, and DDP's gradient all-reduce (a mean over ranks) gives
 every rank the whole batch's gradient, as the JAX package's ``P("dp")``
 batch constraint does. Without a process group the trainer runs on its
-one device. Tensor parallelism (``tp``) is not ported yet (ROADMAP Queue 1
-item 6b). The attention kernel K7 has no backward: with its opt-in set, a
-step raises instead of training on a graph it cut.
+one device. A mesh with ``tp=K`` splits the ViT's attention and MLP blocks
+Megatron-style over its first ``tp`` group's K devices in this process
+(``parallel/tp.py``, the JAX trainer's ``shard_params``); under DDP each
+rank's module then spans its own group. The JAX trainer shards no rows, so
+a mesh with ``sp`` > 1 raises. The attention kernel K7 has no backward:
+with its opt-in set, a step raises instead of training on a graph it cut.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ from ..depth.configs import DPTConfig
 from ..depth.convert import from_jax_params, load_hf_state_dict
 from ..depth.dpt import DepthAnything
 from ..depth.model import init_random_fan_in_
-from ..device import DEFAULT_DEVICE, resolve_device
-from ..parallel.dp import NOT_PORTED_6B
+from ..device import DEFAULT_DEVICE, resolve_device, same_device
+from ..parallel.tp import shard_module
 
 
 def ssi_align(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -100,23 +103,33 @@ class Trainer:
         1e12, on which the loss only wanders), the JAX package's params
         tree (``depth/convert.from_jax_params``), or None (seed 0).
         Under an initialized process group the model is wrapped in DDP
-        (rank 0's weights are broadcast). ``mesh``: a dp mesh is the
-        process group's business; sp or tp raise."""
-        if mesh is not None and (mesh.shape.get("tp", 1) > 1 or mesh.shape.get("sp", 1) > 1):
-            raise NotImplementedError(f"Trainer with a tp/sp mesh: {NOT_PORTED_6B}")
+        (rank 0's weights are broadcast). ``mesh``: its dp axis is the
+        process group's business; with tp > 1 the model is split over
+        ``mesh.devices[0, 0, :]`` (the first is this trainer's device); sp
+        > 1 raises."""
+        if mesh is not None and mesh.shape.get("sp", 1) > 1:
+            raise ValueError("the trainer shards no rows, as the JAX trainer does not "
+                             "(it shards the batch over dp and the ViT over tp): drop sp")
         if isinstance(source, dict):
             load_hf_state_dict(self.module, from_jax_params(source, self.cfg))
         else:
             gen = source if source is not None else torch.Generator().manual_seed(0)
             init_random_fan_in_(self.module.cpu(), gen)
             self.module.to(self.device)
+        if mesh is not None and mesh.shape.get("tp", 1) > 1:
+            group = list(mesh.devices[0, 0, :])
+            if not same_device(group[0], self.device):
+                raise ValueError(f"the tp group starts on {group[0]}, the trainer is on "
+                                 f"{self.device}")
+            self.module = self.model = shard_module(self.module, group)
         self._setup()
         return self
 
     def _setup(self) -> None:
         """DDP under a process group, and a fresh optimizer."""
         if dist.is_available() and dist.is_initialized():
-            ids = [self.device] if self.device.type == "cuda" else None
+            one_device = len({p.device for p in self.module.parameters()}) == 1
+            ids = [self.device] if self.device.type == "cuda" and one_device else None
             self.model = DistributedDataParallel(self.module, device_ids=ids)
         self.optimizer = torch.optim.AdamW(self.module.parameters(), lr=self.learning_rate,
                                            betas=(0.9, 0.999), eps=1e-8,
