@@ -36,7 +36,11 @@ Phases, each printed on its own line; any failure exits nonzero:
      8 frames [280, 577, 16, 64] (35 windows a frame), VDA-Small's 32-frame
      window [32, 1370, 6, 64], Marigold's UNet level 2 at 1080p
      [2, 2040, 20, 64] (34 x 60 latents, batch 2), and DepthCrafter's over
-     a 24-frame window [24, 2040, 20, 64] (bf16 and f32);
+     a 24-frame window [24, 2040, 20, 64] (bf16 and f32), [8, 1370, 6, 64]
+     in f32 too, each with SDPA's time on the same shape; K7's query-band
+     form at the sp=2 depth route's bands ([8, 667 | 703, 6, 64] against
+     1370 keys, bf16 and f32) against its plain version and against the
+     same rows of the whole-sequence kernel;
   4. (render) the render path: a synthetic 1920x1080 y4m clip of 64 frames
      through render_stereo_video with the benchmark configuration (Depth
      Anything V2-Small, random weights from a seed, 518^2, bf16, fast head;
@@ -174,7 +178,11 @@ Phases, each printed on its own line; any failure exits nonzero:
      and K4's band forms and finishes), with depth of field (K6 per band),
      dp=2,sp=2 (32 frames), pp=2,dp=2 (16), sp=2 at 3840x2160 (8 frames),
      byte for byte; the tp=2 depth route (K7 opt-in at [8, 1370, 3, 64])
-     and the tp=2 render within their gates;
+     and the tp=2 render within their gates; then the depth route with the
+     model row-sharded (mesh_sp_depth): sp=2 (16 frames, batch 8; SDPA and
+     the K7 opt-in, whose query-band form launches 48 times at [8, 667 |
+     703, 6, 64] against 1370 keys; bf16 and float32), dp=2,sp=2 and sp=2 at
+     924^2 (4 frames, the peak memory), each within its gates of one device;
  18. (train) the depth trainer: DA-V2-Small at 518^2, batch 4, float32, 5
      AdamW steps on one synthetic batch (the loss finite and descending,
      steps/s, peak GiB, no K7 launch; with the K7 opt-in the step raises);
@@ -718,6 +726,7 @@ def phase_kernels(card: str) -> dict:
     phase_conv_kernel(card, results)
     phase_dof_kernel(card, results)
     phase_attention_kernel(card, results)
+    attention_band_kernel(card, results)
     return results
 
 
@@ -1060,6 +1069,7 @@ def phase_dof_kernel(card: str, results: dict):
 # 32-frame window at 518^2, Marigold's UNet level 2 (34 x 60 latents, 20
 # heads) at 1080p with batch 2.
 ATTN_SHAPES = (((16, 1370, 6, 64), "bfloat16"), ((8, 1370, 6, 64), "bfloat16"),
+               ((8, 1370, 6, 64), "float32"),
                ((8, 1370, 12, 64), "bfloat16"), ((8, 1370, 16, 64), "bfloat16"),
                ((2, 1370, 6, 64), "float32"), ((2, 270, 3, 64), "bfloat16"),
                ((2, 270, 3, 64), "float32"), ((8, 577, 16, 64), "bfloat16"),
@@ -1115,6 +1125,82 @@ def phase_attention_kernel(card: str, results: dict):
                 f"({bound_by}; {flops / ms / 1e9:.1f} TFLOP/s) [{card}]")
             expect(ok, f"vmem_attention {list(shape)} {tname}: max |err| {err}, mean {mean}")
             del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# K7's query-band form at the sp=2 depth route's bands (518^2, batch 8):
+# band 0 is the cls token and patch rows 0-17 (667 tokens), band 1 rows
+# 18-36 (703), each against the whole sequence's 1370 keys
+ATTN_BAND = (8, 1370, 6, 64)
+ATTN_BANDS = ((0, 667), (667, 1370))
+
+
+def attention_band_kernel(card: str, results: dict):
+    """K7's query-band form (q [B, Nq, H, D] against k, v [B, Nk, H, D]) at
+    the sp=2 depth route's bands, bf16 and f32 (TF32 off): against its plain
+    version at K7's gates, and against the same rows of the whole-sequence
+    kernel (reported bit for bit, gated at K7's gates); times by graph
+    replay, SDPA on the same band as the library call, and the bound:
+    4 B H Nq Nk D operations, Q and O of the band and K, V of the whole
+    sequence moved once. The JSON line carries band 1 ([8, 703, 6, 64]
+    against 1370) in bf16 as K7's "band"."""
+    import torch
+    import torch.nn.functional as F
+
+    from visiondepth3d_tpu_torch.kernels import attention as kattn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(8)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for tname in ("bfloat16", "float32"):
+            dt = getattr(torch, tname)
+            q, k, v = (torch.randn(ATTN_BAND, generator=gen, device=dev).to(dt)
+                       for _ in range(3))
+            whole = kattn.vmem_attention_cuda(q, k, v)
+            for a, b in ATTN_BANDS:
+                qb = q[:, a:b].contiguous()
+                got = kattn.vmem_attention_cuda(qb, k, v)
+                errs = {}
+                for name, ref in (("plain", kattn.vmem_attention_torch(qb, k, v)),
+                                  ("whole", whole[:, a:b])):
+                    diff = (got.float() - ref.float()).abs()
+                    errs[name] = (diff.max().item(), diff.mean().item())
+                bitwise = bool(torch.equal(got, whole[:, a:b]))
+                times = kernel_times(lambda: kattn.vmem_attention_cuda(qb, k, v))
+                plain = time_ms(lambda: kattn.vmem_attention_torch(qb, k, v), warmup=1, runs=5)
+                qt, kt, vt = qb.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                library = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+                bsz, nk, h, d = ATTN_BAND
+                nq = b - a
+                flops = 4.0 * bsz * h * nq * nk * d
+                nbytes = 2 * bsz * (nq + nk) * h * d * q.element_size()
+                bound_ms, bound_by = bound(flops, nbytes, tname)
+                if dt == torch.float32:
+                    ok = all(e[0] <= 1e-5 for e in errs.values())
+                    gate = "need max <= 1e-5"
+                else:
+                    ok = all(e[0] <= 1.6e-2 and e[1] <= 1e-3 for e in errs.values())
+                    gate = "need max <= 1.6e-2, mean <= 1e-3"
+                if (a, b) == ATTN_BANDS[1]:
+                    results[("vmem_attention_band", dt)] = dict(
+                        shape=[bsz, nq, h, d], nk=nk, err=errs["plain"][0], ms=times["ms"],
+                        plain=plain, bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=library, bitwise=bitwise)
+                say(f"PHASE kernels vmem_attention band {[bsz, nq, h, d]} against Nk {nk} "
+                    f"(rows [{a}, {b})) {tname}: against its plain version max_abs_err="
+                    f"{errs['plain'][0]:.3e} mean {errs['plain'][1]:.3e}, against rows "
+                    f"[{a}, {b}) of the whole-sequence kernel max {errs['whole'][0]:.3e} "
+                    f"mean {errs['whole'][1]:.3e}, bit for bit {bitwise} ({gate}) "
+                    f"{fmt_times(times)} plain {plain:.4f} ms library {library:.4f} ms "
+                    f"(SDPA on the band, graph replay) bound {bound_ms:.4f} ms ({bound_by}; "
+                    f"{flops / times['ms'] / 1e9:.1f} TFLOP/s) [{card}]")
+                expect(ok, f"vmem_attention band [{a}, {b}) {tname}: {errs}")
+                del qb, got, qt, kt, vt
+            del q, k, v, whole
             torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -3837,6 +3923,163 @@ def mesh_sharded(card: str, tmp: Path, pred, params, base, launches: dict):
         f"0.99); launches {json.dumps(launches['tp render'])} [{card}]")
     expect(dm <= 1.0 and ssim >= 0.99, f"tp render: mean |d| {dm:.4f}, SSIM {ssim:.5f}")
 
+    # 8. the row-sharded depth route: sp=2, dp=2,sp=2, and sp=2 at 924^2
+    t0 = time.perf_counter()
+    mesh_sp_depth(card, tmp, pred, f32, launches)
+    say(f"PHASE mesh sp depth cases took {time.perf_counter() - t0:.1f} s")
+
+
+SP_DEPTH_BANDS = {(667, 1370), (703, 1370)}  # 518^2 over 2 bands: (Nq, Nk) of each
+
+
+def mesh_sp_depth(card: str, tmp: Path, pred, f32, launches: dict):
+    """The depth route with the model row-sharded (``parallel/sp.py``) on
+    cuda:0 repeated (the mesh's overhead, not its scaling), each against
+    one device: sp=2 over 16 1080p frames (DA-V2-S 518^2, batch 8) with
+    SDPA and with the K7 opt-in (K7's query-band form, 12 layers x 2 bands
+    x 2 batches = 48 launches at [8, 667, 6, 64] and [8, 703, 6, 64]
+    against 1370 keys), in bf16 no further from the float32 one-device
+    route than one device in bf16 (+ 0.25 u8) and within SSIM 0.99 of one
+    device on the same attention, in float32 (TF32 off; SDPA and K7)
+    within mean |d| <= 0.5 u8 and SSIM >= 0.995 of one device; fps and
+    device time (and its concatenation kernels: the gathers) beside one
+    device; dp=2,sp=2 over the card 4 times (K7: 96 launches at [4, 667|703,
+    6, 64]) held as sp=2 against one device at batch 4; sp=2 at 924^2 (4
+    frames; N = 4357, SDPA whatever the flags) held as the bf16 cases,
+    with the peak memory of both."""
+    import torch
+
+    from visiondepth3d_tpu_torch.ops import attention as attn_ops
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
+                                                                 render_depth_video_file)
+
+    dev = torch.device("cuda", 0)
+    clip = tmp / "mesh_depth.y4m"
+    layers = pred.cfg.backbone.num_layers
+    bf16 = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda", mesh="sp=2")
+    one = dataclasses.replace(bf16, mesh="off")
+    shapes = []
+    spy_of = attn_ops.kattention.vmem_attention
+
+    def spy(q, k, v):
+        shapes.append((q.shape[0], q.shape[1], k.shape[1]))
+        return spy_of(q, k, v)
+
+    def run(out, cfg, predictor, n_dev, k7, src=clip, profile=False):
+        """(frames, wall s, launch counts) of one route run, or its device
+        profile; K7's calls' (B, Nq, Nk) in ``shapes``."""
+        attn_ops.USE_VMEM_KERNEL = k7
+        attn_ops.kattention.vmem_attention = spy
+        shapes.clear()
+        try:
+            call = lambda: render_depth_video_file(src, tmp / out, cfg, predictor=predictor,
+                                                   devices=[dev] * n_dev)
+            return device_profile(call) if profile else counted(call)
+        finally:
+            attn_ops.USE_VMEM_KERNEL = False
+            attn_ops.kattention.vmem_attention = spy_of
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    def held(sp_path, one_path, f32_path, what):
+        """bf16: sp no further from float32 than one device (+ 0.25 u8),
+        SSIM >= 0.99 to one device."""
+        d_sp, _ = gray_diff(tmp / sp_path, tmp / f32_path, every=16)
+        d_one, _ = gray_diff(tmp / one_path, tmp / f32_path, every=16)
+        dm, ssim = gray_diff(tmp / sp_path, tmp / one_path, every=4)
+        expect(d_sp <= d_one + 0.25 and ssim >= 0.99,
+               f"{what}: {d_sp:.4f} u8 from float32 against one device's {d_one:.4f}, SSIM "
+               f"{ssim:.5f}")
+        return (f"against one device mean |d| {dm:.4f} u8, min SSIM {ssim:.5f} (need >= 0.99); "
+                f"from the float32 one-device route sp {d_sp:.4f} u8, one device {d_one:.4f} u8 "
+                f"(need sp <= one device + 0.25)")
+
+    # sp=2, K7 opt-in, bf16
+    run("sp_depth_warm.y4m", bf16, pred, 2, True)
+    n, wall, counts = run("sp_depth_k7.y4m", bf16, pred, 2, True)
+    launches["sp depth"] = nonzero(counts)
+    k7_at = sorted(set(shapes))
+    expect(n == 16 and nonzero(counts) == {"vmem_attention": layers * 2 * 2}
+           and k7_at == sorted((8, *b) for b in SP_DEPTH_BANDS),
+           f"sp depth: {n} frames, launches {nonzero(counts)}, K7 at {k7_at}")
+    _, wall1, _ = run("sp_depth_one_k7.y4m", one, pred, 1, True)
+    prof, prof1 = (run(f"sp_depth_prof{i}.y4m", cfg, pred, nd, True, profile=True)
+                   for i, (cfg, nd) in enumerate(((bf16, 2), (one, 1))))
+
+    def dev_ms(p):
+        return ("not measured" if p is None else
+                f"{p['device_ms'] / 16:.3f} ms ({p['cat_ms'] / 16:.3f} in concatenation "
+                f"kernels, {p['events']} events)")
+
+    line = held("sp_depth_k7.y4m", "mesh_depth_b8.y4m", "tp_depth_f32_one.y4m", "sp depth K7")
+    say(f"PHASE mesh sp depth: sp=2 over [cuda:0, cuda:0], 16 frames 1080p, DA-V2-S 518^2 "
+        f"bf16 batch 8, K7 opt-in (K7's band form {counts['vmem_attention']} launches at "
+        f"{k7_at} (B, Nq, Nk)): {16 / wall:.2f} fps (one device "
+        f"{16 / wall1:.2f}), device time per frame {dev_ms(prof)} (one device "
+        f"{dev_ms(prof1)}); {line} [{card}]")
+
+    # sp=2, SDPA, bf16
+    n, wall, counts = run("sp_depth_sdpa.y4m", bf16, pred, 2, False)
+    expect(n == 16 and not nonzero(counts), f"sp depth SDPA: launches {nonzero(counts)}")
+    _, wall1, _ = run("sp_depth_sdpa_one.y4m", one, pred, 1, False)
+    line = held("sp_depth_sdpa.y4m", "sp_depth_sdpa_one.y4m", "tp_depth_f32_one.y4m",
+                "sp depth SDPA")
+    say(f"PHASE mesh sp depth SDPA: sp=2, 16 frames, bf16: {16 / wall:.2f} fps (one device "
+        f"{16 / wall1:.2f}); {line} [{card}]")
+
+    # sp=2 in float32, TF32 off, SDPA and K7
+    fcfg = DepthConfig(batch_size=8, device="cuda", mesh="sp=2")
+    with no_tf32():
+        for k7 in (False, True):
+            name = "K7" if k7 else "SDPA"
+            n, wall, counts = run(f"sp_depth_f32_{name}.y4m", fcfg, f32, 2, k7)
+            expect(nonzero(counts) == ({"vmem_attention": layers * 4} if k7 else {}),
+                   f"sp depth f32 {name}: launches {nonzero(counts)}")
+            dm, ssim = gray_diff(tmp / f"sp_depth_f32_{name}.y4m", tmp / "tp_depth_f32_one.y4m",
+                                 every=4)
+            say(f"PHASE mesh sp depth float32 {name}: sp=2, 16 frames, TF32 off: "
+                f"{16 / wall:.2f} fps; against the float32 one-device route (SDPA) mean |d| "
+                f"{dm:.4f} u8 (need <= 0.5), min SSIM {ssim:.5f} (need >= 0.995); launches "
+                f"{json.dumps(nonzero(counts))} [{card}]")
+            expect(dm <= 0.5 and ssim >= 0.995,
+                   f"sp depth f32 {name}: mean |d| {dm:.4f}, SSIM {ssim:.5f}")
+
+    # dp=2,sp=2 over the card 4 times: each dp run 4 frames of a batch in 2 bands
+    n, wall, counts = run("dpsp_depth.y4m", dataclasses.replace(bf16, mesh="dp=2,sp=2"), pred,
+                          4, True)
+    launches["dp x sp depth"] = nonzero(counts)
+    expect(n == 16 and nonzero(counts) == {"vmem_attention": layers * 2 * 2 * 2}
+           and set(shapes) == {(4, *b) for b in SP_DEPTH_BANDS},
+           f"dp x sp depth: launches {nonzero(counts)}, K7 at {sorted(set(shapes))}")
+    line = held("dpsp_depth.y4m", "mesh_depth_b4.y4m", "tp_depth_f32_one.y4m", "dp x sp depth")
+    say(f"PHASE mesh dp x sp depth: dp=2,sp=2 over [cuda:0] * 4, 16 frames, batch 8 (4 + 4, "
+        f"each in 2 bands), K7 opt-in ({counts['vmem_attention']} launches): {16 / wall:.2f} "
+        f"fps; against one device at batch 4: {line} [{card}]")
+
+    # sp=2 at 924^2: N = 66 x 66 + 1 = 4357 tokens, SDPA whatever the flags
+    big = tmp / "depth_924.y4m"
+    write_clip(big, W, H, 4)
+    p924, f924 = (da_predictor("cuda", t, size=924) for t in ("bfloat16", "float32"))
+    peaks = {}
+    for name, cfg, nd in (("one", one, 1), ("sp", bf16, 2)):
+        run(f"d924_{name}_warm.y4m", cfg, p924, nd, True, src=big)
+        torch.cuda.reset_peak_memory_stats()
+        n, wall, counts = run(f"d924_{name}.y4m", cfg, p924, nd, True, src=big)
+        peaks[name] = (torch.cuda.max_memory_allocated() / 2**30, 4 / wall)
+        expect(n == 4 and not nonzero(counts), f"924^2 {name}: launches {nonzero(counts)}")
+    with no_tf32():
+        run("d924_f32.y4m", dataclasses.replace(one, dtype="float32"), f924, 1, False, src=big)
+    line = held("d924_sp.y4m", "d924_one.y4m", "d924_f32.y4m", "sp depth 924")
+    say(f"PHASE mesh sp depth 924: sp=2 over [cuda:0, cuda:0], 4 frames 1080p at 924^2 "
+        f"(4357 tokens: SDPA with the K7 opt-in set), bf16 batch 8: {peaks['sp'][1]:.2f} fps "
+        f"(one device {peaks['one'][1]:.2f}), peak memory {peaks['sp'][0]:.3f} GiB with both "
+        f"bands on the one card (one device {peaks['one'][0]:.3f} GiB); {line} [{card}]")
+    for key in [k for k in _PREDICTORS if k[3] == 924]:
+        del _PREDICTORS[key]
+    del p924, f924
+    torch.cuda.empty_cache()
+
 
 TRAIN_SIZE, TRAIN_BATCH, TRAIN_LR = 518, 4, 1e-4
 
@@ -4150,6 +4393,14 @@ def main(argv=None) -> int:
             sp = mesh_counts.get("sp render", {})
             row["band"] = dict(k["band"], bound_by="bytes", band_launches=sp.get(band),
                                finish_launches=sp.get(finish))
+        kb = kernels.get((name + "_band", key[1]))
+        if kb is not None:
+            # K7's query-band form, with its launches on the sp=2 depth route
+            row["band"] = {"shape": kb["shape"], "nk": kb["nk"], "max_abs_err": kb["err"],
+                           "ms": kb["ms"], "plain_ms": kb["plain"],
+                           "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
+                           "library_ms": kb["library_ms"], "bitwise": kb["bitwise"],
+                           "launches": mesh_counts.get("sp depth", {}).get(name)}
         table.append(row)
     say(card_line())
     say(json.dumps({"kernels": table}))

@@ -243,26 +243,28 @@ def test_tiling_helpers_match_jax():
 
 
 def test_unported_depth_routes_raise(tmp_path):
-    """The depth route's row mesh stays refused (ROADMAP Queue 1 item 6c);
-    dp=2 runs on the CPU twice, on the feed-forward route (a tiny
-    predictor, 3 frames) and on DepthCrafter's (the tiny random pipeline,
-    one 16 x 16 frame), whose windows spread over the dp devices only
-    under dp=2,tp=2, as in the JAX package."""
+    """The depth route's row mesh refuses what is still to port (ROADMAP
+    Queue 1 item 6d: --tiled, DepthCrafter) and runs the Depth Anything
+    family; dp=2 and sp=2 run on the CPU twice on the feed-forward route (a
+    tiny predictor, 3 frames), dp=2 also on DepthCrafter's (the tiny random
+    pipeline, one 16 x 16 frame), whose windows spread over the dp devices
+    only under dp=2,tp=2, as in the JAX package."""
     from visiondepth3d_tpu_torch.depth.registry import load_predictor
 
     clip = tmp_path / "clip.y4m"
     _write_clip(clip, 16, 16, 1)
-    for kw in (dict(mesh="sp=2"), dict(model="depthcrafter", mesh="dp=2,sp=2")):
-        with pytest.raises(NotImplementedError, match="6c"):
+    for kw in (dict(mesh="sp=2", tiled=True), dict(model="depthcrafter", mesh="dp=2,sp=2")):
+        with pytest.raises(NotImplementedError, match="6d"):
             render_depth_video_file(clip, tmp_path / "x.y4m", DepthConfig(device="cpu", **kw))
     three = tmp_path / "three.y4m"
     _write_clip(three, 16, 16, 3)
     pred = load_predictor("depth-anything-v2-small", None, inference_size=28,
                           config=tconfigs.DA_TINY, device="cpu")
-    assert render_depth_video_file(three, tmp_path / "dp.y4m",
-                                   DepthConfig(device="cpu", mesh="dp=2", batch_size=2),
-                                   predictor=pred) == 3
-    assert _read(tmp_path / "dp.y4m").shape == (3, 16, 16)
+    for mesh in ("dp=2", "sp=2"):
+        assert render_depth_video_file(three, tmp_path / f"{mesh}.y4m",
+                                       DepthConfig(device="cpu", mesh=mesh, batch_size=2),
+                                       predictor=pred) == 3
+        assert _read(tmp_path / f"{mesh}.y4m").shape == (3, 16, 16)
     for mesh in ("off", "dp=2", "dp=2,tp=2"):
         assert render_depth_video_file(clip, tmp_path / "dc.y4m",
                                        DepthConfig(model="depthcrafter", device="cpu",

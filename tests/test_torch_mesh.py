@@ -30,8 +30,8 @@ says otherwise:
   JAX's one-device render within the bound (the row bands themselves are
   held to one device in ``tests/test_torch_halo.py``);
 - ``render_chunk_spatial`` equals ``render_chunk``; a mesh with too few
-  devices for its axes raises ValueError, ``depth --mesh sp`` raises
-  NotImplementedError naming item 6c; ``resume`` or a clip window with a
+  devices for its axes raises ValueError, ``depth --mesh sp`` with
+  ``--tiled`` raises NotImplementedError naming item 6d; ``resume`` or a clip window with a
   ``dp`` mesh raises ValueError;
   the default ``auto`` with a window renders the window on one device; a
   cancelled ``dp=2`` render keeps a gapless start of the clip;
@@ -553,7 +553,7 @@ REFUSED = {
     "render_sp": ("render", dict(mesh="dp=2,sp=2"), ValueError),  # 4 devices, 2 given
     "render_tp": ("render", dict(mesh="tp=3"), ValueError),
     "render_pp_dp": ("render", dict(mesh="dp=2,pp=2"), ValueError),
-    "depth_sp": ("depth", dict(mesh="sp=2"), NotImplementedError),
+    "depth_sp": ("depth", dict(mesh="sp=2", tiled=True), NotImplementedError),
     "depth_pp": ("depth", dict(mesh="pp=2"), ValueError),
     "render_window": ("render", dict(mesh="dp=2", start_s=0.1), ValueError),
     "render_too_few_devices": ("render", dict(mesh="dp=3"), ValueError),
@@ -564,7 +564,7 @@ REFUSED = {
 def test_still_refused(tmp_path, weights, case):
     what, kw, err = REFUSED[case]
     _write_clip(tmp_path / "clip.y4m", t=6)
-    match = "6c" if err is NotImplementedError else None
+    match = "6d" if err is NotImplementedError else None
     with pytest.raises(err, match=match):
         if what == "render":
             render_stereo_video(tmp_path / "clip.y4m", None, tmp_path / "o.y4m", None,

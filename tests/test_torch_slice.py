@@ -175,7 +175,7 @@ for name in ("depth.depth_pro", "depth.vda", "depth.diffusion.schedulers",
              "config.i18n", "config.settings", "preview", "preview.diagnostics",
              "preview.watch", "preview.server", "serve", "serve.jobs", "serve.app",
              "parallel", "parallel.mesh", "parallel.dp", "parallel.pp", "parallel.halo",
-             "parallel.tp", "stereo.bands",
+             "parallel.tp", "parallel.sp", "stereo.bands",
              "pipeline.mesh_render", "pipeline.pp_render", "train", "train.trainer"):
     assert "visiondepth3d_tpu_torch." + name in sys.modules, name
 from visiondepth3d_tpu_torch.depth import DA_TINY
@@ -212,6 +212,9 @@ with tempfile.TemporaryDirectory() as td:
                            device="cpu")
         assert render_depth_video_file(td + "/in.y4m", td + "/depth.y4m", dcfg,
                                        predictor=big) == 3
+    # the row-sharded model (K7's query-band form) on the CPU twice
+    dcfg = DepthConfig(inference_size=322, batch_size=2, mesh="sp=2", device="cpu")
+    assert render_depth_video_file(td + "/in.y4m", td + "/sp.y4m", dcfg, predictor=big) == 3
     # the render surface: a preset, blank frames, black bars, a cancelled
     # render resumed, a batch pairing, the control file
     from visiondepth3d_tpu_torch.config import load_builtin

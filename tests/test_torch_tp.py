@@ -19,8 +19,8 @@ model, the ``tp`` depth route and render, and the refusals.
   bound) and SSIM >= 0.99 per frame (the stereo tests' shipped gate; the
   random toy model's depth is noise-like, so a float32 change of order
   1e-7 moves a few warped pixels and bar columns by whole u8 steps).
-- ``depth --mesh sp=2`` raises NotImplementedError naming ROADMAP item 6c;
-  the frame tools refuse sp and tp (the JAX CLI's dp-only rule).
+- ``depth --mesh sp=2,tp=2`` raises NotImplementedError naming ROADMAP
+  item 6d; the frame tools refuse sp and tp (the JAX CLI's dp-only rule).
 """
 
 from __future__ import annotations
@@ -181,9 +181,9 @@ def test_depth_sp_and_tools_refused(clip):
     from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
                                                                  render_depth_video_file)
 
-    with pytest.raises(NotImplementedError, match="6c"):
+    with pytest.raises(NotImplementedError, match="6d"):
         render_depth_video_file(clip / "clip.y4m", clip / "x.y4m",
-                                DepthConfig(device="cpu", mesh="sp=2", inference_size=SIZE))
+                                DepthConfig(device="cpu", mesh="sp=2,tp=2", inference_size=SIZE))
     for axes in ({"sp": 2}, {"tp": 2}, {"dp": 2, "tp": 2}):
         with pytest.raises(ValueError, match="only the dp"):
             run_merged_pipeline(clip / "clip.y4m", clip / "t.y4m",

@@ -1,11 +1,16 @@
-// Self-attention softmax(Q K^T / sqrt(d)) V over BNHD tensors.
+// Attention softmax(Q K^T / sqrt(d)) V over BNHD tensors: self-attention
+// (Nq = Nk) or a band of query rows against the whole sequence (Nq < Nk,
+// the row-sharded depth model's form).
 //
 // Replaces the TPU kernel visiondepth3d_tpu/ops/pallas_attention.py:
 // vmem_attention (_attn_kernel): logits and the softmax statistics in
 // float32, P V accumulated in float32, one rounding of the output. Key
-// columns past N are masked to -1e30 before the row max; query rows past N
-// are not stored. Q, K, V and O are read and written in place as
-// [B, N, H, D] with the token stride H * D (no transposed or padded copies).
+// columns past Nk are masked to -1e30 before the row max; query rows past
+// Nq are not stored. Q and O are [B, Nq, H, D], K and V [B, Nk, H, D], read
+// and written in place with the token stride H * D (no transposed or padded
+// copies). Every query row sees the same key tiles in the same order
+// whatever Nq is, so row i of a band q[:, a:b] is row a + i of the whole
+// sequence's output.
 //
 // The TPU kernel keeps one (batch, head)'s whole K and V resident in VMEM.
 // At the depth model's shape (N = 1370, D = 64, bf16) that is 350 KB, more
@@ -17,8 +22,8 @@
 //   (batch, head): two consumer warpgroups of 64 rows and one producer
 //   warp. The producer loads Q once and streams K and V through a ring of
 //   two 64-key stages by TMA (tensor maps over the BNHD tensors in place,
-//   box [1, 64, 1, min(D, 64)], swizzled to the row width; rows past N
-//   come in as zeros), signalling each stage on an mbarrier; the consumers
+//   box [1, 64, 1, min(D, 64)], swizzled to the row width; query rows past
+//   Nq and keys past Nk come in as zeros), signalling each stage on an mbarrier; the consumers
 //   release a stage once their P V has read it. Each consumer computes
 //   S = Q K^T with wgmma m64n64k16 from shared memory, masks it in
 //   registers, keeps the running row max m and sum l (reduced over the
@@ -108,7 +113,7 @@ __global__ void __launch_bounds__(WG_THREADS, D == 128 ? 1 : 2)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                        const __grid_constant__ CUtensorMap mk,
                        const __grid_constant__ CUtensorMap mv, __nv_bfloat16* __restrict__ o,
-                       int N, int H, float scale_log2) {
+                       int Nq, int Nk, int H, float scale_log2) {
   using namespace vd3d;
   using T = Tiles<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -118,7 +123,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + STAGES;
   const int q0 = blockIdx.x * (WG * 64), h = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (N + BK - 1) / BK;
+  const int n_tiles = (Nk + BK - 1) / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -190,17 +195,17 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
     wgmma_wait<0>();
     fence_regs(sc);
 
-    // mask keys past N; the running max m is kept on the unscaled logits,
+    // mask keys past Nk; the running max m is kept on the unscaled logits,
     // and exp(scale (s - m)) = 2^(s log2e scale - m log2e scale) is one FMA
     // and one ex2 per logit
     const int kbase = t * BK;
-    const bool ragged = kbase + BK > N;
+    const bool ragged = kbase + BK > Nk;
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool valid = !ragged || kbase + 8 * j + c2 + e < N;
+        const bool valid = !ragged || kbase + 8 * j + c2 + e < Nk;
         sc[4 * j + e] = valid ? sc[4 * j + e] : MASKED;
         sc[4 * j + 2 + e] = valid ? sc[4 * j + 2 + e] : MASKED;
         mx0 = fmaxf(mx0, sc[4 * j + e]);
@@ -275,11 +280,11 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
     for (int j = 0; j < T::DB / 8; ++j) {
       const int d = 64 * a + 8 * j + c2;
-      if (n0 < N)
-        *reinterpret_cast<uint32_t*>(o + row_offset(b, n0, h, N, H, D) + d) =
+      if (n0 < Nq)
+        *reinterpret_cast<uint32_t*>(o + row_offset(b, n0, h, Nq, H, D) + d) =
             pack_bf16(acc[a][4 * j] * inv0, acc[a][4 * j + 1] * inv0);
-      if (n1 < N)
-        *reinterpret_cast<uint32_t*>(o + row_offset(b, n1, h, N, H, D) + d) =
+      if (n1 < Nq)
+        *reinterpret_cast<uint32_t*>(o + row_offset(b, n1, h, Nq, H, D) + d) =
             pack_bf16(acc[a][4 * j + 2] * inv1, acc[a][4 * j + 3] * inv1);
     }
 }
@@ -302,8 +307,8 @@ struct FmaSmem {
 template <int D>
 __global__ void __launch_bounds__(FMA_THREADS)
 attention_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int N, int H,
-                     float scale) {
+                     const float* __restrict__ v, float* __restrict__ o, int Nq, int Nk,
+                     int H, float scale) {
   using L = FmaSmem<D>;
   constexpr int DJ = D / 16;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -315,13 +320,13 @@ attention_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
   // Q and K rows with a padded stride (scalar loads), V as whole rows
-  auto load_padded = [&](const float* x, float* s, int r0) {
+  auto load_padded = [&](const float* x, float* s, int r0, int N) {
     for (int i = tid; i < BQ * D; i += FMA_THREADS) {
       const int rr = i / D, d = i % D;
       s[rr * L::LDQ + d] = r0 + rr < N ? x[row_offset(b, r0 + rr, h, N, H, D) + d] : 0.0f;
     }
   };
-  load_padded(q, sQ, q0);
+  load_padded(q, sQ, q0, Nq);
 
   // S tile (rows ty * 4 + i, keys tx + 16 j) into sS, scaled and masked
   auto scores = [&](int k0) {
@@ -342,16 +347,16 @@ attention_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         sS[(ty * 4 + i) * L::LDS + tx + 16 * j] =
-            k0 + tx + 16 * j < N ? acc[i][j] * scale : MASKED;
+            k0 + tx + 16 * j < Nk ? acc[i][j] * scale : MASKED;
   };
 
   // row statistics: four lanes per row, 16 keys each
   const int sr = tid / 4, sc = (tid % 4) * (BK / 4);
   float m = -INFINITY, l = 0.0f;
-  const int n_tiles = (N + BK - 1) / BK;
+  const int n_tiles = (Nk + BK - 1) / BK;
   for (int t = 0; t < n_tiles; ++t) {
     __syncthreads();
-    load_padded(k, sK, t * BK);
+    load_padded(k, sK, t * BK, Nk);
     __syncthreads();
     scores(t * BK);
     __syncthreads();
@@ -372,10 +377,10 @@ attention_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();
-    load_padded(k, sK, k0);
+    load_padded(k, sK, k0, Nk);
     for (int i = tid; i < BK * D; i += FMA_THREADS) {
       const int rr = i / D, d = i % D;
-      sV[i] = k0 + rr < N ? v[row_offset(b, k0 + rr, h, N, H, D) + d] : 0.0f;
+      sV[i] = k0 + rr < Nk ? v[row_offset(b, k0 + rr, h, Nk, H, D) + d] : 0.0f;
     }
     __syncthreads();
     scores(k0);
@@ -398,28 +403,30 @@ attention_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = q0 + ty * 4 + i;
-    if (n >= N) continue;
+    if (n >= Nq) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) o[row_offset(b, n, h, N, H, D) + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < DJ; ++j) o[row_offset(b, n, h, Nq, H, D) + tx + 16 * j] = acc[i][j];
   }
 }
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
-                 float scale, cudaStream_t s) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Nq, int Nk,
+                 int H, float scale, cudaStream_t s) {
   using T = Tiles<D>;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)N * H * D * 2};
   const cuuint32_t box[4] = {(cuuint32_t)T::DB, 1, (cuuint32_t)BK, 1};
   const CUtensorMapSwizzle swz = T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  // Q's map covers the Nq query rows, K's and V's the Nk keys
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t n = i == 0 ? Nq : Nk;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, n, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2, n * H * D * 2};
     if (!vd3d::encode_map_4d(&maps[i], ptrs[i], dims, strides, box, swz))
       return (int)cudaErrorInvalidValue;
+  }
   static bool configured[vd3d::MAX_DEVICES] = {};  // the attribute, per device
   const int dev = vd3d::current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
@@ -429,17 +436,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
     if (e != cudaSuccess) return (int)e;
     configured[dev] = true;
   }
-  const dim3 grid((N + WG * 64 - 1) / (WG * 64), H, B);
+  const dim3 grid((Nq + WG * 64 - 1) / (WG * 64), H, B);
   attention_wgmma_kernel<D><<<grid, WG_THREADS, T::BYTES, s>>>(
-      maps[0], maps[1], maps[2], (__nv_bfloat16*)o, N, H, scale * LOG2E);
+      maps[0], maps[1], maps[2], (__nv_bfloat16*)o, Nq, Nk, H, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Nq, int Nk, int H,
            float scale, int bf16, cudaStream_t s) {
-  if (bf16) return launch_wgmma<D>(q, k, v, o, B, N, H, scale, s);
-  const dim3 grid((N + BQ - 1) / BQ, H, B);
+  if (bf16) return launch_wgmma<D>(q, k, v, o, B, Nq, Nk, H, scale, s);
+  const dim3 grid((Nq + BQ - 1) / BQ, H, B);
   constexpr int bytes = FmaSmem<D>::BYTES;
   static bool configured[vd3d::MAX_DEVICES] = {};  // the attribute, per device
   const int dev = vd3d::current_device();
@@ -451,22 +458,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N, i
     configured[dev] = true;
   }
   attention_fma_kernel<D><<<grid, FMA_THREADS, bytes, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, N, H, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Nq, Nk, H, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o [B, N, H, D] contiguous, float32 or bf16, 16-byte aligned;
-// D in {16, 32, 64, 128}.
+// q, o [B, Nq, H, D] and k, v [B, Nk, H, D] contiguous, float32 or bf16,
+// 16-byte aligned; 1 <= Nq <= Nk; D in {16, 32, 64, 128}.
 extern "C" int vd3d_attention(const void* q, const void* k, const void* v, void* o, int B,
-                              int N, int H, int D, float scale, int bf16, void* stream) {
+                              int Nq, int Nk, int H, int D, float scale, int bf16,
+                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (Nq < 1 || Nq > Nk) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, N, H, scale, bf16, s);
-    case 32: return launch<32>(q, k, v, o, B, N, H, scale, bf16, s);
-    case 64: return launch<64>(q, k, v, o, B, N, H, scale, bf16, s);
-    case 128: return launch<128>(q, k, v, o, B, N, H, scale, bf16, s);
+    case 16: return launch<16>(q, k, v, o, B, Nq, Nk, H, scale, bf16, s);
+    case 32: return launch<32>(q, k, v, o, B, Nq, Nk, H, scale, bf16, s);
+    case 64: return launch<64>(q, k, v, o, B, Nq, Nk, H, scale, bf16, s);
+    case 128: return launch<128>(q, k, v, o, B, Nq, Nk, H, scale, bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -20,6 +20,14 @@ routing rule, not a fallback: a K7 launch that fails raises.
 
 q, k and v of mixed types are promoted to their common type first, as the
 JAX package does before ``jax.nn.dot_product_attention``.
+
+``band_attention`` is the row-sharded depth model's entry point
+(``parallel/sp.py``): a band of query tokens against the whole sequence's
+keys. Under ``jit`` the JAX package's dispatcher sees the global shapes of
+GSPMD's partitioned attention, so the route is chosen by the global token
+count: K7's query-band form under the opt-in with the same gate, read on
+Nk, else SDPA (which takes Nq != Nk). ``multi_head_attention`` keeps its
+self-attention gate: cross-attention (the UNets') goes to SDPA.
 """
 
 from __future__ import annotations
@@ -34,15 +42,38 @@ _VMEM_MIN_SEQ = 512  # the JAX package's _FLASH_MIN_SEQ
 _FLASH_ALWAYS_SEQ = 4096  # the JAX package's: from here on, always the library route
 
 
-def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Scaled dot-product attention, BNHD in and out."""
+def _promote(q, k, v):
     if not (q.dtype == k.dtype == v.dtype):
         dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
         q, k, v = q.to(dt), k.to(dt), v.to(dt)
-    n = q.shape[1]
-    if (USE_VMEM_KERNEL and k.shape[1] == n and _VMEM_MIN_SEQ <= n < _FLASH_ALWAYS_SEQ
-            and q.shape[-1] in kattention.HEAD_DIMS):
-        return kattention.vmem_attention(q, k, v)
+    return q, k, v
+
+
+def _k7_takes(n: int, head_dim: int) -> bool:
+    """The opt-in's gate on a sequence of n keys."""
+    return USE_VMEM_KERNEL and _VMEM_MIN_SEQ <= n < _FLASH_ALWAYS_SEQ \
+        and head_dim in kattention.HEAD_DIMS
+
+
+def _sdpa(q, k, v):
     out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                          v.transpose(1, 2))
     return out.transpose(1, 2)
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Scaled dot-product attention, BNHD in and out."""
+    q, k, v = _promote(q, k, v)
+    if k.shape[1] == q.shape[1] and _k7_takes(q.shape[1], q.shape[-1]):
+        return kattention.vmem_attention(q, k, v)
+    return _sdpa(q, k, v)
+
+
+def band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A band of query tokens q [B, Nq, H, D] against the whole sequence's
+    k, v [B, Nk, H, D] (Nq <= Nk), routed by the global length Nk: rows of
+    the one-device ``multi_head_attention(q_all, k, v)``."""
+    q, k, v = _promote(q, k, v)
+    if _k7_takes(k.shape[1], q.shape[-1]):
+        return kattention.vmem_attention(q, k, v)
+    return _sdpa(q, k, v)

@@ -141,6 +141,52 @@ def resize_bilinear(img: torch.Tensor, out_hw, align_corners: bool = False,
     return _apply(img, "linear", out_hw, align_corners, hwc)
 
 
+def source_rows(in_size: int, out_size: int, rows: tuple[int, int],
+                align_corners: bool = False) -> tuple[int, int]:
+    """[a, b): the source rows that output rows ``rows`` = [r0, r1) of a
+    bilinear resize from ``in_size`` to ``out_size`` rows read (the support
+    of those rows of its weight matrix)."""
+    r0, r1 = rows
+    if in_size == out_size:
+        return r0, r1
+    used = np.nonzero(_linear_matrix(in_size, out_size, align_corners)[r0:r1].any(axis=0))[0]
+    return int(used[0]), int(used[-1]) + 1
+
+
+def resize_bilinear_rows(src: torch.Tensor, in_size: int, out_hw, rows: tuple[int, int],
+                         src0: int, align_corners: bool = False,
+                         channel_last: bool | None = None) -> torch.Tensor:
+    """Output rows ``rows`` = [r0, r1) of ``resize_bilinear(frame, out_hw)``
+    for a frame ``in_size`` rows high, from ``src``: its rows [src0, src0 +
+    src rows), which must cover ``source_rows`` of those rows. Each output
+    row is the same weighted sum of the same source rows as in the whole
+    frame's resize (the band of the row matrix, the whole column matrix)."""
+    hwc = _is_channel_last(src, channel_last)
+    _, w = _spatial_shape(src, hwc)
+    r0, r1 = rows
+    oh, ow = out_hw
+    a, b = source_rows(in_size, oh, rows, align_corners)
+    if a < src0 or b > src0 + _spatial_shape(src, hwc)[0]:
+        raise ValueError(f"rows [{r0}, {r1}) read source rows [{a}, {b}); got [{src0}, "
+                         f"{src0 + _spatial_shape(src, hwc)[0]})")
+    h_axis = src.ndim - 3 if hwc else src.ndim - 2
+    src = src.narrow(h_axis, a - src0, b - a)
+    # einsum squeezes an axis of one and then takes another GEMM than the
+    # whole frame's, which can round otherwise: a one-row band is computed
+    # as that row twice
+    twice = r1 - r0 == 1 and oh > 1
+    if in_size != oh:
+        rh = _matrix("linear", in_size, oh, align_corners, src.dtype, src.device)[r0:r1, a:b]
+        rh = rh.expand(2, -1) if twice else rh
+        src = torch.einsum("oh,...hwc->...owc" if hwc else "oh,...hw->...ow", rh, src)
+    elif twice:
+        src = torch.cat([src, src], dim=h_axis)
+    if w != ow:
+        rw = _matrix("linear", w, ow, align_corners, src.dtype, src.device)
+        src = torch.einsum("pw,...owc->...opc" if hwc else "pw,...ow->...op", rw, src)
+    return src.narrow(h_axis, 0, 1) if twice else src
+
+
 def resize_bicubic(img: torch.Tensor, out_hw, align_corners: bool = False,
                    channel_last: bool | None = None) -> torch.Tensor:
     """Bicubic resize (ViT position-embedding regrid)."""

@@ -1,7 +1,8 @@
 """Multi-device execution over a list of torch devices (see ``mesh``):
 segment data parallelism (``dp``), row bands with halo exchanges
-(``halo``, the ``sp`` axis), Megatron splits of the ViT blocks (``tp``)
-and the two-stage depth/stereo pipeline (``pp``)."""
+(``halo``, the ``sp`` axis; ``sp``, the row-sharded depth model), Megatron
+splits of the ViT blocks (``tp``) and the two-stage depth/stereo pipeline
+(``pp``)."""
 
 from .dp import init_trackers_batch, render_chunk_spatial, render_segments, segment_bounds
 from .halo import BandLayout, band_bounds, crop_halo_rows, halo_exchange_rows

@@ -86,6 +86,51 @@ def crop_halo_rows(x: torch.Tensor, halo: int, h_axis: int = 0) -> torch.Tensor:
     return x.narrow(h_axis, halo, x.shape[h_axis] - 2 * halo)
 
 
+@dataclasses.dataclass
+class RowSharded:
+    """A tensor of ``height`` rows along ``h_axis`` held as row bands:
+    ``bands[b]`` holds global rows ``bounds[b]`` = [r0, r1) on its own
+    device. A band may be empty (r0 == r1) where a level has fewer rows
+    than there are bands. The row-sharded depth model (``parallel/sp.py``)
+    passes its feature maps from layer to layer in this form."""
+
+    bands: list
+    bounds: list
+    h_axis: int
+
+    @property
+    def height(self) -> int:
+        return self.bounds[-1][1]
+
+    @property
+    def devices(self) -> list:
+        return [x.device for x in self.bands]
+
+    def rows(self, a: int, b: int, device) -> torch.Tensor:
+        """Global rows [a, b) on ``device``: copied from the bands that own
+        them, in band order, with zero rows outside [0, height)."""
+        like = next(x for x in self.bands if x.shape[self.h_axis])
+
+        def zeros(n):
+            shape = list(like.shape)
+            shape[self.h_axis] = n
+            return like.new_zeros(shape, device=device)
+
+        parts = [zeros(-a)] if a < 0 else []
+        for x, (r0, r1) in zip(self.bands, self.bounds):
+            lo, hi = max(a, r0), min(b, r1)
+            if lo < hi:
+                parts.append(x.narrow(self.h_axis, lo - r0, hi - lo)
+                             .to(device, non_blocking=True))
+        if b > self.height:
+            parts.append(zeros(b - self.height))
+        return torch.cat(parts, dim=self.h_axis)
+
+    def gather(self, lead) -> torch.Tensor:
+        """The whole tensor on ``lead``."""
+        return lead_cat(self.bands, torch.device(lead), self.h_axis)
+
+
 def lead_sum(parts: list[torch.Tensor], lead: torch.device) -> torch.Tensor:
     """parts[0] + parts[1] + ... on ``lead``, added in list order."""
     total = parts[0].to(lead, non_blocking=True)

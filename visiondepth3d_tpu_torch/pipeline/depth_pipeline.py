@@ -35,9 +35,18 @@ segment's windows in parallel over the devices (``run_raw_parallel``). The
 video and Marigold routes run on one device, as in the JAX package. With
 ``tp=K`` each ``dp`` run holds the model Megatron-split over its K devices
 (``parallel/tp.py``; the feed-forward route: DepthCrafter's windows spread
-over the ``dp`` devices only). Row sharding of the model (``sp``) is not
-ported yet (ROADMAP Queue 1 item 6c: a token-parallel ViT and neck);
-``pp`` is a render axis.
+over the ``dp`` devices only). With ``sp=M`` each ``dp`` run holds the
+model row-sharded over its M devices (``parallel/sp.py``: a token-parallel
+DINOv2 and a row-banded DPT neck and head, for the Depth Anything family):
+each band's device receives the source rows its input resize reads,
+resizes and normalizes them, runs its band of the model and resizes its
+depth to its rows of the output; the bands are gathered on the run's
+first device, which normalizes and quantizes the whole frames (per-frame
+percentiles need them whole). The result is the one-device depth, as
+GSPMD's partition of the JAX route is. sp for the other families, with
+``tiled``, with ``tp`` or for DepthCrafter raises NotImplementedError
+(ROADMAP Queue 1 item 6d); the video and Marigold routes run on one
+device under any mesh. ``pp`` is a render axis.
 """
 
 from __future__ import annotations
@@ -104,34 +113,50 @@ def _size_h(size) -> int:
     return int(size[0]) if isinstance(size, (tuple, list)) else int(size)
 
 
-NOT_PORTED_6C = ("depth --mesh sp (a row-sharded depth model) is not ported yet (ROADMAP "
-                 "Queue 1 item 6c: a token-parallel ViT and neck); use dp or tp")
+def _not_ported_6d(what: str) -> str:
+    return (f"depth --mesh sp {what} is not ported yet (ROADMAP Queue 1 item 6d); sp runs "
+            f"the Depth Anything family (dpt_dinov2) on whole frames, else use dp or tp")
+
+
+def _refuse_sp(cfg: DepthConfig, tp: int) -> None:
+    """sp's combinations still to port raise NotImplementedError (item 6d)."""
+    family = CATALOG[cfg.model].family if cfg.model in CATALOG else None
+    if cfg.tiled:
+        raise NotImplementedError(_not_ported_6d("with --tiled"))
+    if tp > 1:
+        raise NotImplementedError(_not_ported_6d("together with tp"))
+    if cfg.model == "depthcrafter":
+        raise NotImplementedError(_not_ported_6d("for DepthCrafter"))
+    if family not in (None, "dpt_dinov2", "vda", "diffusion"):
+        raise NotImplementedError(_not_ported_6d(f"for the {family} family ({cfg.model})"))
 
 
 def _resolve_mesh(cfg: DepthConfig, devices=None):
-    """-> (the device groups, dp), or (None, 1) for one device: one group
-    of ``tp`` devices per ``dp`` run (batch frames, DepthCrafter windows),
-    the run's inputs on the group's first device. sp raises (ROADMAP item
-    6c); pp is a render-stage axis."""
+    """-> (the device groups, dp, sp), or (None, 1, 1) for one device: one
+    group of ``sp`` or ``tp`` devices per ``dp`` run (batch frames,
+    DepthCrafter windows), the run's inputs on the group's first device.
+    pp is a render-stage axis."""
     from .mesh_render import mesh_axes_for, mesh_devices
 
     if cfg.bits not in (8, 16):
         raise ValueError(f"bits {cfg.bits} not in (8, 16)")
     axes = mesh_axes_for(cfg.mesh, cfg.device, devices)
     if not axes:
-        return None, 1
+        return None, 1, 1
     if axes.get("pp", 1) != 1:
         raise ValueError("vd3d depth does not pipeline stages; pp is a "
                          "vd3d render axis (--mesh pp=2)")
-    dp, tp = int(axes.get("dp", 1)), int(axes.get("tp", 1))
-    if axes.get("sp", 1) > 1:
-        raise NotImplementedError(NOT_PORTED_6C)
-    if dp * tp <= 1:
-        return None, 1
-    devs = mesh_devices(dp * tp, cfg.device, devices)
-    if dp * tp > len(devs):
-        raise ValueError(f"mesh dp={dp},tp={tp} needs {dp * tp} devices, have {len(devs)}")
-    return [tuple(devs[g * tp:(g + 1) * tp]) for g in range(dp)], dp
+    dp, sp, tp = (int(axes.get(a, 1)) for a in ("dp", "sp", "tp"))
+    if sp > 1:
+        _refuse_sp(cfg, tp)
+    group = sp * tp
+    if dp * group <= 1:
+        return None, 1, 1
+    devs = mesh_devices(dp * group, cfg.device, devices)
+    if dp * group > len(devs):
+        raise ValueError(f"mesh dp={dp},sp={sp},tp={tp} needs {dp * group} devices, have "
+                         f"{len(devs)}")
+    return [tuple(devs[g * group:(g + 1) * group]) for g in range(dp)], dp, sp
 
 
 def _batch_runs(n: int, parts: int) -> list[tuple[int, int]]:
@@ -179,6 +204,18 @@ def _percentiles(d: torch.Tensor, qs) -> list[float]:
     return out
 
 
+def _normalize_depth(d: torch.Tensor, cfg: DepthConfig) -> torch.Tensor:
+    """Raw depth [B, h, w] -> each frame normalized by its own percentiles
+    (linear, as jnp.percentile), inverted if asked, quantized."""
+    q = torch.tensor([cfg.percentile_lo / 100.0, cfg.percentile_hi / 100.0],
+                     dtype=d.dtype, device=d.device)
+    lo, hi = torch.quantile(d.flatten(1), q, dim=1)[..., None, None]
+    d01 = torch.clamp((d - lo) / torch.clamp(hi - lo, min=1e-9), 0.0, 1.0)
+    if cfg.invert:
+        d01 = 1.0 - d01
+    return _quantize(d01, cfg.bits)
+
+
 def make_depth_batch_fn(pred, cfg: DepthConfig, out_hw: tuple[int, int]) -> Callable:
     """u8 frames [B, H, W, 3] on the predictor's device -> normalized depth
     [B, out_h, out_w]: uint8 for 8 bits, int32 holding the u16 values for 16."""
@@ -197,15 +234,26 @@ def make_depth_batch_fn(pred, cfg: DepthConfig, out_hw: tuple[int, int]) -> Call
             d = tiled_apply_batch(pred, x, (s, s), ov)
         else:
             d = pred(frames)  # [B, s, s] raw
-        d = resize_bilinear(d, tuple(out_hw), channel_last=False)
-        # per-frame percentile normalization (linear, as jnp.percentile)
-        q = torch.tensor([cfg.percentile_lo / 100.0, cfg.percentile_hi / 100.0],
-                         dtype=d.dtype, device=d.device)
-        lo, hi = torch.quantile(d.flatten(1), q, dim=1)[..., None, None]
-        d01 = torch.clamp((d - lo) / torch.clamp(hi - lo, min=1e-9), 0.0, 1.0)
-        if cfg.invert:
-            d01 = 1.0 - d01
-        return _quantize(d01, cfg.bits)
+        return _normalize_depth(resize_bilinear(d, tuple(out_hw), channel_last=False), cfg)
+
+    return fn
+
+
+def make_sp_depth_batch_fn(sp, cfg: DepthConfig, out_hw: tuple[int, int]) -> Callable:
+    """u8 frames [B, H, W, 3] on the host -> normalized depth [B, out_h,
+    out_w] on the lead device of ``sp`` (a ``parallel.sp.SPPredictor``):
+    each band's source rows to its device, its band of the model and of
+    the output resize there, the bands gathered on the lead, which
+    normalizes and quantizes as ``make_depth_batch_fn`` does."""
+    from ..parallel.sp import resize_rows, split_rows
+
+    bounds = split_rows(out_hw[0], len(sp.devices))
+
+    @torch.inference_mode()
+    def fn(frames_u8: np.ndarray) -> torch.Tensor:
+        d = sp.forward_rows(sp.scatter(frames_u8), frames_u8.shape[1])
+        return _normalize_depth(resize_rows(d, tuple(out_hw), False, bounds).gather(sp.lead),
+                                cfg)
 
     return fn
 
@@ -262,7 +310,7 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
     ``devices`` when given (a device may repeat), the CPU repeated when
     ``cfg.device`` is the CPU, else the visible cards."""
     cfg = cfg or DepthConfig()
-    groups, dp = _resolve_mesh(cfg, devices)
+    groups, dp, sp = _resolve_mesh(cfg, devices)
     mesh_devs = [g[0] for g in groups] if groups is not None else None
     family = CATALOG[cfg.model].family if cfg.model in CATALOG else None
     if family == "vda":
@@ -293,15 +341,24 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
         preds = {dev: predictor}
         if groups is not None:
             from ..parallel.mesh import replicate
+            from ..parallel.sp import SPPredictor, is_row_shardable
             from ..parallel.tp import tp_predictor
 
             run_devs = mesh_devs
             if cfg.batch_size % dp:
                 # round the batch up so every device gets equal frames
                 cfg = dataclasses.replace(cfg, batch_size=-(-cfg.batch_size // dp) * dp)
-            # one model per distinct group: a replica, or split over tp devices
-            models = {g: (tp_predictor(predictor, g) if len(g) > 1 else replicate(predictor, g[0]))
-                      for g in dict.fromkeys(groups)}
+            if sp > 1 and not is_row_shardable(predictor):
+                raise NotImplementedError(_not_ported_6d(
+                    f"for {type(getattr(predictor, 'model', predictor)).__name__} "
+                    f"({cfg.model})"))
+
+            def split(g):  # a replica, or the model over the group's sp or tp devices
+                if sp > 1:
+                    return SPPredictor(predictor, g)
+                return tp_predictor(predictor, g) if len(g) > 1 else replicate(predictor, g[0])
+
+            models = {g: split(g) for g in dict.fromkeys(groups)}  # one per distinct group
             preds = {g[0]: models[g] for g in groups}
 
         # letterbox: bootstrap on up to 9 probe frames, then the tracker runs
@@ -314,7 +371,8 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
 
         def get_fn(d, ch):
             if (d, ch) not in fns:
-                fns[d, ch] = make_depth_batch_fn(preds[d], cfg, (ch, rd.width))
+                make = make_sp_depth_batch_fn if sp > 1 else make_depth_batch_fn
+                fns[d, ch] = make(preds[d], cfg, (ch, rd.width))
             return fns[d, ch]
 
         wr, write = _depth_writer(output_path, rd.width, rd.height, rd.fps, cfg)
@@ -343,7 +401,8 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
                 return
             arr = np.stack(batch)
             # every device's run is launched before any is read back
-            outs = [get_fn(d, arr.shape[1])(host_to_device(arr[a:b], d))
+            # (an sp run scatters the frames' rows to its bands itself)
+            outs = [get_fn(d, arr.shape[1])(arr[a:b] if sp > 1 else host_to_device(arr[a:b], d))
                     for (a, b), d in zip(_batch_runs(len(batch), len(run_devs)), run_devs)]
             pieces = [_queue_readback(out) for out in outs]
             drain()

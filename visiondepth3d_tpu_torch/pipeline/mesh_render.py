@@ -22,10 +22,12 @@ row-sharded: the chunk's frames are split by frame over the ``sp``
 devices, each runs the model on its frames, and each frame's depth map is
 then scattered to the row bands. The model is per frame and normalizes
 each frame by its own range, so this is a placement choice and nothing is
-reduced; a row-sharded model (token-parallel attention and a sharded
-neck) is ROADMAP item 6c. The output then equals the one-device render at
-``chunk_size / M`` frames per chunk (the model's batch per device): the
-library GEMMs round by batch size.
+reduced. The output then equals the one-device render at ``chunk_size /
+M`` frames per chunk (the model's batch per device): the library GEMMs
+round by batch size. The token-parallel model exists (``parallel/sp.py``,
+``depth --mesh sp=M``), but the fused route does not use it yet: whether a
+band of tokens per device beats the frame split at the batches users run
+is ROADMAP item 6d.
 
 With ``tp=K`` each (segment, row group) runs the depth model
 Megatron-split over its ``tp`` devices (``parallel/tp.py``).
