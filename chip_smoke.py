@@ -183,6 +183,13 @@ Phases, each printed on its own line; any failure exits nonzero:
      the K7 opt-in, whose query-band form launches 48 times at [8, 667 |
      703, 6, 64] against 1370 keys; bf16 and float32), dp=2,sp=2 and sp=2 at
      924^2 (4 frames, the peak memory), each within its gates of one device;
+     and sp where the model is not row-sharded: DPT-Large 384^2 at sp=2
+     (16 frames, K7 opt-in; the model on the group's first device) byte for
+     byte against one device with the same K7 launches, DA-V2-S --tiled at
+     sp=2 (8 frames, the tiles over two sub-groups, K7) in bf16 and float32
+     within sp's gates of one device, DA-V2-S sp=2,tp=2 over the card four
+     times (16 frames, K7) byte for byte against tp=2, and DepthCrafter's
+     route at dp=2,sp=2 over the windows above byte for byte against dp=2;
  18. (train) the depth trainer: DA-V2-Small at 518^2, batch 4, float32, 5
      AdamW steps on one synthetic batch (the loss finite and descending,
      steps/s, peak GiB, no K7 launch; with the K7 opt-in the step raises);
@@ -3712,7 +3719,7 @@ def phase_mesh(card: str, tmp: Path) -> dict:
         f"{walls['dp=2']:.2f} s; min-max u8 mean |d| dp=2 vs dp=1 {dm:.4f} (need <= 1), finite "
         f"{finite}; K7 launches at dp=2 {counts['vmem_attention']} [{card}]")
     expect(finite and dm <= 1.0, f"DepthCrafter dp=2 vs dp=1: mean |d| {dm:.4f} u8")
-    mesh_sharded(card, tmp, pred, params, base, launches)
+    mesh_sharded(card, tmp, pred, params, base, launches, dcrafter=(pipe, frames))
     say(f"PHASE mesh launches {json.dumps(launches)}")
     return launches
 
@@ -3740,7 +3747,7 @@ def gray_diff(a_path, b_path, every: int = 8) -> tuple[float, float]:
     return dm, min(ssim_gray(x, y) for x, y in zip(a[::every], b[::every]))
 
 
-def mesh_sharded(card: str, tmp: Path, pred, params, base, launches: dict):
+def mesh_sharded(card: str, tmp: Path, pred, params, base, launches: dict, dcrafter=None):
     """The row- and tensor-sharded meshes on cuda:0 repeated (their
     overhead, not their scaling), each against its one-device twin:
     sp=2 fused render (16 frames of 1080p, the model on each device's 8
@@ -3755,7 +3762,8 @@ def mesh_sharded(card: str, tmp: Path, pred, params, base, launches: dict):
     route than one device in bf16 (+ 0.25 u8) and within SSIM 0.99 of it,
     in float32 within mean |d| <= 0.5 u8 and SSIM >= 0.995 of one device;
     the tp=2 fused render within mean |d| <= 1 u8 and SSIM >= 0.99 of one
-    device. Launches counted on each."""
+    device. Launches counted on each. ``dcrafter``: (the mesh phase's
+    DepthCrafter pipeline, its 50 frames) for ``mesh_sp_depth``."""
     import torch
 
     from visiondepth3d_tpu_torch.ops import attention as attn_ops
@@ -3925,14 +3933,14 @@ def mesh_sharded(card: str, tmp: Path, pred, params, base, launches: dict):
 
     # 8. the row-sharded depth route: sp=2, dp=2,sp=2, and sp=2 at 924^2
     t0 = time.perf_counter()
-    mesh_sp_depth(card, tmp, pred, f32, launches)
+    mesh_sp_depth(card, tmp, pred, f32, launches, dcrafter)
     say(f"PHASE mesh sp depth cases took {time.perf_counter() - t0:.1f} s")
 
 
 SP_DEPTH_BANDS = {(667, 1370), (703, 1370)}  # 518^2 over 2 bands: (Nq, Nk) of each
 
 
-def mesh_sp_depth(card: str, tmp: Path, pred, f32, launches: dict):
+def mesh_sp_depth(card: str, tmp: Path, pred, f32, launches: dict, dcrafter=None):
     """The depth route with the model row-sharded (``parallel/sp.py``) on
     cuda:0 repeated (the mesh's overhead, not its scaling), each against
     one device: sp=2 over 16 1080p frames (DA-V2-S 518^2, batch 8) with
@@ -3946,7 +3954,8 @@ def mesh_sp_depth(card: str, tmp: Path, pred, f32, launches: dict):
     device; dp=2,sp=2 over the card 4 times (K7: 96 launches at [4, 667|703,
     6, 64]) held as sp=2 against one device at batch 4; sp=2 at 924^2 (4
     frames; N = 4357, SDPA whatever the flags) held as the bf16 cases,
-    with the peak memory of both."""
+    with the peak memory of both. Then sp where the model is not
+    row-sharded (``sp_lifted``)."""
     import torch
 
     from visiondepth3d_tpu_torch.ops import attention as attn_ops
@@ -4079,6 +4088,139 @@ def mesh_sp_depth(card: str, tmp: Path, pred, f32, launches: dict):
         del _PREDICTORS[key]
     del p924, f924
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sp_lifted(card, tmp, run, held, pred, f32, launches, dcrafter)
+    say(f"PHASE mesh sp lifted cases took {time.perf_counter() - t0:.1f} s")
+
+
+def sp_lifted(card: str, tmp: Path, run, held, pred, f32, launches: dict, dcrafter):
+    """``depth --mesh sp`` where the model is not row-sharded, on cuda:0
+    repeated, each case's fps and device ms beside its twin's (``run``
+    and ``held`` are ``mesh_sp_depth``'s):
+    - DPT-Large 384^2 (bf16, K7 opt-in: 24 layers at N = 577) at sp=2 over
+      16 frames: the model on the group's first device, byte for byte
+      against one device with the same K7 launches;
+    - DA-V2-S --tiled at sp=2 (518 tiles, 2 a 1080p frame, 8 frames: 16
+      tiles a call, 8 on each sub-group; K7 at [8, 1370, 6, 64] against
+      one device's [16, 1370, 6, 64]): bf16 held as the sp cases (from the
+      float32 one-device tiled route within one device's distance + 0.25
+      u8, SSIM 0.99), float32 (TF32 off) within 0.5 u8 and SSIM 0.995;
+    - DA-V2-S sp=2,tp=2 over the card four times (16 frames, K7): the tp=2
+      split on the first sub-group, byte for byte against tp=2;
+    - DepthCrafter's route (bf16, 2 steps, the K7 opt-in) over the mesh
+      phase's 50 frames of 512x288 (3 windows) at dp=2,sp=2, byte for byte
+      against dp=2."""
+    import torch
+
+    from visiondepth3d_tpu_torch.io import Y4MWriter
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import DepthConfig
+
+    clip = tmp / "mesh_depth.y4m"
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    def dev_ms(p, n):
+        return "not measured" if p is None else f"{p['device_ms'] / n:.3f} ms"
+
+    def pair(name, cfg, twin_cfg, predictor, nd, twin_nd, n, k7=True, src=clip):
+        """The case and its twin: (counts, twin's counts, line of fps and
+        device ms a frame beside the twin's)."""
+        _, wall, counts = run(f"{name}.y4m", cfg, predictor, nd, k7, src=src)
+        _, wall1, counts1 = run(f"{name}_twin.y4m", twin_cfg, predictor, twin_nd, k7, src=src)
+        prof = run(f"{name}_prof.y4m", cfg, predictor, nd, k7, src=src, profile=True)
+        prof1 = run(f"{name}_twin_prof.y4m", twin_cfg, predictor, twin_nd, k7, src=src,
+                    profile=True)
+        return nonzero(counts), nonzero(counts1), (
+            f"{n / wall:.2f} fps (twin {n / wall1:.2f}), device time a frame "
+            f"{dev_ms(prof, n)} (twin {dev_ms(prof1, n)})")
+
+    # DPT-Large at sp=2: the model on the group's first device
+    dptl = da_predictor("cuda", "bfloat16", "dpt-large", 384)
+    cfg = DepthConfig(model="dpt-large", batch_size=8, dtype="bfloat16", device="cuda",
+                      mesh="sp=2")
+    run("lift_dptl_warm.y4m", cfg, dptl, 2, True, src=warm_clip(tmp))
+    counts, counts1, line = pair("lift_dptl", cfg, dataclasses.replace(cfg, mesh="off"), dptl,
+                                 2, 1, 16)
+    same = y4m_body(tmp / "lift_dptl.y4m") == y4m_body(tmp / "lift_dptl_twin.y4m")
+    launches["sp depth DPT-Large"] = counts
+    layers = dptl.cfg.backbone.num_layers
+    say(f"PHASE mesh sp depth DPT-Large: sp=2 over [cuda:0, cuda:0], 16 frames 1080p, 384^2 "
+        f"bf16, K7 opt-in (N = 577): {line}; byte-identical to one device: {same}; launches "
+        f"{json.dumps(counts)} (one device {json.dumps(counts1)}) [{card}]")
+    expect(same and counts == counts1 == {"vmem_attention": layers * 2},
+           f"sp depth DPT-Large: identical {same}, launches {counts} against {counts1}")
+    drop_predictors("dpt-large")
+
+    # DA-V2-S --tiled at sp=2: 16 tiles a call, 8 on each sub-group
+    tclip = tmp / "lift_tiled_8.y4m"
+    write_clip(tclip, W, H, 8)
+    tcfg = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda", mesh="sp=2", tiled=True,
+                       tile_size=518, inference_size=518)
+    tone = dataclasses.replace(tcfg, mesh="off")
+    counts, counts1, line = pair("lift_tiled", tcfg, tone, pred, 2, 1, 8, src=tclip)
+    layers = pred.cfg.backbone.num_layers
+    launches["sp depth tiled"] = counts
+    f32cfg = dataclasses.replace(tcfg, dtype="float32")
+    with no_tf32():
+        for name, c, nd in (("lift_tiled_f32_one.y4m", dataclasses.replace(f32cfg, mesh="off"),
+                             1), ("lift_tiled_f32.y4m", f32cfg, 2)):
+            _, _, c32 = run(name, c, f32, nd, True, src=tclip)
+    gate = held("lift_tiled.y4m", "lift_tiled_twin.y4m", "lift_tiled_f32_one.y4m",
+                "sp depth tiled")
+    dm32, ssim32 = gray_diff(tmp / "lift_tiled_f32.y4m", tmp / "lift_tiled_f32_one.y4m", every=1)
+    say(f"PHASE mesh sp depth tiled: sp=2 over [cuda:0, cuda:0], 8 frames 1080p, DA-V2-S "
+        f"518 tiles (2 a frame) bf16, K7 opt-in: {line}; {gate}; float32 (TF32 off) against "
+        f"one device mean |d| {dm32:.4f} u8 (need <= 0.5), min SSIM {ssim32:.5f} (need >= "
+        f"0.995); launches {json.dumps(counts)} (one device {json.dumps(counts1)}) [{card}]")
+    expect(counts == {"vmem_attention": layers * 2} and counts1 == {"vmem_attention": layers}
+           and nonzero(c32) == {"vmem_attention": layers * 2},
+           f"sp depth tiled: launches {counts} against {counts1}, float32 {nonzero(c32)}")
+    expect(dm32 <= 0.5 and ssim32 >= 0.995,
+           f"sp depth tiled float32: mean |d| {dm32:.4f}, SSIM {ssim32:.5f}")
+
+    # DA-V2-S sp=2,tp=2 on the card four times against tp=2
+    scfg = DepthConfig(batch_size=8, dtype="bfloat16", device="cuda", mesh="sp=2,tp=2")
+    counts, counts1, line = pair("lift_sptp", scfg, dataclasses.replace(scfg, mesh="tp=2"),
+                                 pred, 4, 2, 16)
+    same = y4m_body(tmp / "lift_sptp.y4m") == y4m_body(tmp / "lift_sptp_twin.y4m")
+    launches["sp x tp depth"] = counts
+    say(f"PHASE mesh sp x tp depth: sp=2,tp=2 over [cuda:0] * 4, 16 frames 1080p, DA-V2-S "
+        f"bf16, K7 opt-in: {line}; byte-identical to tp=2: {same}; launches "
+        f"{json.dumps(counts)} (tp=2 {json.dumps(counts1)}) [{card}]")
+    expect(same and counts == counts1 == {"vmem_attention": layers * 2 * 2},
+           f"sp x tp depth: identical {same}, launches {counts} against {counts1}")
+
+    # DepthCrafter's route at dp=2,sp=2 against dp=2 over the mesh phase's windows
+    if dcrafter is None:
+        expect(False, "sp lifted: the mesh phase's DepthCrafter pipeline was not passed")
+        return
+    pipe, frames = dcrafter
+    dclip = tmp / "lift_dcrafter_clip.y4m"
+    u8 = (frames * 255.0 + 0.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+    with Y4MWriter(str(dclip), u8.shape[2], u8.shape[1], 24.0) as wr:
+        for f in u8:
+            wr.write(f)
+    n = len(u8)
+    dcfg = DepthConfig(model="depthcrafter", dtype="bfloat16", device="cuda", steps=2,
+                       window_size=24, overlap=6, target_fps=24.0, mesh="dp=2,sp=2")
+    counts, counts1, line = pair("lift_dcrafter", dcfg, dataclasses.replace(dcfg, mesh="dp=2"),
+                                 pipe, 4, 2, n, src=dclip)
+    # in turns (case, twin, twin, case): all four byte for byte
+    run("lift_dcrafter_twin2.y4m", dataclasses.replace(dcfg, mesh="dp=2"), pipe, 2, True,
+        src=dclip)
+    run("lift_dcrafter2.y4m", dcfg, pipe, 4, True, src=dclip)
+    names = ("lift_dcrafter", "lift_dcrafter_twin", "lift_dcrafter_twin2", "lift_dcrafter2")
+    bodies = [y4m_body(tmp / f"{x}.y4m") for x in names]
+    same = all(b == bodies[0] for b in bodies)
+    launches["dp x sp DepthCrafter"] = counts
+    say(f"PHASE mesh dp x sp DepthCrafter: dp=2,sp=2 over [cuda:0] * 4, the route over {n} "
+        f"frames 512x288 ({len(pipe._windows(n))} windows, 2 steps, bf16, K7 opt-in): {line}; "
+        f"byte-identical to dp=2 (case, twin, twin, case): {same}; launches "
+        f"{json.dumps(counts)} (dp=2 "
+        f"{json.dumps(counts1)}) [{card}]")
+    expect(same and counts == counts1 and counts.get("vmem_attention", 0) > 0,
+           f"dp x sp DepthCrafter: identical {same}, launches {counts} against {counts1}")
 
 
 TRAIN_SIZE, TRAIN_BATCH, TRAIN_LR = 518, 4, 1e-4

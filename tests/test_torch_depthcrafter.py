@@ -58,6 +58,7 @@ from visiondepth3d_tpu.pipeline.depth_pipeline import DepthConfig as JConfig
 from visiondepth3d_tpu.pipeline.depth_pipeline import render_depth_video_file as jroute
 from test_torch_depth_route import _read, _write_clip
 from test_torch_diffusion import _quant_convs, _redraw, _tensors
+from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.depth.diffusion import (CLIP_TINY, UNET_ST_TINY, VAE_TINY,
                                                      AutoencoderKL, CLIPVisionEncoder,
                                                      DepthCrafterPipeline, UNetSpatioTemporal,
@@ -341,8 +342,8 @@ def test_route_matches_jax(states, jpipe, bits, tmp_path):
     clip = tmp_path / "clip.y4m"
     _write_clip(clip, *CLIP_HW, n_src, BARS)
     ext = "vd16" if bits == 16 else "y4m"
-    assert jroute(clip, tmp_path / f"jax.{ext}", JConfig(mesh="off", **_route_cfg(bits)),
-                  predictor=jpipe) == n
+    assert bounded(jroute, clip, tmp_path / f"jax.{ext}",
+                   JConfig(mesh="off", **_route_cfg(bits)), predictor=jpipe) == n
     pipe = _port_pipe(states)
     _replay_jax_noise(pipe)
     out = tmp_path / f"port.{ext}"
@@ -357,8 +358,8 @@ def test_route_matches_jax(states, jpipe, bits, tmp_path):
     assert got.shape == want.shape == (n, rows, FRAME_HW[1]) and got.std() > 0
     assert np.abs(got - want).mean() <= (257 if bits == 16 else 1)
     reader = Depth16Reader if bits == 16 else Y4MReader
-    with reader(str(out)) as rd:
-        assert rd.fps == 12.0
+    with reader(str(out)) as rd:  # read to the end (F23)
+        assert rd.fps == 12.0 and len(list(rd)) == n
 
 
 def test_cancel_after_a_segment(states, tmp_path):

@@ -56,6 +56,7 @@ from visiondepth3d_tpu.ops.attention import multi_head_attention as jmha
 from visiondepth3d_tpu.pipeline.depth_pipeline import DepthConfig as JConfig
 from visiondepth3d_tpu.pipeline.depth_pipeline import render_depth_video_file as jroute
 from test_torch_depth_route import _read, _write_clip
+from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.depth import registry as tregistry
 from visiondepth3d_tpu_torch.depth.diffusion import (UNET2D_TINY, VAE_TINY, AutoencoderKL,
                                                      DDIMSchedule, EulerSchedule,
@@ -462,8 +463,8 @@ def test_route_matches_jax(unet_state, vae_state, bits, tmp_path):
     _feed_noise(tpipe, noise, False)
     ext = "vd16" if bits == 16 else "y4m"
     kw = dict(model="marigold", batch_size=2, bits=bits, invert=bits == 16)
-    assert jroute(clip, tmp_path / f"jax.{ext}", JConfig(mesh="off", **kw),
-                  predictor=jpipe) == n
+    assert bounded(jroute, clip, tmp_path / f"jax.{ext}", JConfig(mesh="off", **kw),
+                   predictor=jpipe) == n
     assert render_depth_video_file(clip, tmp_path / f"port.{ext}",
                                    DepthConfig(device="cpu", **kw), predictor=tpipe) == n
     want, got = _read(tmp_path / f"jax.{ext}"), _read(tmp_path / f"port.{ext}")

@@ -30,6 +30,7 @@ from visiondepth3d_tpu.enhance import rife as jrife
 from visiondepth3d_tpu.enhance.pipeline import EnhanceConfig as JConfig
 from visiondepth3d_tpu.enhance.pipeline import run_merged_pipeline as jrun
 from visiondepth3d_tpu.ops.flow_warp import flow_warp_batch
+from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.cli.main import main as cli_main
 from visiondepth3d_tpu_torch.enhance import esrgan as tesr
 from visiondepth3d_tpu_torch.enhance import rife as trife
@@ -298,8 +299,8 @@ def test_merged_pipeline_matches_jax(tmp_path, case):
     jep = _jax_params(jesr.RRDBNet(nf=8, nb=1, gc=8, scale=4), 0, x, jitter=0.02)
     rcfg = jrife.IFNetConfig(cs=(16, 8), scales=(2, 1), n_res=2)
     jrp = _jax_params(rcfg.build(), 1, x, x, jitter=0.05)
-    n_jax = jrun(src, tmp_path / "jax.y4m", JConfig(**kw), esrgan_params=jep,
-                 rife_params=(jrp, rcfg))
+    n_jax = bounded(jrun, src, tmp_path / "jax.y4m", JConfig(**kw), esrgan_params=jep,
+                    rife_params=(jrp, rcfg))
     tcfg = trife.IFNetConfig(**dataclasses.asdict(rcfg))
     n = run_merged_pipeline(src, tmp_path / "port.y4m", EnhanceConfig(**kw),
                             esrgan_params=rrdbnet_from_jax_params(_np(jep)),

@@ -426,8 +426,8 @@ def test_postfx_division_by_9_and_25_is_exact(tmp_path):
     src, exe = tmp_path / "div_check.cpp", tmp_path / "div_check"
     src.write_text(_DIV_CHECK)
     subprocess.run([gxx, "-O3", "-march=native", "-ffp-contract=off", "-o", str(exe),
-                    str(src)], check=True)
-    res = subprocess.run([str(exe)], capture_output=True, text=True, check=True)
+                    str(src)], check=True, timeout=300)
+    res = subprocess.run([str(exe)], capture_output=True, text=True, check=True, timeout=300)
     assert res.stdout.strip() == "0"
 
 

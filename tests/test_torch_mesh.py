@@ -30,9 +30,9 @@ says otherwise:
   JAX's one-device render within the bound (the row bands themselves are
   held to one device in ``tests/test_torch_halo.py``);
 - ``render_chunk_spatial`` equals ``render_chunk``; a mesh with too few
-  devices for its axes raises ValueError, ``depth --mesh sp`` with
-  ``--tiled`` raises NotImplementedError naming item 6d; ``resume`` or a clip window with a
-  ``dp`` mesh raises ValueError;
+  devices for its axes raises ValueError (``depth --mesh sp=3`` on two
+  devices too); ``resume`` or a clip window with a ``dp`` mesh raises
+  ValueError;
   the default ``auto`` with a window renders the window on one device; a
   cancelled ``dp=2`` render keeps a gapless start of the clip;
 - every kernel wrapper launches through ``kernels/_lib.launch``, which
@@ -55,6 +55,7 @@ import pytest
 import torch
 torch.set_num_threads(1)
 
+from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.depth import configs as tconfigs
 from visiondepth3d_tpu_torch.depth.dpt import DepthAnything
 from visiondepth3d_tpu_torch.depth.model import DepthPredictor
@@ -173,7 +174,7 @@ def test_count_and_concat_match_jax(tmp_path):
         _write_clip(tmp_path / f"s{i}.y4m", t, off)
     segs = [str(tmp_path / f"s{i}.y4m") for i in range(3)]
     assert [mesh_render.count_video_frames(p) for p in segs] == \
-        [jmesh.count_video_frames(p) for p in segs] == [5, 4, 3]
+        [bounded(jmesh.count_video_frames, p) for p in segs] == [5, 4, 3]
     mesh_render._concat_y4m(segs, str(tmp_path / "port.y4m"))
     jmesh._concat_y4m(segs, str(tmp_path / "jax.y4m"))
     _write_clip(tmp_path / "whole.y4m", 12)
@@ -263,10 +264,10 @@ def test_dp_render_matches_segments_and_jax(tmp_path, weights, route):
     jkw = {"predictor": _jax_predictor(params)} if depth is None else {}
     want = []
     for s, _ in segment_bounds(T, 2):
-        jrender(tmp_path / f"c{s}.y4m", tmp_path / f"d{s}.y4m" if depth is not None else None,
-                tmp_path / f"j{s}.y4m", None,
-                JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4,
-                        device_yuv_in=False), **jkw)
+        bounded(jrender, tmp_path / f"c{s}.y4m",
+                tmp_path / f"d{s}.y4m" if depth is not None else None, tmp_path / f"j{s}.y4m",
+                None, JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4,
+                              device_yuv_in=False), **jkw)
         want.append(_read(tmp_path / f"j{s}.y4m"))
     _within_bound(got, np.concatenate(want))
 
@@ -283,8 +284,9 @@ def test_pp_render_matches_fused_and_jax(tmp_path, weights):
                         _cfg(mesh="off"), predictor=pred)
     assert prog.frames_done == 10
     assert (tmp_path / "pp.y4m").read_bytes() == (tmp_path / "one.y4m").read_bytes()
-    jrender(tmp_path / "clip.y4m", None, tmp_path / "jax.y4m", None,
-            JConfig(mesh="pp=2", preserve_original_aspect=True, chunk_size=4),
+    bounded(jrender, tmp_path / "clip.y4m", None, tmp_path / "jax.y4m", None,
+            JConfig(mesh="pp=2", preserve_original_aspect=True, chunk_size=4,
+                    device_yuv_in=False),
             predictor=_jax_predictor(params))
     _within_bound(_read(tmp_path / "pp.y4m"), _read(tmp_path / "jax.y4m"))
 
@@ -325,8 +327,9 @@ def test_frame_split_renders_match_one_device_and_jax(tmp_path, weights, spec):
                         dataclasses.replace(_cfg(mesh="off"), chunk_size=2), predictor=pred)
     assert prog.frames_done == 10
     assert (tmp_path / "mesh.y4m").read_bytes() == (tmp_path / "one.y4m").read_bytes()
-    jrender(tmp_path / "clip.y4m", None, tmp_path / "jax.y4m", None,
-            JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4),
+    bounded(jrender, tmp_path / "clip.y4m", None, tmp_path / "jax.y4m", None,
+            JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4,
+                    device_yuv_in=False),
             predictor=_jax_predictor(params))
     _within_bound(_read(tmp_path / "mesh.y4m"), _read(tmp_path / "jax.y4m"))
 
@@ -395,9 +398,9 @@ def test_dp_depth_route_matches_sub_batch_and_jax(tmp_path, weights):
                                    DepthConfig(device="cpu", batch_size=2, mesh="off", **kw),
                                    predictor=pred) == 10
     assert (tmp_path / "dp.y4m").read_bytes() == (tmp_path / "one.y4m").read_bytes()
-    assert jroute(tmp_path / "clip.y4m", tmp_path / "jax.y4m",
-                  JConfig(batch_size=4, mesh="dp=2", **kw),
-                  predictor=_jax_predictor(params)) == 10
+    assert bounded(jroute, tmp_path / "clip.y4m", tmp_path / "jax.y4m",
+                   JConfig(batch_size=4, mesh="dp=2", **kw),
+                   predictor=_jax_predictor(params)) == 10
     _within_bound(_luma(tmp_path / "dp.y4m"), _luma(tmp_path / "jax.y4m"))
 
 
@@ -553,7 +556,7 @@ REFUSED = {
     "render_sp": ("render", dict(mesh="dp=2,sp=2"), ValueError),  # 4 devices, 2 given
     "render_tp": ("render", dict(mesh="tp=3"), ValueError),
     "render_pp_dp": ("render", dict(mesh="dp=2,pp=2"), ValueError),
-    "depth_sp": ("depth", dict(mesh="sp=2", tiled=True), NotImplementedError),
+    "depth_sp": ("depth", dict(mesh="sp=3"), ValueError),  # 3 devices, 2 given
     "depth_pp": ("depth", dict(mesh="pp=2"), ValueError),
     "render_window": ("render", dict(mesh="dp=2", start_s=0.1), ValueError),
     "render_too_few_devices": ("render", dict(mesh="dp=3"), ValueError),
@@ -564,8 +567,7 @@ REFUSED = {
 def test_still_refused(tmp_path, weights, case):
     what, kw, err = REFUSED[case]
     _write_clip(tmp_path / "clip.y4m", t=6)
-    match = "6d" if err is NotImplementedError else None
-    with pytest.raises(err, match=match):
+    with pytest.raises(err):
         if what == "render":
             render_stereo_video(tmp_path / "clip.y4m", None, tmp_path / "o.y4m", None,
                                 _cfg(**kw), predictor=weights[1], devices=CPU2)
@@ -745,9 +747,10 @@ def test_cuda_kernels_launch_inside_the_entered_device_from_a_fresh_thread(cuda)
         except Exception as e:  # re-raised on the test's thread
             failure.append(e)
 
-    th = threading.Thread(target=run)
+    th = threading.Thread(target=run, daemon=True)
     th.start()
-    th.join()
+    th.join(timeout=600)
+    assert not th.is_alive(), "the kernels' card thread still ran after 600 s"
     if failure:
         raise failure[0]
     assert errs["quantile_pair"] == 0 and errs["subject_stats"] == 0, errs

@@ -45,6 +45,7 @@ from visiondepth3d_tpu.pipeline.depth_pipeline import DepthConfig as JConfig
 from visiondepth3d_tpu.pipeline.depth_pipeline import render_depth_video_file as jroute
 from visiondepth3d_tpu.utils.onnx_reader import read_onnx_graph as jread_graph
 from test_torch_depth_route import _read, _write_clip
+from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.depth import configs as tconfigs
 from visiondepth3d_tpu_torch.depth import registry as tregistry
 from visiondepth3d_tpu_torch.depth.onnx_exec import (OnnxDepthPredictor, OnnxExecutor,
@@ -424,7 +425,7 @@ def test_names_through_the_route_match_jax(kind, tmp_path):
     clip = tmp_path / "clip.y4m"
     _write_clip(clip, 40, 56, 5)
     kw = dict(model=name, inference_size=64, batch_size=2)
-    assert jroute(clip, tmp_path / "jax.y4m", JConfig(mesh="off", **kw)) == 5
+    assert bounded(jroute, clip, tmp_path / "jax.y4m", JConfig(mesh="off", **kw)) == 5
     assert render_depth_video_file(clip, tmp_path / "port.y4m",
                                    DepthConfig(device="cpu", **kw)) == 5
     want, got = _read(tmp_path / "jax.y4m"), _read(tmp_path / "port.y4m")
@@ -443,7 +444,7 @@ def test_tiled_onnx_route(tmp_path):
     kw = dict(model=f"onnx:{model}", inference_size=64, tile_size=64, tile_overlap=16,
               tiled=True, batch_size=2)
     with pytest.raises(TypeError, match="not subscriptable"):
-        jroute(clip, tmp_path / "jax.y4m", JConfig(mesh="off", **kw))
+        bounded(jroute, clip, tmp_path / "jax.y4m", JConfig(mesh="off", **kw))
     assert render_depth_video_file(clip, tmp_path / "port.y4m",
                                    DepthConfig(device="cpu", **kw)) == 3
     got = _read(tmp_path / "port.y4m")

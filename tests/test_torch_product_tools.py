@@ -40,6 +40,7 @@ from visiondepth3d_tpu.cli.main import main as jmain
 from visiondepth3d_tpu.config import i18n as ji18n
 from visiondepth3d_tpu.io import Y4MReader, Y4MWriter
 from visiondepth3d_tpu.utils import scene_detect as jscene
+from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.cli.main import build_parser
 from visiondepth3d_tpu_torch.cli.main import main as cli_main
 from visiondepth3d_tpu_torch.config import i18n
@@ -103,15 +104,15 @@ def test_cli_scenes_split_writes_y4m_scenes(tmp_path, capsys):
     with Y4MWriter(str(clip), 48, 36, 24.0) as wr:
         for f in frames:
             wr.write(f)
-    assert jmain(["scenes", "--input", str(clip)]) == 0
+    assert bounded(jmain, ["scenes", "--input", str(clip)]) == 0
     want = capsys.readouterr().out
     assert cli_main(["scenes", "--input", str(clip)]) == 0
     assert capsys.readouterr().out == want
     assert cli_main(["scenes", "--input", str(clip), "--split", "--output",
                      str(tmp_path / "sc")]) == 0
     out = capsys.readouterr().out
-    assert jmain(["scenes", "--input", str(clip), "--split", "--output",
-                  str(tmp_path / "jsc")]) == 0
+    assert bounded(jmain, ["scenes", "--input", str(clip), "--split", "--output",
+                           str(tmp_path / "jsc")]) == 0
     assert capsys.readouterr().out.replace("jsc", "sc") == out
     names = sorted(os.listdir(tmp_path / "sc"))
     assert names == sorted(os.listdir(tmp_path / "jsc")) == \

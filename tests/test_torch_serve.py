@@ -124,6 +124,14 @@ def _wait(job, timeout=120):
     return job
 
 
+def _until(cond, timeout=60.0):
+    """Poll ``cond`` until it holds; fails after ``timeout`` seconds."""
+    t0 = time.time()
+    while not cond():
+        assert time.time() - t0 < timeout, "the condition never held"
+        time.sleep(0.01)
+
+
 def _http_job(base, kind, params, timeout=300):
     """Submit a job over HTTP and poll /api/jobs until it is final."""
     st, job = _req(f"{base}/api/jobs", {"kind": kind, "params": params})
@@ -251,8 +259,7 @@ def test_job_pause_resume_cancel():
 
     mgr = JobManager({"step": stepper})
     job = mgr.submit("step", {})
-    while not ticks:
-        time.sleep(0.01)
+    _until(lambda: ticks)
     mgr.control(job.id, "pause")
     time.sleep(0.2)  # the poll loop observes the pause
     assert job.status == "paused"
@@ -267,8 +274,7 @@ def test_job_pause_resume_cancel():
     assert job.status == "cancelled"
     # a paused job is unblocked by a cancel
     j2 = mgr.submit("step", {})
-    while j2.status == "queued":
-        time.sleep(0.01)
+    _until(lambda: j2.status != "queued")
     mgr.control(j2.id, "pause")
     time.sleep(0.1)
     mgr.control(j2.id, "cancel")
@@ -313,8 +319,7 @@ def test_staged_output_is_published_only_when_done(tmp_path):
     final2 = tmp_path / "cut.txt"
     mgr2 = JobManager({"w": _staged_writer(str(final2))})
     job = mgr2.submit("w", {})
-    while job.progress.get("lines", 0) < 5:
-        time.sleep(0.01)
+    _until(lambda: job.progress.get("lines", 0) >= 5)
     assert mgr2.shutdown(timeout=30)
     assert job.status == "cancelled" and job.output == staging_path(final2)
     assert not final2.exists()

@@ -26,6 +26,7 @@ from visiondepth3d_tpu.depth.model import init_random
 from visiondepth3d_tpu.io import Y4MReader, Y4MWriter
 from visiondepth3d_tpu.pipeline.stereo_pipeline import RenderConfig as JConfig
 from visiondepth3d_tpu.pipeline.stereo_pipeline import render_stereo_video as jrender
+from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.cli.main import main as cli_main
 from visiondepth3d_tpu_torch.depth import configs as tconfigs
 from visiondepth3d_tpu_torch.depth.convert import from_jax_params, load_hf_state_dict
@@ -60,8 +61,9 @@ def _read(path):
 
 def test_render_matches_jax(clip, tmp_path):
     params = init_random(DA_TINY, seed=1, size=SIZE)
-    jrender(clip, None, tmp_path / "jax.y4m", None,
-            JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4),
+    bounded(jrender, clip, None, tmp_path / "jax.y4m", None,
+            JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4,
+                    device_yuv_in=False),
             predictor=JPredictor(DA_TINY, params, SIZE))
     model = DepthAnything(tconfigs.DA_TINY)
     load_hf_state_dict(model, from_jax_params(params, tconfigs.DA_TINY))
@@ -86,8 +88,9 @@ def test_depth_route_matches_jax(clip, tmp_path):
             d = (xx * 3 + 30).astype(np.uint8)
             d[10:30, 10 + 4 * i: 25 + 4 * i] = 220
             wr.write(np.repeat(d[..., None], 3, -1))
-    jrender(clip, depth, tmp_path / "jax.y4m", None,
-            JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4))
+    bounded(jrender, clip, depth, tmp_path / "jax.y4m", None,
+            JConfig(mesh="off", preserve_original_aspect=True, chunk_size=4,
+                    device_yuv_in=False))
     render_stereo_video(clip, depth, tmp_path / "port.y4m", None,
                         RenderConfig(preserve_original_aspect=True, chunk_size=4,
                                      device="cpu"))

@@ -1,6 +1,7 @@
 """The depth route's row mesh (``depth --mesh sp=M``, ``parallel/sp.py``) on
 the CPU: its parts, the token-parallel model against one device and the
-JAX model, the route and the CLI, and what still refuses.
+JAX model, the route and the CLI, and the cases sp runs without row
+sharding.
 
 - ``RowSharded.rows`` and ``resize_bilinear_rows`` over uneven bands (2
   and 3): bit-identical to the whole frame's rows, for bilinear in both
@@ -23,9 +24,10 @@ JAX model, the route and the CLI, and what still refuses.
 - ``depth --mesh sp=2`` and ``dp=2,sp=2`` through the CLI (the CPU two and
   four times), 8 and 16 bits, against one device: values within one step,
   mean |d| <= 0.05.
-- The combinations still to port raise NotImplementedError naming ROADMAP
-  item 6d: another family, ``--tiled``, ``sp=2,tp=2``, DepthCrafter at
-  ``dp=2,sp=2``.
+- What sp did not run before PR 16 runs: another family (DPT-Large) and
+  ``sp=2,tp=2`` byte for byte against one device and ``tp=2``, ``--tiled``
+  within one step of one device, DepthCrafter at ``dp=2,sp=2`` byte for
+  byte against ``dp=2`` (more cases in ``tests/test_torch_sp_depth_more.py``).
 - ``cuda``-marked: K7's band form on the card against its plain version
   and against rows of the whole-sequence kernel, and the sp route on
   [cuda:0, cuda:0] against one device.
@@ -304,22 +306,63 @@ def test_cli_depth_sp(clip, spec, bits):
     assert d.max() <= 1 and d.mean() <= 0.05, (d.max(), d.mean())
 
 
-REFUSED = {
-    "family": dict(model="dpt-large", mesh="sp=2"),
-    "tiled": dict(mesh="sp=2", tiled=True),
-    "sp_tp": dict(mesh="sp=2,tp=2"),
-    "depthcrafter": dict(model="depthcrafter", mesh="dp=2,sp=2"),
+def _tiny(name):
+    """A tiny random predictor of a catalog entry (the port's tiny configs)."""
+    from visiondepth3d_tpu_torch.depth.dpt_classic import DPT_TINY
+    from visiondepth3d_tpu_torch.depth.registry import load_predictor
+
+    if name == "dpt-large":
+        return load_predictor(name, None, inference_size=32, config=DPT_TINY, device="cpu")
+    return load_predictor(name, None, inference_size=28, config=tconfigs.DA_TINY, device="cpu")
+
+
+def _depthcrafter_cfg(mesh):
+    from visiondepth3d_tpu_torch.pipeline.depth_pipeline import DepthConfig
+
+    return DepthConfig(model="depthcrafter", device="cpu", allow_random=True, steps=1,
+                       window_size=4, overlap=2, max_segment_frames=4, target_fps=24.0,
+                       mesh=mesh)
+
+
+# case -> (its mesh spec, its twin's, predictor, DepthConfig fields, byte-identical)
+LIFTED = {
+    "family": ("sp=2", "off", "dpt-large", dict(model="dpt-large", inference_size=32), True),
+    "tiled": ("sp=2", "off", "depth-anything-v2-small",
+              dict(tiled=True, tile_size=28, tile_overlap=8, inference_size=42), False),
+    "sp_tp": ("sp=2,tp=2", "tp=2", "depth-anything-v2-small", dict(inference_size=28), True),
+    "depthcrafter": ("dp=2,sp=2", "dp=2", None, None, True),
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_sp_refusals_name_6d(clip, case):
+@pytest.mark.parametrize("case", sorted(LIFTED))
+def test_sp_lifted_runs(clip, case):
+    """What sp did not run before: another family (DPT-Large, on the
+    group's first device) and ``sp=2,tp=2`` (the tp=2 split on the first
+    sub-group) byte for byte against one device and ``tp=2``; ``--tiled``
+    (the tiles over the two sub-groups) against one device, u8 within one
+    step and mean |d| <= 0.05; DepthCrafter at ``dp=2,sp=2`` (its windows
+    over the dp groups' first devices) byte for byte against ``dp=2``."""
     from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
                                                                  render_depth_video_file)
 
-    with pytest.raises(NotImplementedError, match="6d"):
-        render_depth_video_file(clip / "clip.y4m", clip / "refused.y4m",
-                                DepthConfig(device="cpu", inference_size=28, **REFUSED[case]))
+    spec, twin, name, kw, exact = LIFTED[case]
+    outs = []
+    for mesh in (spec, twin):
+        out = clip / f"lifted_{case}_{mesh.replace(',', '_')}.y4m"
+        if name is None:  # the tiny random DepthCrafter on the clip's first 6 frames
+            n = render_depth_video_file(clip / "clip.y4m", out, _depthcrafter_cfg(mesh))
+        else:
+            n = render_depth_video_file(clip / "clip.y4m", out,
+                                        DepthConfig(device="cpu", mesh=mesh, batch_size=4, **kw),
+                                        predictor=_tiny(name))
+        assert n == 6
+        outs.append(out)
+    if exact:
+        assert outs[0].read_bytes() == outs[1].read_bytes()
+    got, want = _read(outs[0]), _read(outs[1])
+    d = np.abs(got - want)
+    assert got.shape == want.shape and want.std() > 0
+    assert d.max() <= 1 and d.mean() <= 0.05, (d.max(), d.mean())
 
 
 # ------------------------------------------------------------- the card

@@ -46,6 +46,7 @@ from visiondepth3d_tpu.pipeline import stereo_pipeline as jpipe
 from visiondepth3d_tpu.state import init_trackers as jinit
 from visiondepth3d_tpu.stereo import StereoParams as JParams
 from visiondepth3d_tpu.utils.observability import make_control_check as jcontrol
+from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.cli.main import main as cli_main
 from visiondepth3d_tpu_torch.config import presets as tpresets
 from visiondepth3d_tpu_torch.io import blackdetect as tblack
@@ -179,8 +180,8 @@ RENDER_FORMATS = {"vr": ("VR", False, (2, 1600, 2880, 3)),
 
 def _renders(tmp_path, clip, depth, tcfg: dict, jcfg: dict | None = None, n=None):
     jcfg = dict(tcfg if jcfg is None else jcfg)
-    jpipe.render_stereo_video(clip, depth, tmp_path / "jax.y4m", None,
-                              jpipe.RenderConfig(mesh="off", **jcfg))
+    bounded(jpipe.render_stereo_video, clip, depth, tmp_path / "jax.y4m", None,
+            jpipe.RenderConfig(mesh="off", device_yuv_in=False, **jcfg))
     prog = tpipe.render_stereo_video(clip, depth, tmp_path / "port.y4m", None,
                                      tpipe.RenderConfig(device="cpu", **tcfg))
     want, got = _read(tmp_path / "jax.y4m"), _read(tmp_path / "port.y4m")
@@ -562,8 +563,8 @@ def test_cli_control_cancel_and_resume(tmp_path, pair):
             "--preserve-aspect", "--chunk-size", "4"]
     argv = base + ["--output", str(out), "--control", str(ctl)]
     assert cli_main(argv) == 0
-    with Y4MReader(str(out)) as rd:
-        assert rd.count() == 0
+    with Y4MReader(str(out)) as rd:  # read to the end (F23)
+        assert rd.count() == 0 and list(rd) == []
     ctl.write_text("run")
     assert cli_main(argv + ["--resume"]) == 0
     assert _read(out).shape == (8, H, 2 * W, 3)

@@ -19,8 +19,9 @@ model, the ``tp`` depth route and render, and the refusals.
   bound) and SSIM >= 0.99 per frame (the stereo tests' shipped gate; the
   random toy model's depth is noise-like, so a float32 change of order
   1e-7 moves a few warped pixels and bar columns by whole u8 steps).
-- ``depth --mesh sp=2,tp=2`` raises NotImplementedError naming ROADMAP
-  item 6d; the frame tools refuse sp and tp (the JAX CLI's dp-only rule).
+- ``depth --mesh sp=2,tp=2`` gives the ``tp=2`` route's bytes (the tp
+  split on the first sub-group); the frame tools refuse sp and tp (the JAX
+  CLI's dp-only rule).
 """
 
 from __future__ import annotations
@@ -176,14 +177,20 @@ def test_cli_render_tp(clip, spec):
     assert min(_ssim(a / 255.0, b / 255.0) for a, b in zip(got, one)) >= 0.99
 
 
-def test_depth_sp_and_tools_refused(clip):
+def test_depth_sp_and_tools_refused(clip, six_heads):
+    """``depth --mesh sp=2,tp=2`` runs (the tp=2 split on the first of the
+    two sub-groups: the tp=2 route's bytes); the frame tools refuse sp and
+    tp. (The name is the one the depth case had while it was refused.)"""
     from visiondepth3d_tpu_torch.enhance import EnhanceConfig, run_merged_pipeline
     from visiondepth3d_tpu_torch.pipeline.depth_pipeline import (DepthConfig,
                                                                  render_depth_video_file)
 
-    with pytest.raises(NotImplementedError, match="6d"):
-        render_depth_video_file(clip / "clip.y4m", clip / "x.y4m",
-                                DepthConfig(device="cpu", mesh="sp=2,tp=2", inference_size=SIZE))
+    _, pred = six_heads
+    for mesh in ("sp=2,tp=2", "tp=2"):
+        assert render_depth_video_file(clip / "clip.y4m", clip / f"x_{mesh}.y4m",
+                                       DepthConfig(device="cpu", mesh=mesh, inference_size=SIZE),
+                                       predictor=pred) == 6
+    assert (clip / "x_sp=2,tp=2.y4m").read_bytes() == (clip / "x_tp=2.y4m").read_bytes()
     for axes in ({"sp": 2}, {"tp": 2}, {"dp": 2, "tp": 2}):
         with pytest.raises(ValueError, match="only the dp"):
             run_merged_pipeline(clip / "clip.y4m", clip / "t.y4m",

@@ -33,6 +33,7 @@ from visiondepth3d_tpu.depth import vda as jvda
 from visiondepth3d_tpu.pipeline.depth_pipeline import DepthConfig as JConfig
 from visiondepth3d_tpu.pipeline.depth_pipeline import render_depth_video_file as jroute
 from test_torch_depth_route import _read, _write_clip
+from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.depth import registry as tregistry
 from visiondepth3d_tpu_torch.depth.vda import (VDA_TINY, VideoDepthAnything, _align_scale_shift,
                                                convert_vda)
@@ -200,8 +201,8 @@ def test_route_matches_jax(weights, route, tmp_path):
     _write_clip(clip, h, w, n, bars)
     ext = "vd16" if kw.get("bits") == 16 else "y4m"
     common = dict(model="video-depth-anything", inference_size=SIZE, **kw)
-    assert jroute(clip, tmp_path / f"jax.{ext}", JConfig(mesh="off", **common),
-                  predictor=_jax_pred(up)) == n
+    assert bounded(jroute, clip, tmp_path / f"jax.{ext}", JConfig(mesh="off", **common),
+                   predictor=_jax_pred(up)) == n
     assert render_depth_video_file(clip, tmp_path / f"port.{ext}",
                                    DepthConfig(device="cpu", **common),
                                    predictor=_port_pred(up)) == n

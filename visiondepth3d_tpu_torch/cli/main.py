@@ -42,14 +42,16 @@ through the language packs, ``--lang``), plus ``--device`` (default cuda; a
 missing card is an error, not a CPU fallback) on the subcommands that run a
 model. ``--mesh`` spreads render, depth and tools over devices: ``dp=N``
 (frame segments, batch frames, chunk frames), ``sp=M`` for render (frame
-row bands) and depth (the Depth Anything family's model row-sharded: a
-token-parallel ViT and a row-banded neck and head), ``tp=K`` for render
-and depth (the ViT split Megatron-style), and ``pp=2[,dp=N]`` for render
-(depth and stereo stages); with ``--device cpu`` the mesh is the CPU
-repeated, else the visible cards (``auto``, the render and depth default,
-is one device on a one-card machine). ``depth --mesh sp`` for the other
-families, with ``--tiled``, with ``tp`` or for DepthCrafter raises
-NotImplementedError (ROADMAP item 6d); the frame tools take dp only. As
+row bands) and depth, ``tp=K`` for render and depth (the ViT split
+Megatron-style), and ``pp=2[,dp=N]`` for render (depth and stereo
+stages); with ``--device cpu`` the mesh is the CPU repeated, else the
+visible cards (``auto``, the render and depth default, is one device on a
+one-card machine). ``depth --mesh sp=M`` row-shards only the Depth
+Anything family's model (a token-parallel ViT and a row-banded neck and
+head); other families, and any family with ``tp=K``, run on each group's
+first device, or split over its first K devices; with ``--tiled`` the
+tiles are spread over the group's M sub-groups; DepthCrafter spreads its
+windows over the ``dp`` groups. The frame tools take dp only. As
 in the JAX CLI, the fused render refuses the video and diffusion models
 (video-depth-anything, marigold, depthcrafter): their depth goes through
 ``depth`` first. The messages the JAX CLI prints through ``t(key)`` go
@@ -369,10 +371,12 @@ def _add_depth_parser(sub):
     dp.add_argument("--mesh", default="auto",
                     help="devices: 'auto' (the batch, or DepthCrafter's windows, over every "
                          "visible card; one device on one card or with --device cpu), "
-                         "'dp=N' (the CPU N times with --device cpu), 'sp=M' (each frame's "
-                         "rows, and the Depth Anything model's tokens, over M devices), "
-                         "'tp=K' (the model split over K devices), 'dp=N,sp=M', 'dp=N,tp=K', "
-                         "'off'")
+                         "'dp=N' (the CPU N times with --device cpu), 'sp=M' (row-shards "
+                         "only the Depth Anything family's model, each frame's rows and "
+                         "tokens over M devices; other families run on each group's first "
+                         "device, or over its first K devices with tp=K; --tiled spreads "
+                         "the tiles over the M sub-groups), 'tp=K' (the model split over K "
+                         "devices), combined as 'dp=N,sp=M,tp=K'; 'off'")
     dp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
 
 

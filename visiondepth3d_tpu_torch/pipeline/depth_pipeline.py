@@ -27,26 +27,33 @@ on the first frames. Resizes, alignment, percentiles and rounding run on
 the device.
 
 ``DepthConfig.mesh`` spreads the work over devices, as in the JAX package:
-the feed-forward route splits each batch's frames over the ``dp`` devices
-(``auto``: every visible card when there is more than one), each with its
-replica of the model (per-frame normalization keeps every frame on its
-device), and stitches them in frame order; DepthCrafter denoises each
-segment's windows in parallel over the devices (``run_raw_parallel``). The
-video and Marigold routes run on one device, as in the JAX package. With
-``tp=K`` each ``dp`` run holds the model Megatron-split over its K devices
-(``parallel/tp.py``; the feed-forward route: DepthCrafter's windows spread
-over the ``dp`` devices only). With ``sp=M`` each ``dp`` run holds the
-model row-sharded over its M devices (``parallel/sp.py``: a token-parallel
-DINOv2 and a row-banded DPT neck and head, for the Depth Anything family):
-each band's device receives the source rows its input resize reads,
-resizes and normalizes them, runs its band of the model and resizes its
-depth to its rows of the output; the bands are gathered on the run's
-first device, which normalizes and quantizes the whole frames (per-frame
-percentiles need them whole). The result is the one-device depth, as
-GSPMD's partition of the JAX route is. sp for the other families, with
-``tiled``, with ``tp`` or for DepthCrafter raises NotImplementedError
-(ROADMAP Queue 1 item 6d); the video and Marigold routes run on one
-device under any mesh. ``pp`` is a render axis.
+the feed-forward route splits each batch's frames over the ``dp`` device
+groups (``auto``: every visible card when there is more than one), each
+with its copy of the model (per-frame normalization keeps every frame on
+its group), and stitches them in frame order; DepthCrafter denoises each
+segment's windows in parallel over the groups' first devices
+(``run_raw_parallel``), under any ``sp`` or ``tp``. The video and Marigold
+routes run on one device, as in the JAX package. A group holds M x K
+devices (``sp=M``, ``tp=K``), cut into M sub-groups of K devices; the
+run's inputs land on the group's first device, which normalizes and
+quantizes the whole frames (per-frame percentiles need them whole):
+- ``tp=K``: the model Megatron-split over the sub-group's K devices
+  (``parallel/tp.py``), a replica on one device when K = 1;
+- ``sp=M`` for the Depth Anything family (without ``tiled``, ``tp`` or a
+  ``select``): the model row-sharded over the M devices
+  (``parallel/sp.py``: a token-parallel DINOv2 and a row-banded DPT neck
+  and head). Each band's device receives the source rows its input
+  resize reads, resizes and normalizes them, runs its band of the model
+  and resizes its depth to its rows of the output; the bands are gathered
+  on the group's first device;
+- ``sp=M`` for any other model, or with ``tp``: the model runs on the
+  first sub-group (its first device, or split over its K devices), as
+  ``tp=K`` alone runs it;
+- ``sp=M`` with ``tiled``: the frames' tiles are cut into M runs in order,
+  each run goes to its sub-group's model, and the outputs are gathered in
+  tile order and blended on the group's first device (``_TileRuns``).
+Every case gives the one-device depth, as GSPMD's partition of the JAX
+route does. ``pp`` is a render axis.
 """
 
 from __future__ import annotations
@@ -113,27 +120,9 @@ def _size_h(size) -> int:
     return int(size[0]) if isinstance(size, (tuple, list)) else int(size)
 
 
-def _not_ported_6d(what: str) -> str:
-    return (f"depth --mesh sp {what} is not ported yet (ROADMAP Queue 1 item 6d); sp runs "
-            f"the Depth Anything family (dpt_dinov2) on whole frames, else use dp or tp")
-
-
-def _refuse_sp(cfg: DepthConfig, tp: int) -> None:
-    """sp's combinations still to port raise NotImplementedError (item 6d)."""
-    family = CATALOG[cfg.model].family if cfg.model in CATALOG else None
-    if cfg.tiled:
-        raise NotImplementedError(_not_ported_6d("with --tiled"))
-    if tp > 1:
-        raise NotImplementedError(_not_ported_6d("together with tp"))
-    if cfg.model == "depthcrafter":
-        raise NotImplementedError(_not_ported_6d("for DepthCrafter"))
-    if family not in (None, "dpt_dinov2", "vda", "diffusion"):
-        raise NotImplementedError(_not_ported_6d(f"for the {family} family ({cfg.model})"))
-
-
 def _resolve_mesh(cfg: DepthConfig, devices=None):
     """-> (the device groups, dp, sp), or (None, 1, 1) for one device: one
-    group of ``sp`` or ``tp`` devices per ``dp`` run (batch frames,
+    group of ``sp`` x ``tp`` devices per ``dp`` run (batch frames,
     DepthCrafter windows), the run's inputs on the group's first device.
     pp is a render-stage axis."""
     from .mesh_render import mesh_axes_for, mesh_devices
@@ -147,8 +136,6 @@ def _resolve_mesh(cfg: DepthConfig, devices=None):
         raise ValueError("vd3d depth does not pipeline stages; pp is a "
                          "vd3d render axis (--mesh pp=2)")
     dp, sp, tp = (int(axes.get(a, 1)) for a in ("dp", "sp", "tp"))
-    if sp > 1:
-        _refuse_sp(cfg, tp)
     group = sp * tp
     if dp * group <= 1:
         return None, 1, 1
@@ -164,6 +151,25 @@ def _batch_runs(n: int, parts: int) -> list[tuple[int, int]]:
     ceil(n / parts) frames in order (fewer runs for a short batch)."""
     k = -(-n // parts)
     return [(a, min(a + k, n)) for a in range(0, n, k)]
+
+
+class _TileRuns:
+    """The tiled route's model under ``sp=M``: the tiles of one call (all
+    tiles of all frames, on the group's first device) cut into M runs in
+    order (``_batch_runs``), run r on ``preds[r]`` (a sub-group's replica or
+    tp split), the outputs concatenated on the first device in tile order.
+    Each tile is computed whole by one model, so only the batch changes."""
+
+    def __init__(self, preds: list):
+        self.preds = preds
+        self.device = preds[0].device
+        self._size = preds[0]._size
+
+    def __call__(self, tiles: torch.Tensor) -> torch.Tensor:
+        # every run is launched before any output is gathered
+        outs = [p(tiles[a:b].to(p.device, non_blocking=True))
+                for (a, b), p in zip(_batch_runs(len(tiles), len(self.preds)), self.preds)]
+        return torch.cat([o.to(self.device) for o in outs])
 
 
 def _queue_readback(out: torch.Tensor):
@@ -339,6 +345,7 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
             raise ValueError(f"predictor is on {predictor.device}, the route on {dev}")
         run_devs = [dev]
         preds = {dev: predictor}
+        row = False  # the Depth Anything model row-sharded (parallel/sp.py)
         if groups is not None:
             from ..parallel.mesh import replicate
             from ..parallel.sp import SPPredictor, is_row_shardable
@@ -348,15 +355,25 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
             if cfg.batch_size % dp:
                 # round the batch up so every device gets equal frames
                 cfg = dataclasses.replace(cfg, batch_size=-(-cfg.batch_size // dp) * dp)
-            if sp > 1 and not is_row_shardable(predictor):
-                raise NotImplementedError(_not_ported_6d(
-                    f"for {type(getattr(predictor, 'model', predictor)).__name__} "
-                    f"({cfg.model})"))
+            # sp row-shards the Depth Anything model alone; any other model,
+            # tp or tiles run on the group's sp sub-groups of tp devices
+            row = sp > 1 and len(groups[0]) == sp and not cfg.tiled \
+                and is_row_shardable(predictor)
+            subs: dict = {}
 
-            def split(g):  # a replica, or the model over the group's sp or tp devices
-                if sp > 1:
+            def sub(s):  # a replica, or the model split over the sub-group's tp devices
+                if s not in subs:
+                    subs[s] = tp_predictor(predictor, s) if len(s) > 1 \
+                        else replicate(predictor, s[0])
+                return subs[s]
+
+            def split(g):
+                if row:
                     return SPPredictor(predictor, g)
-                return tp_predictor(predictor, g) if len(g) > 1 else replicate(predictor, g[0])
+                k = len(g) // sp
+                if cfg.tiled and sp > 1:
+                    return _TileRuns([sub(g[i * k:(i + 1) * k]) for i in range(sp)])
+                return sub(g[:k])
 
             models = {g: split(g) for g in dict.fromkeys(groups)}  # one per distinct group
             preds = {g[0]: models[g] for g in groups}
@@ -371,7 +388,7 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
 
         def get_fn(d, ch):
             if (d, ch) not in fns:
-                make = make_sp_depth_batch_fn if sp > 1 else make_depth_batch_fn
+                make = make_sp_depth_batch_fn if row else make_depth_batch_fn
                 fns[d, ch] = make(preds[d], cfg, (ch, rd.width))
             return fns[d, ch]
 
@@ -402,7 +419,7 @@ def render_depth_video_file(input_path, output_path, cfg: DepthConfig | None = N
             arr = np.stack(batch)
             # every device's run is launched before any is read back
             # (an sp run scatters the frames' rows to its bands itself)
-            outs = [get_fn(d, arr.shape[1])(arr[a:b] if sp > 1 else host_to_device(arr[a:b], d))
+            outs = [get_fn(d, arr.shape[1])(arr[a:b] if row else host_to_device(arr[a:b], d))
                     for (a, b), d in zip(_batch_runs(len(batch), len(run_devs)), run_devs)]
             pieces = [_queue_readback(out) for out in outs]
             drain()

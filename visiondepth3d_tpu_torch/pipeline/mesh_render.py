@@ -25,9 +25,9 @@ each frame by its own range, so this is a placement choice and nothing is
 reduced. The output then equals the one-device render at ``chunk_size /
 M`` frames per chunk (the model's batch per device): the library GEMMs
 round by batch size. The token-parallel model exists (``parallel/sp.py``,
-``depth --mesh sp=M``), but the fused route does not use it yet: whether a
+``depth --mesh sp=M``), but the fused route does not use it: whether a
 band of tokens per device beats the frame split at the batches users run
-is ROADMAP item 6d.
+is not measured yet.
 
 With ``tp=K`` each (segment, row group) runs the depth model
 Megatron-split over its ``tp`` devices (``parallel/tp.py``).
