@@ -40,7 +40,10 @@ Phases, each printed on its own line; any failure exits nonzero:
      in f32 too, each with SDPA's time on the same shape; K7's query-band
      form at the sp=2 depth route's bands ([8, 667 | 703, 6, 64] against
      1370 keys, bf16 and f32) against its plain version and against the
-     same rows of the whole-sequence kernel;
+     same rows of the whole-sequence kernel (bit for bit). K5's and K7's
+     float32 bounds take their operations as three TF32 products each at
+     495 TFLOP/s ("operations, split TF32"), the other float32 bounds at
+     the CUDA cores' 67 TFLOP/s;
   4. (render) the render path: a synthetic 1920x1080 y4m clip of 64 frames
      through render_stereo_video with the benchmark configuration (Depth
      Anything V2-Small, random weights from a seed, 518^2, bf16, fast head;
@@ -60,7 +63,9 @@ Phases, each printed on its own line; any failure exits nonzero:
      v4.x at full width (random weights from a seed), bf16, chunks of 4, two
      timed runs with K5's launches counted, then one run and each layer of
      one chunk under torch.profiler, with the device time in concatenation
-     kernels (none in the ESRGAN trunk);
+     kernels (none in the ESRGAN trunk); one more timed run in float32 (the
+     CLI's default type: K5's split-TF32 body) with its launches counted
+     and K5's share of its device time;
   8. (parity) kernels against plain versions over whole paths, on the CPU
      (plain versions) and on the card: a 256x144 render without and with
      depth of field and in each other output format, the depth route with
@@ -272,9 +277,12 @@ OPTIONAL_PHASES = ("k2shapes", "rifebatch")  # run only when named
 H, W = 1080, 1920
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit): HBM bytes/s,
-# dense bf16 tensor-core and float32 CUDA-core FLOP/s
+# dense bf16 tensor-core and float32 CUDA-core FLOP/s, and dense TF32
+# tensor-core FLOP/s: K5's and K7's float32 bodies take each product as
+# three TF32 products (split TF32), so their float32 peak is a third of it
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32 = 495e12
 
 
 class PhaseError(RuntimeError):
@@ -300,8 +308,8 @@ def card_line() -> str:
 
 HAND_KERNELS = ("stereo_warp_kernel", "feather_heal_kernel", "quantile_pair_kernel",
                 "subject_stats_kernel", "conv3x3_wgmma_kernel",
-                "conv3x3_fma_kernel", "dof_grade_kernel", "attention_wgmma_kernel",
-                "attention_fma_kernel")
+                "conv3x3_tf32_kernel", "dof_grade_kernel", "attention_wgmma_kernel",
+                "attention_tf32_kernel")
 
 _PREDICTORS: dict = {}
 
@@ -331,12 +339,21 @@ def drop_predictors(model: str):
     torch.cuda.empty_cache()
 
 
-def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, dtype: str,
+          split_tf32: bool = False) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes over
-    the memory rate and the operations over the peak rate of their type."""
+    the memory rate and the operations over the peak rate of their type;
+    with split_tf32 (K5's and K7's float32 bodies) three TF32 products per
+    product at the TF32 rate."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops * 3 / PEAK_TF32 if split_tf32 else flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_label(bound_by: str, split_tf32: bool) -> str:
+    """How a bound is printed: "operations, split TF32" where the float32
+    operations bound is the split-TF32 one."""
+    return bound_by + (", split TF32" if split_tf32 and bound_by == "operations" else "")
 
 
 def device_profile(fn) -> dict | None:
@@ -840,7 +857,7 @@ def phase_k2_shapes(card: str, rounds: int = 5):
         for shape in K2_SHAPES:
             tw, rb, ctas = shape
             so = Path(td) / f"k2_tw{tw}_rb{rb}_c{ctas}.so"
-            cmd = [_lib.find_nvcc(), *_lib.NVCC_FLAGS, f"-DVD3D_K2_TW_BF16={tw}",
+            cmd = [_lib.find_nvcc(), *_lib.NVCC_FLAGS, "-shared", f"-DVD3D_K2_TW_BF16={tw}",
                    f"-DVD3D_K2_TW_F32={tw}", f"-DVD3D_K2_RB={rb}", f"-DVD3D_K2_CTAS={ctas}",
                    "-o", str(so), str(_lib.CSRC / "postfx.cu")]
             procs[shape] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -1117,9 +1134,10 @@ def phase_attention_kernel(card: str, results: dict):
             b, n, h, d = shape
             flops = 4.0 * b * h * n * n * d
             nbytes = 4 * b * n * h * d * q.element_size()
-            bound_ms, bound_by = bound(flops, nbytes, tname)
+            split = dt == torch.float32
+            bound_ms, bound_by = bound(flops, nbytes, tname, split)
             if dt == torch.float32:
-                ok, gate = err <= 1e-5, "need max <= 1e-5"
+                ok, gate = err <= 1e-5, f"need max <= 1e-5: margin {1e-5 / max(err, 1e-12):.1f}x"
             else:
                 ok, gate = err <= 1.6e-2 and mean <= 1e-3, "need max <= 1.6e-2, mean <= 1e-3"
             if shape in ((8, 1370, 6, 64), (2, 1370, 6, 64)):
@@ -1129,7 +1147,8 @@ def phase_attention_kernel(card: str, results: dict):
             say(f"PHASE kernels vmem_attention {list(shape)} {tname} max_abs_err={err:.3e} "
                 f"mean_abs_err={mean:.3e} ({gate}) {fmt_times(times)} plain {plain:.4f} ms "
                 f"library {library:.4f} ms (SDPA, graph replay) bound {bound_ms:.4f} ms "
-                f"({bound_by}; {flops / ms / 1e9:.1f} TFLOP/s) [{card}]")
+                f"({bound_label(bound_by, split)}; {flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{100 * bound_ms / ms:.1f} % of the bound) [{card}]")
             expect(ok, f"vmem_attention {list(shape)} {tname}: max |err| {err}, mean {mean}")
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
@@ -1185,13 +1204,15 @@ def attention_band_kernel(card: str, results: dict):
                 nq = b - a
                 flops = 4.0 * bsz * h * nq * nk * d
                 nbytes = 2 * bsz * (nq + nk) * h * d * q.element_size()
-                bound_ms, bound_by = bound(flops, nbytes, tname)
+                split = dt == torch.float32
+                bound_ms, bound_by = bound(flops, nbytes, tname, split)
                 if dt == torch.float32:
                     ok = all(e[0] <= 1e-5 for e in errs.values())
-                    gate = "need max <= 1e-5"
+                    gate = (f"need max <= 1e-5: margin {1e-5 / max(errs['plain'][0], 1e-12):.1f}x"
+                            f"; bit for bit")
                 else:
                     ok = all(e[0] <= 1.6e-2 and e[1] <= 1e-3 for e in errs.values())
-                    gate = "need max <= 1.6e-2, mean <= 1e-3"
+                    gate = "need max <= 1.6e-2, mean <= 1e-3; bit for bit"
                 if (a, b) == ATTN_BANDS[1]:
                     results[("vmem_attention_band", dt)] = dict(
                         shape=[bsz, nq, h, d], nk=nk, err=errs["plain"][0], ms=times["ms"],
@@ -1203,9 +1224,11 @@ def attention_band_kernel(card: str, results: dict):
                     f"[{a}, {b}) of the whole-sequence kernel max {errs['whole'][0]:.3e} "
                     f"mean {errs['whole'][1]:.3e}, bit for bit {bitwise} ({gate}) "
                     f"{fmt_times(times)} plain {plain:.4f} ms library {library:.4f} ms "
-                    f"(SDPA on the band, graph replay) bound {bound_ms:.4f} ms ({bound_by}; "
-                    f"{flops / times['ms'] / 1e9:.1f} TFLOP/s) [{card}]")
-                expect(ok, f"vmem_attention band [{a}, {b}) {tname}: {errs}")
+                    f"(SDPA on the band, graph replay) bound {bound_ms:.4f} ms "
+                    f"({bound_label(bound_by, split)}; {flops / times['ms'] / 1e9:.1f} TFLOP/s, "
+                    f"{100 * bound_ms / times['ms']:.1f} % of the bound) [{card}]")
+                expect(ok and bitwise, f"vmem_attention band [{a}, {b}) {tname}: {errs}, "
+                                       f"bit for bit {bitwise}")
                 del qb, got, qt, kt, vt
             del q, k, v, whole
             torch.cuda.empty_cache()
@@ -1238,7 +1261,8 @@ def phase_conv_kernel(card: str, results: dict):
     torch.backends.cudnn.allow_tf32 = False
     try:
         for dt, tname in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
-            tot = dict(err=0.0, ms=0.0, plain=0.0, library=0.0, flops=0.0, bytes=0.0)
+            tot = dict(err=0.0, ms=0.0, plain=0.0, library=0.0, flops=0.0, bytes=0.0,
+                       bounds=0.0)
             for name, shape, o, act in CONV_SHAPES:
                 c = shape[-1]
                 x = torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -1263,30 +1287,36 @@ def phase_conv_kernel(card: str, results: dict):
                 n_px = shape[0] * shape[1] * shape[2]
                 flops = 2.0 * n_px * 9 * c * o
                 nbytes = (n_px * (c + o) + 9 * c * o + o) * x.element_size()
-                bound_ms, bound_by = bound(flops, nbytes, tname)
+                split = dt == torch.float32
+                bound_ms, bound_by = bound(flops, nbytes, tname, split)
                 if dt == torch.float32:
                     ok = err <= 1e-4 * scale
-                    gate = f"need max <= 1e-4 * {scale:.3f}"
+                    gate = (f"need max <= 1e-4 * {scale:.3f}: margin "
+                            f"{1e-4 * scale / max(err, 1e-12):.1f}x")
                 else:
                     ok = err <= 8e-3 * scale and mean <= 1e-3 * scale
                     gate = f"need max <= 8e-3 and mean <= 1e-3 of {scale:.3f}"
                 say(f"PHASE kernels conv3x3 {name} {list(shape)}->{o} {act} {dt} "
                     f"max_abs_err={err:.3e} mean_abs_err={mean:.3e} ({gate}) {fmt_times(times)} "
                     f"plain {plain:.4f} ms library {library:.4f} ms (graph replay) bound "
-                    f"{bound_ms:.4f} ms ({bound_by}; {flops / ms / 1e9:.1f} TFLOP/s) [{card}]")
+                    f"{bound_ms:.4f} ms ({bound_label(bound_by, split)}; "
+                    f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f} % of the bound) "
+                    f"[{card}]")
                 expect(ok, f"conv3x3 {name} {dt}: max |err| {err}, mean {mean}, max |ref| {scale}")
                 for k, v in (("err", err), ("ms", ms), ("plain", plain), ("library", library),
-                             ("flops", flops), ("bytes", nbytes)):
+                             ("flops", flops), ("bytes", nbytes), ("bounds", bound_ms)):
                     tot[k] = max(tot[k], v) if k == "err" else tot[k] + v
                 del x, w, b, packed, xc, wc, bc
                 torch.cuda.empty_cache()
-            bound_ms, bound_by = bound(tot["flops"], tot["bytes"], tname)
+            split = dt == torch.float32
+            bound_ms, bound_by = bound(tot["flops"], tot["bytes"], tname, split)
             results[("conv3x3", dt)] = dict(err=tot["err"], ms=tot["ms"], plain=tot["plain"],
                                             bound_ms=bound_ms, bound_by=bound_by,
                                             library_ms=tot["library"])
             say(f"PHASE kernels conv3x3 {dt} five shapes: kernel {tot['ms']:.4f} ms plain "
                 f"{tot['plain']:.4f} ms library {tot['library']:.4f} ms bound {bound_ms:.4f} ms "
-                f"({bound_by}) [{card}]")
+                f"({bound_label(bound_by, split)}; the five calls' work summed), "
+                f"{tot['bounds']:.4f} ms (each call's bound, summed) [{card}]")
             conv_dense_block_views(card, dt, gen)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -1765,7 +1795,9 @@ def tools_models(dtype: str, seed: int = 0):
 def phase_tools(card: str, tmp: Path) -> dict:
     """The frame-tools path: ESRGAN x4 + RIFE x2 at full width, bf16, over a
     960x540 clip, through run_merged_pipeline; K5 launches counted on every
-    run; the card's time per layer of one chunk from torch.profiler."""
+    run; one run in float32 (the CLI's default type) with K5's share of the
+    device time; the card's time per layer of one bf16 chunk from
+    torch.profiler."""
     import torch
 
     from visiondepth3d_tpu_torch.enhance.esrgan import staged_tail
@@ -1818,6 +1850,34 @@ def phase_tools(card: str, tmp: Path) -> dict:
                                                       rp, device=dev))
     say(f"PHASE tools profile (one more run under torch.profiler, against the faster "
         f"run's wall): {fmt_profile(prof, 1e3 * min(walls))}{fmt_cat(prof)} [{card}]")
+
+    # the CLI's default type (`tools --dtype float32`; K5's split-TF32 body):
+    # one warm-up and one counted run, fps out, and K5's share of the device
+    # time in one more run under the profiler
+    cfg32, ep32, rp32 = tools_models("float32")
+    run_merged_pipeline(clip, tmp / "tools_warm32.y4m", cfg32, ep32, rp32, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    n32 = run_merged_pipeline(clip, tmp / "tools_out32.y4m", cfg32, ep32, rp32, device=dev)
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    k5_32 = launch_counts["conv3x3"]
+    expect(n32 == n_out and k5_32 == want_k5,
+           f"float32 tools wrote {n32} frames (want {n_out}) with {k5_32} K5 launches "
+           f"(want {want_k5})")
+    spread32 = float(read_clip(tmp / "tools_out32.y4m")[2].astype(float).std())
+    expect(spread32 > 1.0, f"float32 tools output is flat (std {spread32:.3f})")
+    prof32 = device_profile(lambda: run_merged_pipeline(clip, tmp / "tools_prof32.y4m", cfg32,
+                                                        ep32, rp32, device=dev))
+    share = ("K5 share not measured (the profiler saw no device event)" if prof32 is None
+             else f"K5 {prof32['hand_ms']:.3f} ms of {prof32['device_ms']:.3f} ms device time "
+                  f"= {100 * prof32['hand_ms'] / prof32['device_ms']:.1f} %")
+    say(f"PHASE tools float32 (the CLI's default type): {TOOLS_FRAMES} frames -> {n32}, "
+        f"{n32 / wall32:.3f} fps out ({TOOLS_FRAMES / wall32:.3f} fps in), K5 launches "
+        f"{k5_32} (want {want_k5}); {share}; under the profiler "
+        f"{fmt_profile(prof32, 1e3 * wall32)} [{card}]")
+    del cfg32, ep32, rp32
 
     # the layers of one device-resident 5-frame chunk
     from visiondepth3d_tpu_torch.enhance.esrgan import RRDBNet

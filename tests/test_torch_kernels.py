@@ -25,6 +25,10 @@ in TPU interpret mode. Tolerances:
   kernel in its ``cat9`` form, the plain version's arithmetic (one K = 9C
   product; summation order only). bfloat16 against the float32 reference:
   0.15, the JAX package's own bound for bf16 operands.
+- Split TF32 (K5's and K7's float32 bodies on the tensor cores): the halves
+  are TF32 values within 2^-22 of x; the three-product arithmetic,
+  emulated in numpy at toy shapes, within K7's float32 gate (1e-5) and
+  K5's (1e-4 x max |ref|) of the float64 result.
 
 The CUDA cases carry the ``cuda`` marker and skip without a card.
 """
@@ -49,7 +53,7 @@ from visiondepth3d_tpu.ops.pallas_postfx import feather_heal_pallas
 from visiondepth3d_tpu.ops.pallas_stats import quantile_pair_pallas, subject_stats_pallas
 from visiondepth3d_tpu.ops.pallas_conv import conv3x3_pallas
 from visiondepth3d_tpu.ops.pallas_warp import stereo_warp_pallas
-from visiondepth3d_tpu_torch.kernels import conv, postfx, stats, warp
+from visiondepth3d_tpu_torch.kernels import conv, postfx, stats, tf32, warp
 
 
 def _depth(h, w, seed=0, edges=True):
@@ -779,12 +783,31 @@ def _unpack_bf16(p):
     return w[:, :p.c, :p.o].reshape(3, 3, p.c, p.o), w
 
 
+def _unpack_f32(p):
+    """The float32 layout back to its two halves [2, 9, Cp, Op]: undo the
+    16-byte group swizzle of each 64-byte row, [block, chunk, half, 9, bn,
+    16] -> [half, 9, Cp, Op], then the K order of each 8 channels (0, 2, 4,
+    6, 1, 3, 5, 7)."""
+    nblk, nch, _, _, bn = p.w.shape[:5]
+    n = torch.arange(bn)[:, None]
+    w = p.w[:, :, :, :, n, torch.arange(4)[None, :] ^ ((n >> 1) & 3)]
+    w = w.reshape(nblk, nch, 2, 9, bn, 16).permute(2, 3, 1, 5, 0, 4)
+    w = w.reshape(2, 9, nch * 16, nblk * bn)
+    order = conv.k8_order(nch * 16)
+    assert order[:8].tolist() == [0, 2, 4, 6, 1, 3, 5, 7]
+    out = torch.empty_like(w)
+    out[:, :, order] = w
+    return out
+
+
 @pytest.mark.parametrize("c,o", [(3, 64), (64, 32), (192, 64), (64, 3), (96, 96),
                                  (192, 192), (48, 24)])
 def test_pack_conv3x3_layout_unpacks_to_hwio(c, o):
     """pack_conv3x3's bf16 layout (what the wgmma kernel reads) holds every
     weight once, zeros in the padding, and unpacks back to HWIO; the float32
-    layout is [9, Cp, Op]."""
+    layout holds the weights' two TF32 halves (big, small), which unpack to
+    [9, Cp, Op] planes of TF32 values summing to HWIO within 2^-22, big the
+    weights rounded to TF32, zeros in the padding."""
     _, k, b = _conv_inputs(c, o, seed=c + 7 * o)
     p = conv.pack_conv3x3(_t(k), _t(b), torch.bfloat16)
     assert p.bn == conv.block_n(o) and p.op % p.bn == 0 and p.cp % 32 == 0
@@ -795,8 +818,156 @@ def test_pack_conv3x3_layout_unpacks_to_hwio(c, o):
     assert torch.equal(p.bias[:o], _t(b).to(torch.bfloat16).float())
     assert not p.bias[o:].any()
     p32 = conv.pack_conv3x3(_t(k), _t(b), torch.float32)
-    assert p32.bn == 0 and p32.w.shape == (9, p32.cp, p32.op)
-    assert torch.equal(p32.w[:, :c, :o].reshape(3, 3, c, o), _t(k))
+    assert p32.bn == conv.block_n(o) and p32.op % p32.bn == 0 and p32.cp % 16 == 0
+    assert p32.w.shape == (p32.op // p32.bn, p32.cp // 16, 2, 9, p32.bn, 4, 4)
+    big, small = _unpack_f32(p32)
+    for half in (big, small):
+        assert not (half.numpy().view(np.uint32) & 0x1FFF).any()
+        assert not half[:, c:].any() and not half[:, :, o:].any()
+    w9 = _t(k).reshape(9, c, o)
+    assert torch.equal(big[:, :c, :o], tf32.round_tf32(w9))
+    assert torch.equal(big[:, :c, :o], _t(_tf32_np(k.reshape(9, c, o))))
+    rel = ((big + small)[:, :c, :o] - w9).abs() / w9.abs().clamp_min(1e-30)
+    assert rel.max().item() <= 2.0 ** -22
+    assert torch.equal(p32.bias[:o], _t(b)) and not p32.bias[o:].any()
+
+
+# ------------------------------------------- split TF32 (K5's and K7's float32)
+
+def _tf32_np(x):
+    """numpy's own TF32 rounding (to nearest, ties away from zero, as the
+    card's cvt.rna): add half of the 13 dropped bits' unit to the sign and
+    magnitude pattern, mask them off (finite x)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(1 << 12)) & np.uint32(~0x1FFF & 0xFFFFFFFF)).view(np.float32)
+
+
+def _split_np(x):
+    big = _tf32_np(x)
+    return big, _tf32_np((np.asarray(x, np.float32) - big).astype(np.float32))
+
+
+def _mm3(a, b):
+    """a @ b as split TF32 does it: the three TF32 products small x big,
+    big x small, big x big, each exact in float32, summed in float32."""
+    (ab, as_), (bb, bs) = _split_np(a), _split_np(b)
+    f = np.float32
+    return (np.matmul(as_, bb, dtype=f) + np.matmul(ab, bs, dtype=f)) + np.matmul(ab, bb, dtype=f)
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-3, 1.0, 7e2, 1e30])
+def test_split_tf32_halves(scale):
+    """tf32.split_tf32: both halves are TF32 values (low 13 mantissa bits
+    zero), big is x rounded to nearest with ties away from zero (as numpy's
+    own rounding and the tie cases say), |x - big| <= 2^-11 |x|, and
+    big + small is within 2^-22 |x| of x."""
+    rng = np.random.default_rng(int(np.log10(scale)) + 40)
+    x = (rng.standard_normal(8192) * scale).astype(np.float32)
+    big, small = (h.numpy() for h in tf32.split_tf32(_t(x)))
+    for half in (big, small):
+        assert not (half.view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_array_equal(big, _tf32_np(x))
+    ax = np.abs(x.astype(np.float64))
+    assert (np.abs(big - x.astype(np.float64)) <= 2.0 ** -11 * ax).all()
+    assert (np.abs(big.astype(np.float64) + small - x) <= 2.0 ** -22 * ax).all()
+    p2 = np.float32(2.0 ** np.round(np.log2(scale)))  # ties stay ties at a power of two
+    ties = np.array([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11, 0.0, -0.0],
+                    np.float32) * p2
+    got = tf32.round_tf32(_t(ties)).numpy()
+    want = np.array([1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -9, 0.0, -0.0], np.float32) * p2
+    np.testing.assert_array_equal(got, want)
+
+
+def _attention_f64(q, k, v):
+    s = np.einsum("bqhd,bkhd->bhqk", q, k, dtype=np.float64) / np.sqrt(q.shape[-1])
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v.astype(np.float64))
+
+
+def _attention_split(q, k, v, fourth=False):
+    """K7's float32 arithmetic in numpy: S and P V as three TF32 products
+    (and the dropped small x small as a fourth where asked), the softmax in
+    float32, P unnormalized and O divided by l once."""
+    qh, kh, vh = (np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v))
+    mm = _mm3 if not fourth else (lambda a, b: _mm3(a, b) + np.matmul(
+        _split_np(a)[1], _split_np(b)[1], dtype=np.float32))
+    s = mm(qh, kh.transpose(0, 1, 3, 2))
+    m = s.max(-1, keepdims=True)
+    p = np.exp2(((s - m) * np.float32(np.log2(np.e) / np.sqrt(q.shape[-1]))).astype(np.float32))
+    o = mm(p.astype(np.float32), vh) / p.sum(-1, keepdims=True, dtype=np.float32)
+    return o.transpose(0, 2, 1, 3)
+
+
+def _conv_split(x, k, b, fourth=False):
+    """K5's float32 arithmetic in numpy: the plain version's K = 9C product
+    as three TF32 products (four with the dropped small x small), bias in
+    float32."""
+    bsz, h, w, c = x.shape
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    cat9 = np.concatenate([xp[:, ky:ky + h, kx:kx + w] for ky in range(3) for kx in range(3)],
+                          -1).reshape(-1, 9 * c)
+    wk = k.reshape(9 * c, -1)
+    y = _mm3(cat9, wk)
+    if fourth:
+        y = y + np.matmul(_split_np(cat9)[1], _split_np(wk)[1], dtype=np.float32)
+    return (y + b).reshape(bsz, h, w, -1)
+
+
+def _conv_f64(x, k, b):
+    bsz, h, w, c = x.shape
+    xp = np.pad(x.astype(np.float64), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    y = sum(np.einsum("bhwc,co->bhwo", xp[:, ky:ky + h, kx:kx + w], k[ky, kx].astype(np.float64))
+            for ky in range(3) for kx in range(3))
+    return y + b
+
+
+@pytest.mark.parametrize("shape", [(2, 130, 3, 64), (1, 97, 2, 128), (2, 70, 2, 16)])
+def test_split_tf32_attention_meets_k7_gate(shape):
+    """K7's float32 arithmetic (three TF32 products for S and for P V),
+    emulated in numpy at toy shapes, stays within K7's float32 gate (1e-5)
+    of the float64 attention, as close as the plain version (float32
+    matmuls) is; the dropped small x small products move it by less than a
+    tenth of the gate (a float32 step or two of the output)."""
+    from visiondepth3d_tpu_torch.kernels import attention as kattention
+
+    rng = np.random.default_rng(shape[1])
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    ref = _attention_f64(q, k, v)
+    got = _attention_split(q, k, v)
+    plain = kattention.vmem_attention_torch(*(_t(a) for a in (q, k, v))).numpy()
+    err, err_plain = np.abs(got - ref).max(), np.abs(plain - ref).max()
+    assert err <= 1e-5 and err_plain <= 1e-5, (err, err_plain)
+    assert np.abs(_attention_split(q, k, v, fourth=True) - got).max() <= 1e-6
+
+
+@pytest.mark.parametrize("c,o", [(3, 64), (64, 32), (192, 64), (64, 3)])
+def test_split_tf32_conv_meets_k5_gate(c, o):
+    """K5's float32 arithmetic (the K = 9C product as three TF32 products),
+    emulated in numpy at the tools' channel counts on a small image, stays
+    within K5's float32 gate (1e-4 x max |ref|) of the float64 conv; the
+    dropped small x small products move it by less than a tenth of the
+    gate (a float32 step or two of the output)."""
+    x, k, b = _conv_inputs(c, o, seed=3 * c + o, shape=(1, 9, 11))
+    ref = _conv_f64(x, k, b)
+    got = _conv_split(x, k, b)
+    scale = np.abs(ref).max()
+    assert np.abs(got - ref).max() <= 1e-4 * scale
+    assert np.abs(_conv_split(x, k, b, fourth=True) - got).max() <= 1e-5 * scale
+
+
+def test_split_tf32_dropped_product_is_below_2_pow_22():
+    """The one product split TF32 leaves out, a_small b_small, is below
+    2^-22 |a b| for every pair of float32 values (each small half is at
+    most 2^-11 of its value), so over a K-long sum it is below 2^-22 of
+    sum |a b|: under a float32 rounding of that sum."""
+    rng = np.random.default_rng(11)
+    a = (rng.standard_normal(1 << 16) * np.exp(rng.standard_normal(1 << 16) * 4)).astype(
+        np.float32)
+    b = rng.permutation(a)
+    (_, sa), (_, sb) = _split_np(a), _split_np(b)
+    dropped = np.abs(sa.astype(np.float64) * sb)
+    assert (dropped <= 2.0 ** -22 * np.abs(a.astype(np.float64) * b)).all()
+    assert dropped.sum() <= 2.0 ** -22 * np.abs(a.astype(np.float64) * b).sum()
 
 
 # ------------------------------------------------------- CUDA: kernel vs plain
@@ -908,13 +1079,16 @@ def test_cuda_quantile_pair_maps_repeats_graphs_and_streams(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,o,act", [(3, 64, None), (64, 32, "lrelu"), (192, 64, None),
                                      (64, 3, None), (12, 16, "relu"), (36, 16, "lrelu"),
-                                     (96, 96, None), (192, 192, "lrelu")])
-def test_cuda_conv_matches_plain(cuda, dtype, c, o, act):
-    """Ragged tiles (13 x 37 is no multiple of the 8 x 32 or 4 x 32 tile),
-    channel counts that are no multiple of 16 (C = 3, 12, 36: pixel strides
-    TMA cannot take, one and two chunks), several blocks of output
-    channels (96, 192), and every activation."""
-    x, k, b = _conv_inputs(c, o, seed=c + o, shape=(2, 13, 37))
+                                     (96, 96, None), (192, 192, "lrelu"), (16, 8, "relu"),
+                                     (48, 24, None)])
+@pytest.mark.parametrize("shape", [(2, 13, 37), (1, 17, 70)])
+def test_cuda_conv_matches_plain(cuda, dtype, c, o, act, shape):
+    """Ragged tiles (13 x 37 and 17 x 70 are no multiple of the 8 x 32 or
+    4 x 32 tile), channel counts that are no multiple of 16 (C = 3, 12:
+    loaded by the threads; 36: a last chunk of 4 channels), one chunk by
+    TMA (C = 16), several blocks of output channels (96, 192), O = 3 and 8
+    (8-wide N tiles), and every activation."""
+    x, k, b = _conv_inputs(c, o, seed=c + o, shape=shape)
     x, k, b = _t(x, dtype).to(cuda), _t(k).to(cuda), _t(b).to(cuda)
     got = conv.conv3x3(x, k, b, act)
     ref = conv.conv3x3_torch(x, k, b, act)
@@ -959,7 +1133,69 @@ def test_cuda_conv_on_dense_block_slices(cuda, dtype, k):
         assert err.max().item() <= 8e-3 * scale and err.mean().item() <= 1e-3 * scale
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c0,c,o0,o", [(5, 3, 101, 3), (0, 3, 64, 64), (7, 36, 133, 24),
+                                       (16, 48, 75, 16)])
+def test_cuda_conv_on_unaligned_slices(cuda, dtype, c0, c, o0, o):
+    """Channel slices the dense block never makes: inputs starting off a
+    16-byte boundary (loaded by the threads, not TMA) and at one (TMA with
+    the 192-channel pixel stride), outputs at odd channel offsets (one value
+    a store), C = 3 and O = 3 among them; against the plain version, every
+    other channel of the buffer unchanged."""
+    x, w, b = _conv_inputs(c, o, seed=c0 + c + o, shape=(2, 13, 37))
+    buf = _t(np.random.default_rng(c0).random((2, 13, 37, 192), dtype=np.float32), dtype)
+    buf[..., c0:c0 + c] = _t(x, dtype)
+    buf = buf.to(cuda)
+    w, b = _t(w).to(cuda), _t(b).to(cuda)
+    ref = conv.conv3x3_torch(buf[..., c0:c0 + c], w, b, "lrelu")
+    before = buf.clone()
+    conv.conv3x3(buf[..., c0:c0 + c], w, b, "lrelu", out=buf[..., o0:o0 + o])
+    assert torch.equal(buf[..., :o0], before[..., :o0])
+    assert torch.equal(buf[..., o0 + o:], before[..., o0 + o:])
+    scale = ref.float().abs().max().item()
+    err = (buf[..., o0:o0 + o].float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert err.max().item() <= 8e-3 * scale and err.mean().item() <= 1e-3 * scale
+
+
 # ---------------------------------------------------------------- K7 attention
+
+
+def _k7_gate(got, ref, dtype):
+    """K7's gates of the depth route's card case: float32 max <= 1e-5; bf16
+    max <= 1.6e-2 and mean <= 1e-3."""
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        assert err.max().item() <= 1.6e-2 and err.mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_cuda_vmem_attention_tiles_and_head_dims(cuda, dtype, d):
+    """K7 at every head dim it is built for, on sequences that end off its
+    tiles: N = 1, 65 (65 query rows, no multiple of 64; a last key tile of
+    one key), 200 (no multiple of 128; a last key tile of 8 keys, or of 8
+    at float32 D = 128's 32-key tiles) against the plain version, and query
+    bands of 1, 77 and 129 rows against the 200 keys, each bit for bit the
+    same rows of the whole-sequence call."""
+    from visiondepth3d_tpu_torch.kernels import attention as kattention
+
+    assert d in kattention.HEAD_DIMS
+    gen = torch.Generator().manual_seed(d)
+    for n in (1, 65, 200):
+        q, k, v = (torch.randn(2, n, 3, d, generator=gen).to(cuda, dtype) for _ in range(3))
+        whole = kattention.vmem_attention(q, k, v)
+        _k7_gate(whole, kattention.vmem_attention_torch(q, k, v), dtype)
+    for a, b in ((0, 1), (3, 80), (71, 200)):
+        band = kattention.vmem_attention(q[:, a:b], k, v)
+        _k7_gate(band, kattention.vmem_attention_torch(q[:, a:b], k, v), dtype)
+        assert torch.equal(band, whole[:, a:b])
 
 
 @pytest.mark.cuda

@@ -373,7 +373,7 @@ def test_cuda_k7_band_form(cuda, dtype):
     """K7 at the sp=2 depth route's query bands against the whole sequence
     (518^2: band 0 is the cls token and patch rows 0-17, band 1 rows 18-36,
     against 1370 keys): within K7's gates of its plain version, and each
-    band's rows against the same rows of the whole-sequence kernel."""
+    band's rows bit for bit the same rows of the whole-sequence kernel."""
     gen = torch.Generator().manual_seed(9)
     q, k, v = (torch.randn(2, 1370, 6, 64, generator=gen).to(cuda, dtype) for _ in range(3))
     whole = kattention.vmem_attention(q, k, v)
@@ -385,6 +385,7 @@ def test_cuda_k7_band_form(cuda, dtype):
                 assert err.max().item() <= 1e-5
             else:
                 assert err.max().item() <= 1.6e-2 and err.mean().item() <= 1e-3
+        assert torch.equal(got, whole[:, a:b])
 
 
 @pytest.mark.cuda

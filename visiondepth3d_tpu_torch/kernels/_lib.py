@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
 All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library with
-a plain C interface, loaded through ``ctypes``. The build runs at first use,
-into ``kernels/_build/``, under a file name keyed by a hash of the sources
-and flags, so an edited source rebuilds and an unchanged one loads at once.
+a plain C interface, loaded through ``ctypes``: one ``nvcc`` a source, all
+started together, then one link. The build runs at first use, into
+``kernels/_build/``, under a file name keyed by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads at once.
 No fast math: the statistics kernels rely on IEEE float32 division.
 
 Every launcher takes raw device pointers, sizes and PyTorch's current CUDA
@@ -31,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 KERNELS = ("stereo_warp", "feather_heal", "quantile_pair", "subject_stats", "conv3x3",
            "dof_grade", "vmem_attention", "quantile_hist_band", "quantile_pair_finish",
@@ -72,13 +73,26 @@ def build_library() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={res.returncode}):\n{build_log}")
-    os.replace(tmp, out)
+    nvcc, tag = find_nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    build_log = "".join(p.communicate()[0] for p in procs)
+    try:
+        failed = [src.name for src, p in zip(sources, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = out.with_name(f"{tag}.tmp")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (rc={res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -98,7 +112,7 @@ def _declare(L: ctypes.CDLL) -> ctypes.CDLL:
         "vd3d_feather_heal": [p, p, p, p, p, p, p, i, i, i, f, f, f, i, i, i, p],
         "vd3d_quantile_pair": [p, i, i, ll, f, f, p, p, p],
         "vd3d_subject_stats": [p, i, i, ll, p, p],
-        "vd3d_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, i, p],
+        "vd3d_conv3x3": [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, i, p],
         "vd3d_dof_grade": [p, p, p, p, p, p, i, i, p, p, i, f, f, f, f, f, i, i, p],
         "vd3d_attention": [p, p, p, p, i, i, i, i, i, f, i, p],
         "vd3d_quantile_hist_band": [p, i, i, ll, p, p],

@@ -6,10 +6,12 @@ launches the kernel, a CPU tensor runs ``vmem_attention_torch``. Both keep
 the TPU kernel's numerics (``ops/pallas_attention.py:vmem_attention``):
 float32 logits and softmax statistics, the normalized probabilities
 rounded to the input type, P V accumulated in float32, one rounding of the
-output. q: [B, Nq, H, D], k and v: [B, Nk, H, D], float32 or bfloat16:
-self-attention (Nq = Nk, the TPU kernel's form) or its query-band form
-(Nq < Nk): a band of query rows against the whole sequence, what the
-row-sharded depth model (``parallel/sp.py``) runs on each band. Row i of
+output (the kernel's float32 body multiplies in split TF32, ``tf32.py``,
+within float32's accuracy). q: [B, Nq, H, D], k and v: [B, Nk, H, D],
+float32 or bfloat16: self-attention (Nq = Nk, the TPU kernel's form) or
+its query-band form (Nq < Nk): a band of query rows against the whole
+sequence, what the row-sharded depth model (``parallel/sp.py``) runs on
+each band. Row i of
 ``vmem_attention(q[:, a:b], k, v)`` is row a + i of ``vmem_attention(q,
 k, v)``: each query row's softmax sees the same keys in the same order.
 

@@ -5,7 +5,9 @@ w [3, 3, C, O] (HWIO), bias [O]. Both versions follow the Pallas kernel's
 arithmetic (``ops/pallas_conv.py:_conv3_kernel``): weights and bias rounded
 to the input's type, the nine taps as one K = 9C product accumulated in
 float32, bias and activation (none, relu, leaky relu) in float32, one
-rounding to the input's type.
+rounding to the input's type. The kernel's float32 body takes each product
+as three TF32 products of split operands (``tf32.py``), within float32's
+accuracy of the plain version.
 
 ``conv3x3`` dispatches on the input's device: a CUDA tensor launches the
 kernel, a CPU tensor runs ``conv3x3_torch``. Both take strided views: x may
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ._lib import launch, require_cuda
+from .tf32 import split_tf32
 
 _ACTS = {None: 0, "relu": 1, "lrelu": 2}
 _IMAGE_TYPES = (torch.float32, torch.bfloat16)
@@ -90,6 +93,7 @@ def conv3x3_torch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = Non
 
 
 CK = 32  # input channels per chunk of the bf16 kernel
+CK_F32 = 16  # input channels per chunk of the float32 kernel
 
 
 class PackedConv(NamedTuple):
@@ -100,10 +104,15 @@ class PackedConv(NamedTuple):
       channels and chunk of 32 input channels, the nine taps' [bn][32]
       tiles, each 64-byte row with its 16-byte groups of 8 input channels
       swizzled (group j of row n at j ^ ((n >> 1) & 3));
-    - float32: w [9, Cp, Op] with Cp, Op rounded up to 16.
+    - float32: w [O / bn, Cp / 16, 2, 9, bn, 4, 4]: per block of bn output
+      channels and chunk of 16 input channels, the big then the small
+      TF32 half (``tf32.split_tf32``; the kernel multiplies in split TF32)
+      of the nine taps' [bn][16] tiles, the channels of each 8 in the order
+      0, 2, 4, 6, 1, 3, 5, 7 (``k8_order``), each 64-byte row with its
+      16-byte groups of 4 swizzled the same way.
 
     ``cp``, ``op``: the padded channel counts; ``bn``: output channels per
-    block (bfloat16; 0 for float32)."""
+    block."""
 
     w: torch.Tensor
     bias: torch.Tensor
@@ -127,23 +136,36 @@ def block_n(o: int) -> int:
     return 32 if o % 64 and o % 32 == 0 else 64
 
 
+def k8_order(n: int, device=None) -> torch.Tensor:
+    """The float32 kernel's K order over n channels (a multiple of 8):
+    within each 8, channels 0, 2, 4, 6, 1, 3, 5, 7, so that a thread's two
+    A-fragment columns t and t + 4 of a k8 step are the adjacent channels
+    2 t and 2 t + 1 of the window (one 8-byte load)."""
+    k = torch.arange(n, device=device)
+    return k - k % 8 + 2 * (k % 4) + (k % 8) // 4
+
+
 def pack_conv3x3(w: torch.Tensor, b: torch.Tensor | None, dtype: torch.dtype) -> PackedConv:
     """HWIO weights and bias -> the kernel's layout for inputs of ``dtype``
     (once per module)."""
     c, o = int(w.shape[2]), int(w.shape[3])
-    if dtype == torch.bfloat16:
-        bn = block_n(o)
-        cp, op = _round(c, CK), _round(o, bn)
-    else:
-        bn, cp, op = 0, _round(c, 16), _round(o, 16)
+    bn = block_n(o)
+    ck = CK if dtype == torch.bfloat16 else CK_F32
+    cp, op = _round(c, ck), _round(o, bn)
     wp = torch.zeros(9, cp, op, dtype=dtype, device=w.device)
     wp[:, :c, :o] = w.detach().reshape(9, c, o).to(dtype)
-    if bn:
+    n = torch.arange(bn, device=w.device)[:, None]
+    swz = torch.arange(4, device=w.device)[None, :] ^ ((n >> 1) & 3)
+    if dtype == torch.bfloat16:
         # [9, chunk, 32, block, bn] -> [block, chunk, 9, bn, 4 groups, 8]
         wp = wp.reshape(9, cp // CK, CK, op // bn, bn).permute(3, 1, 0, 4, 2)
-        wp = wp.reshape(op // bn, cp // CK, 9, bn, 4, 8)
-        n = torch.arange(bn, device=w.device)[:, None]
-        wp = wp[:, :, :, n, torch.arange(4, device=w.device)[None, :] ^ ((n >> 1) & 3)]
+        wp = wp.reshape(op // bn, cp // CK, 9, bn, 4, 8)[:, :, :, n, swz]
+    else:
+        # [half, 9, chunk, 16, block, bn] -> [block, chunk, half, 9, bn, 4 groups, 4]
+        wp = torch.stack(split_tf32(wp[:, k8_order(cp, w.device)]))
+        wp = wp.reshape(2, 9, cp // ck, ck, op // bn, bn)
+        wp = wp.permute(4, 2, 0, 1, 5, 3).reshape(op // bn, cp // ck, 2, 9, bn, 4, 4)
+        wp = wp[:, :, :, :, n, swz]
     bp = torch.zeros(op, dtype=torch.float32, device=w.device)
     if b is not None:
         bp[:o] = b.detach().to(dtype).float()
@@ -178,11 +200,10 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
     if out is None:
         out = torch.empty(bsz, h, wd, packed.o, dtype=x.dtype, device=x.device)
     out_stride = _check_out(out, x, packed.o)
-    vec = int(c % 4 == 0 and x_stride % 4 == 0 and x.data_ptr() % 16 == 0)
     launch("conv3x3", x, "vd3d_conv3x3", x.data_ptr(), packed.w.data_ptr(),
            packed.bias.data_ptr(), out.data_ptr(), bsz, h, wd, c, x_stride, packed.o,
            out_stride, packed.cp, packed.op, packed.bn, _ACTS[act], float(slope),
-           int(x.dtype == torch.bfloat16), vec)
+           int(x.dtype == torch.bfloat16))
     return out
 
 

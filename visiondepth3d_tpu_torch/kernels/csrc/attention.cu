@@ -36,16 +36,42 @@
 //   this one rounds the unnormalized P, in [0, 1], and divides afterwards
 //   (the plain version keeps the TPU rounding point; the two agree within
 //   the bf16 gate, max 1.6e-2 and mean 1e-3).
-// - float32 (attention_fma_kernel, parity runs): two passes over the key
-//   tiles on CUDA-core FMAs in full float32 (no TF32), 256 threads with a
-//   4 x 4 register tile each; pass 1 keeps the online row max and sum,
-//   pass 2 forms the normalized probabilities (the TPU rounding point).
+// - float32 (attention_tf32_kernel; the parity runs, depth in float32
+//   with the opt-in): the same one-pass schedule and ring, with float
+//   tiles, on the tensor cores in split TF32 (hopper.cuh): each product is
+//   three TF32 products of explicit halves, small x big + big x small +
+//   big x big. Q is split once: its big half into A fragments in
+//   registers, its small half in place in shared memory. The producer is a
+//   warpgroup: one warp issues the copies, and three split each landed key
+//   tile in its ring stage, K (big in place, small into a plane of its own)
+//   and V transposed into its two halves [D][keys] (TF32 wgmma takes B
+//   only K-major, and V lands MN-major), then signal the consumers on a
+//   second mbarrier; the consumers never wait for each other, so one
+//   warpgroup's softmax runs beside the other's products. The transpose
+//   also orders the keys as the S accumulator hands P to the A fragment,
+//   so P (float32, split in registers; no bf16 rounding) feeds P V with no
+//   shuffle. A tile holds 64 keys (32 at D = 128, where Q and two stages
+//   would not fit otherwise). The producer warpgroup hands its registers
+//   to the consumers (setmaxnreg).
+//   Numerics: an add inside the tensor cores does not round to nearest
+//   (measured on the H100: with every product added into one accumulator,
+//   K7's error against the plain version at [24, 2040, 20, 64] reached
+//   2.3e-5, past its 1e-5 gate). So the big x big products of S collect
+//   apart from the cross terms, and each tile's P V goes into a partial
+//   that is added to O (rescaled) on the CUDA cores, round to nearest: the
+//   running O never takes a tensor-core add (max 1.8e-6 there). O is divided by l
+//   once at the end. Against the plain version (float32; it normalizes P
+//   first, and its cast of P is the identity) within 1e-5.
 //
 // What bounds it on the H100: at [8, 1370, 6, 64] bf16 the two products
 // are 23 GFLOP per call (0.023 ms at the tensor cores' peak) against 34 MB
 // of Q, K, V and O (0.010 ms), and 90 M exponentials (about 0.02 ms on the
 // special-function units): operations. One pass does two products and one
 // exponential per logit, and the copies overlap the math through the ring.
+// In float32 the products cost three TF32 products each: 69 GFLOP at 495
+// TFLOP/s, 0.14 ms, against 68 MB (0.020 ms): operations again; beside
+// them the exponentials and P's split run on the consumers' CUDA cores
+// between their products, K's and V's split on the producer's.
 // Not done yet: the overlap of one tile's softmax with the next tile's S
 // inside a warpgroup.
 
@@ -54,10 +80,8 @@
 
 namespace {
 
-constexpr int BQ = 64;  // float32: query rows per block
-constexpr int BK = 64;  // keys per tile
+constexpr int BK = 64;  // bfloat16: keys per tile
 constexpr float MASKED = -1e30f;
-static_assert(BQ == BK, "the float32 kernel stages Q and K tiles alike");
 
 __device__ __forceinline__ size_t row_offset(int b, int n, int h, int N, int H, int D) {
   return (((size_t)b * N + n) * H + h) * D;
@@ -291,121 +315,342 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 
 // ---------------------------------------------------------------- float32
 
-constexpr int FMA_THREADS = 256;  // 16 x 16 threads, 4 x 4 register tiles
-
+// Shared-memory layout of the float32 body. Q, K and V land as the bf16
+// tiles do, with float elements: D / DB atoms of [rows][DB] floats,
+// swizzled by SW = 4 DB bytes (128 from D = 32 on). A ring stage holds a
+// key tile's K and V as they land and their TF32 halves: K's big half is
+// its landed tile (rounded in place), its small half ST_KS; V is
+// transposed into ST_VB and ST_VS, [D][BK keys] K-major (TF32 wgmma reads
+// B only K-major), atoms of 32 keys with the 128-byte swizzle. Q's tile
+// holds its small half once split (its big half is in registers). At
+// D = 128 a key tile holds 32 keys, so two stages fit beside Q.
 template <int D>
-struct FmaSmem {
-  static constexpr int LDQ = D + 1;
-  static constexpr int LDS = BK + 1;
+struct F32Tiles {
+  static constexpr int BK = D == 128 ? 32 : 64;  // keys per tile
+  static constexpr int DB = D < 32 ? D : 32;
+  static constexpr int SW = 4 * DB;
+  static constexpr int ATOMS = D / DB;
+  static constexpr int Q_ATOM = 64 * SW;
+  static constexpr int Q_TILE = ATOMS * Q_ATOM;  // one warpgroup's 64 query rows
+  static constexpr int K_ATOM = BK * SW;
+  static constexpr int K_TILE = ATOMS * K_ATOM;  // a key tile of K or V
+  static constexpr int VT_ATOM = D * 128;
+  static constexpr int VT_TILE = BK / 32 * VT_ATOM;
+  static constexpr int ST_K = 0, ST_V = K_TILE, ST_KS = 2 * K_TILE;
+  static constexpr int ST_VB = 3 * K_TILE, ST_VS = ST_VB + VT_TILE;
+  static constexpr int STAGE = ST_VS + VT_TILE;
   static constexpr int Q = 0;
-  static constexpr int K = Q + BQ * LDQ * 4;
-  static constexpr int V = K + BK * LDQ * 4;
-  static constexpr int S = V + BK * D * 4;
-  static constexpr int BYTES = S + BQ * LDS * 4;
+  static constexpr int RING = Q + WG * Q_TILE;
+  static constexpr int BAR = RING + STAGES * STAGE;
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
 };
 
+// the producer warpgroup's warps after the first (which issues the copies)
+// split each landed tile
+constexpr int SPLIT_THREADS = 3 * 32;
+
+// The landed key tile's TF32 halves: big rounded in place, small into ks
+// (the same layout), by the splitting threads
+template <typename T>
+__device__ __forceinline__ void split_k_tile(uint32_t k, uint32_t ks, int tid) {
+  for (int i = tid; i < T::K_TILE / 16; i += SPLIT_THREADS) {
+    uint4 small;
+    vd3d::sts128(k + 16 * i, vd3d::split_tf32(vd3d::lds128(k + 16 * i), small));
+    vd3d::sts128(ks + 16 * i, small);
+  }
+}
+
+// The landed value tile [BK keys][D] transposed into its TF32 halves
+// vb, vs [D][BK], K-major for P V. Column c = 8 G + c' of vb holds key
+// 8 G + 2 (c' % 4) + c' / 4: the keys in the order the S accumulator hands
+// P to the A fragment (a thread holds keys 2 t and 2 t + 1 of each 8-key
+// block, the fragment wants columns t and t + 4). A task is 4 keys x 4
+// values of d: four float4 reads of key rows, four float4 writes of d rows
+// per half. The 8 lanes of a quarter warp take the 8 column quads cq of a
+// 32-key atom and d quads 2 apart in pairs, so at D >= 32 both the reads
+// (128-byte swizzle: chunk dq ^ (key % 8)) and the writes (chunk cq ^ (d %
+// 8)) hit 8 different 16-byte bank groups.
+template <typename T, int D>
+__device__ __forceinline__ void split_v_tile(uint32_t v, uint32_t vb, uint32_t vs, int tid) {
+  constexpr int CQ = T::BK / 4, DQ = D / 4;
+  for (int task = tid; task < CQ * DQ; task += SPLIT_THREADS) {
+    const int l = task % 8;
+    const int cq = (task / 8) % (CQ / 8) * 8 + l;
+    const int dq = (task / CQ + 2 * (l >> 1)) % DQ;
+    const int d0 = 4 * dq, key0 = 8 * (cq >> 1) + (cq & 1);
+    uint4 r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r[j] = vd3d::lds128(v + (d0 / T::DB) * T::K_ATOM +
+                          vd3d::swizzle<T::SW>((key0 + 2 * j) * T::SW + (d0 % T::DB) * 4));
+    const uint4 col[4] = {make_uint4(r[0].x, r[1].x, r[2].x, r[3].x),
+                          make_uint4(r[0].y, r[1].y, r[2].y, r[3].y),
+                          make_uint4(r[0].z, r[1].z, r[2].z, r[3].z),
+                          make_uint4(r[0].w, r[1].w, r[2].w, r[3].w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint4 small;
+      const uint4 big = vd3d::split_tf32(col[i], small);
+      const uint32_t off =
+          (cq / 8) * T::VT_ATOM + vd3d::swizzle<128>((d0 + i) * 128 + (cq % 8) * 16);
+      vd3d::sts128(vb + off, big);
+      vd3d::sts128(vs + off, small);
+    }
+  }
+}
+
+// float32: two consumer warpgroups and a producer warpgroup (one warp issues
+// the copies, three split the tiles), which hands registers to the
+// consumers (setmaxnreg: 56 a thread for it, 224 for them; the block holds
+// 168 a thread from its launch, and the two moves must fit in that pool:
+// 128 x 56 + 256 x 224 = 384 x 168)
+constexpr int TF32_THREADS = (WG + 1) * 128;
+
 template <int D>
-__global__ void __launch_bounds__(FMA_THREADS)
-attention_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int Nq, int Nk,
-                     int H, float scale) {
-  using L = FmaSmem<D>;
-  constexpr int DJ = D / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem + L::Q);
-  float* sK = reinterpret_cast<float*>(smem + L::K);
-  float* sV = reinterpret_cast<float*>(smem + L::V);
-  float* sS = reinterpret_cast<float*>(smem + L::S);
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-
-  // Q and K rows with a padded stride (scalar loads), V as whole rows
-  auto load_padded = [&](const float* x, float* s, int r0, int N) {
-    for (int i = tid; i < BQ * D; i += FMA_THREADS) {
-      const int rr = i / D, d = i % D;
-      s[rr * L::LDQ + d] = r0 + rr < N ? x[row_offset(b, r0 + rr, h, N, H, D) + d] : 0.0f;
-    }
-  };
-  load_padded(q, sQ, q0, Nq);
-
-  // S tile (rows ty * 4 + i, keys tx + 16 j) into sS, scaled and masked
-  auto scores = [&](int k0) {
-    float acc[4][4] = {};
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * L::LDQ + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * L::LDQ + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], kv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sS[(ty * 4 + i) * L::LDS + tx + 16 * j] =
-            k0 + tx + 16 * j < Nk ? acc[i][j] * scale : MASKED;
-  };
-
-  // row statistics: four lanes per row, 16 keys each
-  const int sr = tid / 4, sc = (tid % 4) * (BK / 4);
-  float m = -INFINITY, l = 0.0f;
+__global__ void __launch_bounds__(TF32_THREADS, 1)
+attention_tf32_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv, float* __restrict__ o, int Nq,
+                      int Nk, int H, float scale_log2) {
+  using namespace vd3d;
+  using T = F32Tiles<D>;
+  constexpr int BK = T::BK;
+  constexpr int KS = D / 8;  // k8 steps of S = Q K^T
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + T::BAR);
+  uint64_t* full = qbar + 1;        // a tile landed
+  uint64_t* ready = full + STAGES;  // a tile split
+  uint64_t* empty = ready + STAGES; // a tile's products done
+  const int q0 = blockIdx.x * (WG * 64), h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (Nk + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    load_padded(k, sK, t * BK, Nk);
-    __syncthreads();
-    scores(t * BK);
-    __syncthreads();
-    float mt = MASKED;
-    for (int c = sc; c < sc + BK / 4; ++c) mt = fmaxf(mt, sS[sr * L::LDS + c]);
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    float sum = 0.0f;
-    for (int c = sc; c < sc + BK / 4; ++c) sum += expf(sS[sr * L::LDS + c] - m_new);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l = l * expf(m - m_new) + sum;
-    m = m_new;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], SPLIT_THREADS / 32);  // lane 0 of every splitting warp
+      mbar_init(&empty[s], WG * 4);              // lane 0 of every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= WG * 4) {  // the producer warpgroup
+    setmaxnreg_dec<56>();
+    if (warp > WG * 4) {  // three warps split each landed tile
+      const int sid = threadIdx.x - (WG * 4 + 1) * 32;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&full[s], (t / STAGES) & 1);
+        const uint32_t st = smem_u32(smem + T::RING + s * T::STAGE);
+        split_k_tile<T>(st + T::ST_K, st + T::ST_KS, sid);
+        split_v_tile<T, D>(st + T::ST_V, st + T::ST_VB, st + T::ST_VS, sid);
+        fence_proxy_async();  // the generic writes, before wgmma reads them
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ready[s]);
+      }
+    } else if (lane == 0) {  // one thread issues the copies
+      mbar_arrive_expect_tx(qbar, WG * T::Q_TILE);
+      for (int g = 0; g < WG; ++g)
+        for (int a = 0; a < T::ATOMS; ++a)
+          tma_load_4d(smem + T::Q + g * T::Q_TILE + a * T::Q_ATOM, &mq, qbar, a * T::DB, h,
+                      q0 + 64 * g, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], (t / STAGES - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * T::K_TILE);
+        unsigned char* st = smem + T::RING + s * T::STAGE;
+        for (int a = 0; a < T::ATOMS; ++a) {
+          tma_load_4d(st + T::ST_K + a * T::K_ATOM, &mk, &full[s], a * T::DB, h, t * BK, b);
+          tma_load_4d(st + T::ST_V + a * T::K_ATOM, &mv, &full[s], a * T::DB, h, t * BK, b);
+        }
+      }
+    }
+    return;
   }
 
-  float acc[4][DJ] = {};
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();
-    load_padded(k, sK, k0, Nk);
-    for (int i = tid; i < BK * D; i += FMA_THREADS) {
-      const int rr = i / D, d = i % D;
-      sV[i] = k0 + rr < Nk ? v[row_offset(b, k0 + rr, h, Nk, H, D) + d] : 0.0f;
+  // a consumer warpgroup: rows 64 g + r0 and r0 + 8 of the block belong to
+  // this thread, with columns c2, c2 + 1 of every 8-column block of S and O
+  setmaxnreg_inc<224>();
+  const int g = warp / 4;
+  const int r0 = 16 * (warp % 4) + lane / 4;
+  const int t4 = lane % 4, c2 = 2 * t4;
+  const uint32_t sQ = smem_u32(smem + T::Q + g * T::Q_TILE);
+  constexpr uint32_t SBO = 8 * T::SW;  // 8-row groups of Q and K
+  auto kd_off = [](int ks, int atom) {  // k8 step ks of a [rows][D] tile
+    return (uint32_t)((ks * 8 / T::DB) * atom + (ks * 8 % T::DB) * 4);
+  };
+
+  // Q split once: its big half into A fragments in registers (k step ks
+  // holds (r0, 8 ks + t4), (r0 + 8, 8 ks + t4), (r0, 8 ks + t4 + 4), (r0 + 8,
+  // 8 ks + t4 + 4); over the warpgroup they cover its tile once), its small
+  // half written back in place, read by wgmma from shared memory
+  mbar_wait(qbar, 0);
+  uint32_t qb[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e & 1), d = 8 * ks + t4 + 4 * (e >> 1);
+      const uint32_t p =
+          sQ + (d / T::DB) * T::Q_ATOM + swizzle<T::SW>(r * T::SW + (d % T::DB) * 4);
+      uint32_t small;
+      split_tf32(__uint_as_float(lds32(p)), qb[ks][e], small);
+      sts32(p, small);
     }
-    __syncthreads();
-    scores(k0);
-    __syncthreads();
-    for (int c = sc; c < sc + BK / 4; ++c)
-      sS[sr * L::LDS + c] = expf(sS[sr * L::LDS + c] - m) / l;
-    __syncthreads();
-    for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[DJ];
+  fence_proxy_async();  // the generic writes, before wgmma reads them
+  named_barrier(1 + g, 128);
+
+  float acc[D / 2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sS[(ty * 4 + i) * L::LDS + c];
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&ready[s], (t / STAGES) & 1);
+    const uint32_t st = smem_u32(smem + T::RING + s * T::STAGE);
+    const uint32_t kBig = st + T::ST_K, kSmall = st + T::ST_KS;
+    const uint32_t vBig = st + T::ST_VB, vSmall = st + T::ST_VS;
+
+    // S = Q K^T over the tile's keys. An add in the tensor cores does not
+    // round to nearest: its error, up to an ulp of the accumulator, grows
+    // with every product added at the accumulator's size. So the cross
+    // terms (small x big, big x small: 2^-11 of the products) collect in
+    // sc and the big x big products in sb, summed on the CUDA cores
+    float sc[BK / 2], sb[BK / 2];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * D + tx + 16 * j];
+    for (int i = 0; i < BK / 2; ++i) sc[i] = sb[i] = 0.0f;
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = kd_off(ks, T::K_ATOM);
+      wgmma_tf32_ss<BK>(sc, smem_desc<T::SW>(sQ + kd_off(ks, T::Q_ATOM), 16, SBO),
+                        smem_desc<T::SW>(kBig + off, 16, SBO));
+      wgmma_tf32_rs<BK>(sc, qb[ks], smem_desc<T::SW>(kSmall + off, 16, SBO));
+    }
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_tf32_rs<BK>(sb, qb[ks], smem_desc<T::SW>(kBig + kd_off(ks, T::K_ATOM), 16, SBO));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(sb);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] += sb[i];
+
+    // mask keys past Nk; the running max m is kept on the unscaled logits;
+    // p = 2^((s - m) scale log2e), with s - m formed first
+    const int kbase = t * BK;
+    const bool ragged = kbase + BK > Nk;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = !ragged || kbase + 8 * j + c2 + e < Nk;
+        sc[4 * j + e] = valid ? sc[4 * j + e] : MASKED;
+        sc[4 * j + 2 + e] = valid ? sc[4 * j + 2 + e] : MASKED;
+        mx0 = fmaxf(mx0, sc[4 * j + e]);
+        mx1 = fmaxf(mx1, sc[4 * j + 2 + e]);
+      }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float alpha0 = fast_exp2((m0 - mx0) * scale_log2);
+    const float alpha1 = fast_exp2((m1 - mx1) * scale_log2);
+    m0 = mx0;
+    m1 = mx1;
+
+    // P = exp(s - m) in float32, in place of S
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      sc[4 * j] = fast_exp2((sc[4 * j] - mx0) * scale_log2);
+      sc[4 * j + 1] = fast_exp2((sc[4 * j + 1] - mx0) * scale_log2);
+      sc[4 * j + 2] = fast_exp2((sc[4 * j + 2] - mx1) * scale_log2);
+      sc[4 * j + 3] = fast_exp2((sc[4 * j + 3] - mx1) * scale_log2);
+      s0 += sc[4 * j] + sc[4 * j + 1];
+      s1 += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l0 = l0 * alpha0 + s0;  // per-thread partial sums; reduced once at the end
+    l1 = l1 * alpha1 + s1;
+
+    // the tile's P V into a partial of its own, then O = O alpha + partial
+    // with one rounding: the running O never takes a tensor-core add. Two
+    // halves of the keys, P split into A fragments half by half (a0 / a1
+    // key 8 kk + 2 t4 of rows r0 / r0 + 8, a2 / a3 key 8 kk + 2 t4 + 1;
+    // split_v_tile orders V's rows to match), each half's cross terms
+    // before its big x big; k step kk reads columns 8 kk .. 8 kk + 7 of V's
+    // halves
+    constexpr int KH = BK / 16;  // k steps a half
+    float pv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) pv[i] = 0.0f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      uint32_t pb[KH][4], ps[KH][4];
+#pragma unroll
+      for (int k = 0; k < KH; ++k) {
+        const int j = hf * KH + k;
+        split_tf32(sc[4 * j], pb[k][0], ps[k][0]);
+        split_tf32(sc[4 * j + 2], pb[k][1], ps[k][1]);
+        split_tf32(sc[4 * j + 1], pb[k][2], ps[k][2]);
+        split_tf32(sc[4 * j + 3], pb[k][3], ps[k][3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KH; ++k) {
+        const int kk = hf * KH + k;
+        const uint32_t off = (kk * 8 / 32) * T::VT_ATOM + (kk * 8 % 32) * 4;
+        wgmma_tf32_rs<D>(pv, ps[k], smem_desc<128>(vBig + off, 16, 1024));
+        wgmma_tf32_rs<D>(pv, pb[k], smem_desc<128>(vSmall + off, 16, 1024));
+      }
+#pragma unroll
+      for (int k = 0; k < KH; ++k) {
+        const int kk = hf * KH + k;
+        const uint32_t off = (kk * 8 / 32) * T::VT_ATOM + (kk * 8 % 32) * 4;
+        wgmma_tf32_rs<D>(pv, pb[k], smem_desc<128>(vBig + off, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pv);
+#pragma unroll
+      for (int k = 0; k < KH; ++k) {
+        fence_regs(pb[k]);
+        fence_regs(ps[k]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the stage's K and V halves read
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] = fmaf(acc[4 * j], alpha0, pv[4 * j]);
+      acc[4 * j + 1] = fmaf(acc[4 * j + 1], alpha0, pv[4 * j + 1]);
+      acc[4 * j + 2] = fmaf(acc[4 * j + 2], alpha1, pv[4 * j + 2]);
+      acc[4 * j + 3] = fmaf(acc[4 * j + 3], alpha1, pv[4 * j + 3]);
     }
   }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  const int n0 = q0 + 64 * g + r0, n1 = n0 + 8;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = q0 + ty * 4 + i;
-    if (n >= Nq) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[row_offset(b, n, h, Nq, H, D) + tx + 16 * j] = acc[i][j];
+  for (int j = 0; j < D / 8; ++j) {
+    const int d = 8 * j + c2;
+    if (n0 < Nq)
+      *reinterpret_cast<float2*>(o + row_offset(b, n0, h, Nq, H, D) + d) =
+          make_float2(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    if (n1 < Nq)
+      *reinterpret_cast<float2*>(o + row_offset(b, n1, h, Nq, H, D) + d) =
+          make_float2(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
   }
 }
 
@@ -443,23 +688,44 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Nq, int Nk, int H,
-           float scale, int bf16, cudaStream_t s) {
-  if (bf16) return launch_wgmma<D>(q, k, v, o, B, Nq, Nk, H, scale, s);
-  const dim3 grid((Nq + BQ - 1) / BQ, H, B);
-  constexpr int bytes = FmaSmem<D>::BYTES;
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int Nq, int Nk,
+                int H, float scale, cudaStream_t s) {
+  using T = F32Tiles<D>;
+  const CUtensorMapSwizzle swz =
+      T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  // Q's map covers the Nq query rows in boxes of 64, K's and V's the Nk
+  // keys in boxes of BK
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t n = i == 0 ? Nq : Nk;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, n, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)H * D * 4, n * H * D * 4};
+    const cuuint32_t box[4] = {(cuuint32_t)T::DB, 1, (cuuint32_t)(i == 0 ? 64 : T::BK), 1};
+    if (!vd3d::encode_map_4d(&maps[i], ptrs[i], dims, strides, box, swz,
+                             CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+      return (int)cudaErrorInvalidValue;
+  }
   static bool configured[vd3d::MAX_DEVICES] = {};  // the attribute, per device
   const int dev = vd3d::current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    cudaError_t e = cudaFuncSetAttribute(attention_fma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    cudaError_t e = cudaFuncSetAttribute(attention_tf32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::BYTES);
     if (e != cudaSuccess) return (int)e;
     configured[dev] = true;
   }
-  attention_fma_kernel<D><<<grid, FMA_THREADS, bytes, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Nq, Nk, H, scale);
+  const dim3 grid((Nq + WG * 64 - 1) / (WG * 64), H, B);
+  attention_tf32_kernel<D><<<grid, TF32_THREADS, T::BYTES, s>>>(
+      maps[0], maps[1], maps[2], (float*)o, Nq, Nk, H, scale * LOG2E);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Nq, int Nk, int H,
+           float scale, int bf16, cudaStream_t s) {
+  if (bf16) return launch_wgmma<D>(q, k, v, o, B, Nq, Nk, H, scale, s);
+  return launch_tf32<D>(q, k, v, o, B, Nq, Nk, H, scale, s);
 }
 
 }  // namespace

@@ -28,10 +28,39 @@
 //   fragments load while the current tap's products run. Where the input's
 //   pixel stride is not a multiple of 16 bytes (conv_first, C = 3) the
 //   consumers load the window themselves.
-// - float32 (conv3x3_fma_kernel): CUDA-core FMAs in full float32 (no TF32)
-//   over 8 x 32 tiles, one chunk of 8 channels at a time; each thread owns
-//   one tile column (8 pixels) and BN/8 channels.
-//
+// - float32 (conv3x3_tf32_kernel; the tools' default type): the same
+//   implicit GEMM on the tensor cores in split TF32 (hopper.cuh): each
+//   product is three TF32 products of explicit halves, small x big + big x
+//   small + big x big, accumulated in float32, which keeps float32
+//   accuracy. One persistent block per SM walks output tiles of 8 x 32
+//   pixels (M = 256: each consumer warpgroup two M blocks of 64 pixels, so
+//   each weight tile in shared memory serves twice as many pixels) and BN
+//   output channels, its ring running on from tile to tile, so the next
+//   tile's copies overlap this one's last products and its epilogue (with
+//   one block of up to 211 KB an SM nothing else would hide them: the RIFE
+//   and tail convs have one to four chunks a tile); K walks chunks of FCK = 16
+//   channels (64 bytes a window pixel, 64-byte swizzle) times the nine
+//   taps. The ring stage holds the chunk's 10 x 34 x 16
+//   window (TMA, zero fill as SAME padding) and its weights' two halves,
+//   pre-split by pack_conv3x3 (one bulk copy). The consumers split the
+//   landed window once (big in place, small into a buffer of its own):
+//   every window value serves up to nine taps, and a split per tap would
+//   repeat its CUDA-core work nine times. Each tap's A fragments (the
+//   window shifted by one pixel; ldmatrix is for 16-bit elements) are
+//   loaded by hand while the previous tap's products run: the weights' K
+//   order puts a thread's two fragment columns of a k8 step on adjacent
+//   channels, one 8-byte load per pixel and half. wgmma m64nBNk8 takes B
+//   from the weights' halves. A producer warpgroup (one warp of it issues
+//   the copies) hands its registers to the consumers (setmaxnreg). Inputs
+//   whose pixel stride TMA cannot take (C = 3) are loaded by the consumers,
+//   split as they land; O = 3 runs on an 8-wide N tile. Numerics: an add
+//   inside the tensor cores does not round to nearest, and with every
+//   product of every chunk added into one accumulator the error grew with
+//   K (measured on the H100: max 8.1e-5, mean 9.6e-6 at rdb_conv5, against
+//   the float32 FMA kernel's 1.4e-5 and 6.8e-7). So each chunk's products
+//   go into a partial, added to the running sum on the CUDA cores: 1.5e-5
+//   and 9.1e-7.
+
 // What bounds it on the H100: the RDB conv5 (C=192 -> O=64) does 1,728 MACs
 // per output channel on 384 bytes of input and 128 of output per pixel in
 // bf16, 432 FLOP/byte, above the card's 295 FLOP/byte ridge: operations.
@@ -40,14 +69,25 @@
 // is read once per block and reused by nine taps and every output channel;
 // the copies of one chunk overlap the products of the other; the output is
 // written once (no im2col buffer in device memory). The weights are read
-// again by every block (36 KB per chunk at BN = 64, from L2).
-//
+// again by every block (36 KB per chunk at BN = 64 in bf16, 72 KB for the
+// two float32 halves of a 16-channel chunk, from L2). In float32 each
+// product is three TF32 products, a third of TF32's 495 TFLOP/s (165): the
+// RDB convs stay bound by operations (conv5 3.5 ms at that rate); the
+// window's split (once a chunk) and the fragment loads (each tap) run on
+// the CUDA cores and the shared-memory pipe beside the products, and at
+// O = 3 (an 8-wide N tile) they, not the products, set the pace.
+
 // Weights, as the wrapper (kernels/conv.py) packs them:
 // - bfloat16: [O / BN][Cp / 32][9][BN][32] with Cp, O rounded up to 32 and
 //   BN, zero padded; in each 64-byte row (one output channel) the 16-byte
 //   group j of 8 input channels sits at j ^ ((n >> 1) & 3), n the row's
 //   channel in the block: the 64-byte swizzle of the shared-memory tile.
-// - float32: [9][Cp][Op] with Cp, Op rounded up to 16.
+// - float32: [O / BN][Cp / 16][2][9][BN][16], Cp rounded up to 16, O to BN:
+//   per block and chunk of 16 input channels the big then the small TF32
+//   half of the nine taps' [BN][16] tiles, the channels of each 8 in the K
+//   order 0, 2, 4, 6, 1, 3, 5, 7 (a thread's A columns t and t + 4 are
+//   channels 2 t and 2 t + 1), each 64-byte row swizzled as in bf16
+//   (16-byte group j of 4 at j ^ ((n >> 1) & 3)).
 // The bias is float32, one per padded output channel.
 
 #include <cstring>
@@ -57,68 +97,10 @@
 
 namespace {
 
-constexpr int TH = 8;   // float32: output rows per block
-constexpr int TW = 32;  // float32: output columns per block
-constexpr int WIN_H = TH + 2;
-constexpr int WIN_W = TW + 2;
-constexpr int THREADS = 256;
-
 __device__ __forceinline__ float activate(float v, int act, float slope) {
   if (act == 1) return fmaxf(v, 0.0f);
   if (act == 2) return v >= 0.0f ? v : v * slope;
   return v;
-}
-
-// float32: the WIN_H x WIN_W x CK input window for channels [c0, c0 + CK)
-// into s, laid out [WIN_H * WIN_W][CK]; zero outside the image and past C.
-// Pixels are xs values apart. With vec, C and xs are multiples of the
-// 16-byte vector and x is 16-byte aligned.
-template <typename T, int CK>
-__device__ __forceinline__ void load_window(const T* __restrict__ x, T* __restrict__ s,
-                                            int b, int y0, int x0, int c0, int H, int W,
-                                            int C, int xs, int vec) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int N = WIN_H * WIN_W * CK;
-  if (vec) {
-    for (int e = threadIdx.x * VEC; e < N; e += THREADS * VEC) {
-      const int pix = e / CK;
-      const int c = c0 + e % CK;
-      const int gy = y0 - 1 + pix / WIN_W;
-      const int gx = x0 - 1 + pix % WIN_W;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < C)
-        v = *reinterpret_cast<const uint4*>(x + (((size_t)b * H + gy) * W + gx) * xs + c);
-      *reinterpret_cast<uint4*>(s + e) = v;
-    }
-  } else {
-    for (int e = threadIdx.x; e < N; e += THREADS) {
-      const int pix = e / CK;
-      const int c = c0 + e % CK;
-      const int gy = y0 - 1 + pix / WIN_W;
-      const int gx = x0 - 1 + pix % WIN_W;
-      float v = 0.0f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < C)
-        v = vd3d::load(x, (((size_t)b * H + gy) * W + gx) * xs + c);
-      vd3d::store(s, e, v);
-    }
-  }
-}
-
-// float32: weights [9][Cp][Op] rows c0..c0+CK, columns n0..n0+BN into s as
-// [9][CK][LD] (LD >= BN); every row is whole 16-byte vectors.
-template <typename T, int CK, int BN, int LD>
-__device__ __forceinline__ void load_weights(const T* __restrict__ w, T* __restrict__ s,
-                                             int c0, int n0, int Cp, int Op) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = BN / VEC;  // vectors per row
-  for (int i = threadIdx.x; i < 9 * CK * VPR; i += THREADS) {
-    const int row = i / VPR;  // tap * CK + cc
-    const int col = (i % VPR) * VEC;
-    const int tap = row / CK, cc = row % CK;
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        w + ((size_t)tap * Cp + c0 + cc) * Op + n0 + col);
-    *reinterpret_cast<uint4*>(s + row * LD + col) = v;
-  }
 }
 
 // ---------------------------------------------------------------- bfloat16
@@ -331,76 +313,295 @@ int launch_wgmma(const void* x, const void* w, const float* bias, void* out, int
 
 // ---------------------------------------------------------------- float32
 
+constexpr int FCK = 16;  // float32: input channels per chunk, 64 bytes per window pixel
+constexpr int FTH = 8;   // float32: output rows per block
+constexpr int FTW = 32;  // float32: output columns per block
+constexpr int FWH = FTH + 2, FWW = FTW + 2;
+constexpr int F_WIN_BYTES = FWH * FWW * FCK * 4;
+
 template <int BN>
-__global__ void __launch_bounds__(THREADS)
-conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ out, int H, int W,
-                   int C, int xs, int O, int os, int Cp, int Op, int act, float slope, int vec,
-                   int tiles_x) {
-  constexpr int CK = 8;
-  constexpr int NPT = BN / 8;  // output channels per thread: ng + 8 j
-  __shared__ __align__(16) float sA[WIN_H * WIN_W * CK];
-  __shared__ __align__(16) float sB[9 * CK * BN];
+struct ConvSmemF32 {
+  static constexpr int PLANE = 9 * BN * FCK * 4;  // one chunk's weights, one TF32 half
+  static constexpr int WIN = 0;                   // the landed window, its big half in place
+  static constexpr int W = round1024(F_WIN_BYTES);
+  static constexpr int STAGE = W + round1024(2 * PLANE);
+  static constexpr int WIN_SMALL = STAGES * STAGE;  // the window's small half (one buffer)
+  static constexpr int BAR = WIN_SMALL + round1024(F_WIN_BYTES);
+  static constexpr int BYTES = BAR + 16 * STAGES + 1024;  // + alignment slack
+};
 
-  const int g = threadIdx.x / 8;   // tile column, 0..31
-  const int ng = threadIdx.x % 8;  // channel group
-  const int y0 = (blockIdx.x / tiles_x) * TH;
-  const int x0 = (blockIdx.x % tiles_x) * TW;
-  const int n0 = blockIdx.y * BN;
-  const int b = blockIdx.z;
+// two consumer warpgroups and a producer warpgroup (one warp of it issues
+// the copies), which hands its registers to the consumers
+constexpr int F_THREADS = 3 * 128;
 
-  float acc[TH][NPT];
+// float32: the chunk's input window by the 256 consumer threads, split as it
+// lands: its big half in the layout the TMA load writes ([FWH * FWW][FCK],
+// 64-byte swizzle), its small half in the same layout in win_small; for
+// inputs whose pixel stride TMA cannot take
+__device__ __forceinline__ void load_window_threads_f32(const float* __restrict__ x,
+                                                        uint32_t win, uint32_t win_small,
+                                                        int b, int y0, int x0, int c0, int H,
+                                                        int W, int C, int xs) {
+  for (int e = threadIdx.x; e < FWH * FWW * 4; e += 256) {
+    const int p = e / 4, j = e % 4;
+    const int gy = y0 - 1 + p / FWW, gx = x0 - 1 + p % FWW;
+    const int c = c0 + 4 * j;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W && c < C) {
+      const float* src = x + (((size_t)b * H + gy) * W + gx) * xs + c;
 #pragma unroll
-  for (int r = 0; r < TH; ++r)
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) acc[r][j] = 0.0f;
+      for (int q = 0; q < 4; ++q)
+        if (c + q < C) v[q] = src[q];
+    }
+    const uint32_t off = vd3d::swizzle<64>(p * 64 + j * 16);
+    uint4 small;
+    const uint4 big = vd3d::split_tf32(make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                                                  __float_as_uint(v[2]), __float_as_uint(v[3])),
+                                       small);
+    vd3d::sts128(win + off, big);
+    vd3d::sts128(win_small + off, small);
+  }
+}
 
-  for (int c0 = 0; c0 < Cp; c0 += CK) {
-    load_window<float, CK>(x, sA, b, y0, x0, c0, H, W, C, xs, vec);
-    load_weights<float, CK, BN, BN>(w, sB, c0, n0, Cp, Op);
-    __syncthreads();
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-      for (int cc = 0; cc < CK; ++cc) {
-        float bv[NPT];
-#pragma unroll
-        for (int j = 0; j < NPT; ++j) bv[j] = sB[(tap * CK + cc) * BN + ng + 8 * j];
-#pragma unroll
-        for (int r = 0; r < TH; ++r) {
-          const float a = sA[((r + ky) * WIN_W + g + kx) * CK + cc];
-#pragma unroll
-          for (int j = 0; j < NPT; ++j) acc[r][j] = fmaf(a, bv[j], acc[r][j]);
+// float32: the landed window's halves, big in place, small into win_small
+__device__ __forceinline__ void split_window(uint32_t win, uint32_t win_small) {
+  for (int i = threadIdx.x; i < F_WIN_BYTES / 16; i += 256) {
+    uint4 small;
+    vd3d::sts128(win + 16 * i, vd3d::split_tf32(vd3d::lds128(win + 16 * i), small));
+    vd3d::sts128(win_small + 16 * i, small);
+  }
+}
+
+// the output tile t of a persistent block: N blocks fastest (the blocks of
+// one pixel tile read the same window, so they run side by side), then
+// tile columns, tile rows, images
+struct TileF32 {
+  int y0, x0, nb, b;
+};
+__device__ __forceinline__ TileF32 tile_f32(int t, int nblk, int tiles_x, int tiles_y) {
+  const int nb = t % nblk;
+  t /= nblk;
+  const int tx = t % tiles_x;
+  t /= tiles_x;
+  return {(t % tiles_y) * FTH, tx * FTW, nb, t / tiles_y};
+}
+
+template <int BN>
+__global__ void __launch_bounds__(F_THREADS, 1)
+conv3x3_tf32_kernel(const __grid_constant__ CUtensorMap mx, const float* __restrict__ x,
+                    const float* __restrict__ w, const float* __restrict__ bias,
+                    float* __restrict__ out, int H, int W, int C, int xs, int O, int os,
+                    int nchunks, int act, float slope, int tma, int pair, int nblk,
+                    int tiles_x, int tiles_y, int n_tiles) {
+  using namespace vd3d;
+  using L = ConvSmemF32<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // a persistent block: tiles blockIdx.x, + gridDim.x, ...; the ring runs
+  // on across tiles (q counts the block's chunks), so the next tile's
+  // copies overlap this tile's last products and its epilogue
+  if (warp >= 8) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (warp == 8 && lane == 0) {
+      int q = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const TileF32 tl = tile_f32(t, nblk, tiles_x, tiles_y);
+        const float* wb = w + (size_t)tl.nb * nchunks * 2 * 9 * BN * FCK;
+        for (int i = 0; i < nchunks; ++i, ++q) {
+          const int s = q % STAGES;
+          if (q >= STAGES) mbar_wait(&empty[s], (q / STAGES - 1) & 1);
+          unsigned char* stage = smem + s * L::STAGE;
+          mbar_arrive_expect_tx(&full[s], (tma ? F_WIN_BYTES : 0) + 2 * L::PLANE);
+          if (tma)
+            tma_load_4d(stage + L::WIN, &mx, &full[s], i * FCK, tl.x0 - 1, tl.y0 - 1, tl.b);
+          bulk_load(stage + L::W, wb + (size_t)i * 2 * 9 * BN * FCK, 2 * L::PLANE, &full[s]);
         }
       }
     }
-    __syncthreads();
+    return;
   }
+  setmaxnreg_inc<232>();
 
-  const int gx = x0 + g;
+  // a consumer warp: in M block mb (64 pixels, two tile rows) of warpgroup
+  // g, 16 pixels of tile row rw + 2 mb from column cb; this thread's A
+  // fragment rows are pixels px and px + 8. Its columns t4 and t4 + 4 of a
+  // k8 step are channels 2 t4 and 2 t4 + 1 (pack_conv3x3 orders the
+  // weights' K to match), one 8-byte load per pixel and half
+  const int g = warp / 4, wl = warp % 4;
+  const int rw = 4 * g + wl / 2, cb = 16 * (wl % 2);
+  const int t4 = lane % 4, px = cb + lane / 4;
+  const uint32_t win_small = smem_u32(smem + L::WIN_SMALL);
+  // window byte offset of (pixel p, channels 2 t4, 2 t4 + 1) in k8 step 0;
+  // step 1 is 32 bytes on, which the 64-byte swizzle turns into ^ 32
+  auto a_off = [&](int p) { return swizzle<64>(p * 64 + t4 * 8); };
+  uint32_t fb[2][2][4], fs[2][2][4];  // A fragments [M block][k8 step], big and small
+
+  int q = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const TileF32 tl = tile_f32(t, nblk, tiles_x, tiles_y);
+    float acc[2][BN / 2];
 #pragma unroll
-  for (int r = 0; r < TH; ++r) {
-    const int gy = y0 + r;
+    for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-    for (int j = 0; j < NPT; ++j) {
-      const int n = n0 + ng + 8 * j;
-      if (gy < H && gx < W && n < O)
-        out[(((size_t)b * H + gy) * W + gx) * os + n] = activate(acc[r][j] + bias[n], act, slope);
+      for (int i = 0; i < BN / 2; ++i) acc[mb][i] = 0.0f;
+
+    for (int i = 0; i < nchunks; ++i, ++q) {
+      // the chunk's products go into a partial of their own, added to acc
+      // with round-to-nearest adds: an add in the tensor cores does not
+      // round to nearest, and its error (up to an ulp of the accumulator)
+      // would otherwise grow with every product of every chunk
+      float part[2][BN / 2];
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) part[mb][j] = 0.0f;
+      const int s = q % STAGES;
+      mbar_wait(&full[s], (q / STAGES) & 1);
+      unsigned char* stage = smem + s * L::STAGE;
+      const uint32_t win = smem_u32(stage + L::WIN), wts = smem_u32(stage + L::W);
+      // both warpgroups are past the last chunk's taps, so win_small is free
+      named_barrier(1, 256);
+      if (tma) split_window(win, win_small);
+      else load_window_threads_f32(x, win, win_small, tl.b, tl.y0, tl.x0, i * FCK, H, W, C, xs);
+      named_barrier(1, 256);
+
+      // 18 steps (tap, M block): each loads its A fragments (the window
+      // shifted by the tap; both halves) into the M block's registers once
+      // the products of that block's previous step are done, while the
+      // other block's products run
+#pragma unroll
+      for (int step = 0; step < 18; ++step) {
+        const int tap = step / 2, mb = step % 2;
+        if (step >= 2) {
+          wgmma_wait<1>();
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            fence_regs(fb[mb][ks]);
+            fence_regs(fs[mb][ks]);
+          }
+        }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const uint32_t off = a_off((rw + 2 * mb + tap / 3) * FWW + px + 8 * hr + tap % 3);
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const uint2 vb = lds64(win + (off ^ (32 * ks)));
+            const uint2 vs = lds64(win_small + (off ^ (32 * ks)));
+            fb[mb][ks][hr] = vb.x;
+            fb[mb][ks][2 + hr] = vb.y;
+            fs[mb][ks][hr] = vs.x;
+            fs[mb][ks][2 + hr] = vs.y;
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const uint32_t off = tap * BN * 64 + ks * 32;
+          const uint64_t db = smem_desc<64>(wts + off, 16, 512);
+          const uint64_t ds = smem_desc<64>(wts + L::PLANE + off, 16, 512);
+          wgmma_tf32_rs<BN>(part[mb], fs[mb][ks], db);
+          wgmma_tf32_rs<BN>(part[mb], fb[mb][ks], ds);
+          wgmma_tf32_rs<BN>(part[mb], fb[mb][ks], db);
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        fence_regs(part[mb]);
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) acc[mb][j] += part[mb][j];
+      }
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          fence_regs(fb[mb][ks]);
+          fence_regs(fs[mb][ks]);
+        }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: bias, activation; rows lane / 4 and + 8 of the warp's 16
+    // pixels, channels c2, c2 + 1 of every 8-channel block
+    const int c2 = 2 * t4;
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+      const int gy = tl.y0 + rw + 2 * mb;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = tl.nb * BN + 8 * j + c2;
+        const float b0 = bias[n], b1 = bias[n + 1];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int gx = tl.x0 + px + 8 * hr;
+          if (gy >= H || gx >= W) continue;
+          const float v0 = activate(acc[mb][4 * j + 2 * hr] + b0, act, slope);
+          const float v1 = activate(acc[mb][4 * j + 2 * hr + 1] + b1, act, slope);
+          float* dst = out + (((size_t)tl.b * H + gy) * W + gx) * os + n;
+          if (pair && n + 1 < O) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            if (n < O) dst[0] = v0;
+            if (n + 1 < O) dst[1] = v1;
+          }
+        }
+      }
     }
   }
 }
 
 template <int BN>
-int launch_fma(const void* x, const void* w, const float* bias, void* out, int B, int H, int W,
-               int C, int xs, int O, int os, int Cp, int Op, int act, float slope, int vec,
-               cudaStream_t s) {
-  const int tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + TH - 1) / TH;
-  const dim3 grid(tiles_x * tiles_y, Op / BN, B);
-  conv3x3_fma_kernel<BN><<<grid, THREADS, 0, s>>>((const float*)x, (const float*)w, bias,
-                                                   (float*)out, H, W, C, xs, O, os, Cp, Op, act,
-                                                   slope, vec, tiles_x);
+int launch_tf32(const void* x, const void* w, const float* bias, void* out, int B, int H,
+                int W, int C, int xs, int O, int os, int nchunks, int nblk, int act,
+                float slope, cudaStream_t s) {
+  using L = ConvSmemF32<BN>;
+  const int tiles_x = (W + FTW - 1) / FTW, tiles_y = (H + FTH - 1) / FTH;
+  const int tma = (uintptr_t)x % 16 == 0 && (xs * 4) % 16 == 0 && C >= FCK;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (tma) {
+    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)xs * 4, (cuuint64_t)W * xs * 4,
+                                   (cuuint64_t)H * W * xs * 4};
+    const cuuint32_t box[4] = {FCK, FWW, FWH, 1};
+    if (!vd3d::encode_map_4d(&map, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B,
+                             CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+      return (int)cudaErrorInvalidValue;
+  }
+  const int pair = (uintptr_t)out % 8 == 0 && os % 2 == 0;
+  // the attribute and the SM count, per device: one persistent block an SM
+  static int sms[vd3d::MAX_DEVICES] = {};
+  const int dev = vd3d::current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    cudaError_t e = cudaFuncSetAttribute(conv3x3_tf32_kernel<BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long n_tiles = (long long)tiles_x * tiles_y * nblk * B;
+  if (n_tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(n_tiles < sms[dev] ? n_tiles : sms[dev]);
+  conv3x3_tf32_kernel<BN><<<grid, F_THREADS, L::BYTES, s>>>(
+      map, (const float*)x, (const float*)w, bias, (float*)out, H, W, C, xs, O, os, nchunks,
+      act, slope, tma, pair, nblk, tiles_x, tiles_y, (int)n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -408,12 +609,11 @@ int launch_fma(const void* x, const void* w, const float* bias, void* out, int B
 
 // x [B, H, W, >= C] with pixels xs values apart, out [B, H, W, >= O] with
 // pixels os values apart (float32 or bf16); w and bias as packed above
-// (bf16: Cp = 32 * chunks, Op = BN * blocks; float32: Cp, Op rounded up to
-// 16, bn unused). act: 0 none, 1 relu, 2 leaky relu (slope). vec: the
-// float32 input may be read in 16-byte vectors.
+// (bf16: Cp = 32 * chunks; float32: Cp = 16 * chunks; Op = bn * blocks).
+// act: 0 none, 1 relu, 2 leaky relu (slope).
 extern "C" int vd3d_conv3x3(const void* x, const void* w, const void* bias, void* out,
                             int B, int H, int W, int C, int xs, int O, int os, int Cp, int Op,
-                            int bn, int act, float slope, int bf16, int vec, void* stream) {
+                            int bn, int act, float slope, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* bp = (const float*)bias;
   if (bf16) {
@@ -429,11 +629,15 @@ extern "C" int vd3d_conv3x3(const void* x, const void* w, const void* bias, void
     }
 #undef VD3D_CONV_WGMMA
   }
-#define VD3D_CONV_FMA(BN) \
-  launch_fma<BN>(x, w, bp, out, B, H, W, C, xs, O, os, Cp, Op, act, slope, vec, s)
-  const int fbn = Op % 64 == 0 ? 64 : (Op % 32 == 0 ? 32 : 16);
-  if (fbn == 64) return VD3D_CONV_FMA(64);
-  if (fbn == 32) return VD3D_CONV_FMA(32);
-  return VD3D_CONV_FMA(16);
-#undef VD3D_CONV_FMA
+  const int nchunks = Cp / FCK, nblk = Op / bn;
+#define VD3D_CONV_TF32(BN) \
+  launch_tf32<BN>(x, w, bp, out, B, H, W, C, xs, O, os, nchunks, nblk, act, slope, s)
+  switch (bn) {
+    case 8: return VD3D_CONV_TF32(8);
+    case 16: return VD3D_CONV_TF32(16);
+    case 32: return VD3D_CONV_TF32(32);
+    case 64: return VD3D_CONV_TF32(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VD3D_CONV_TF32
 }
