@@ -78,7 +78,10 @@ Phases, each printed on its own line; any failure exits nonzero:
      for bit, their neighbours' not), a letterboxed clip (138 black rows at
      top and bottom) with auto_crop_black_bars, and a 48-frame render
      cancelled after its second chunk and resumed, byte-identical to an
-     unbroken render;
+     unbroken render; then the functions that complete the JAX package's
+     surface (the one-image ops at 1080p, rife_apply and esrgan_apply at
+     toy widths) on the card against the same calls on the CPU, within the
+     CPU parity tests' gates, and the seconds that check took;
  10. (catalog) Depth Anything V2-Large (random weights from seed 0, 518^2,
      bf16, fast head) through the fused 1080p Full-SBS render (32 frames,
      chunks of 16; fps, device time, busy share, K1-K4 launches gated per
@@ -974,7 +977,7 @@ def phase_rife_batch(card: str, tmp: Path):
                    for n, m in model.named_modules()
                    if isinstance(m, (esr_mod.Conv3x3, rife_mod.StridedConv,
                                      rife_mod.TransposeConv, rife_mod.PReLU))]
-        orig_resize, orig_warp = rife_mod._resize, rife_mod.flow_warp
+        orig_resize, orig_warp = rife_mod._resize, rife_mod.flow_warp_batch
 
         def resize(t, hw):
             out = orig_resize(t, hw)
@@ -987,7 +990,7 @@ def phase_rife_batch(card: str, tmp: Path):
                   orig_warp, (t, flow), out)
             return out
 
-        rife_mod._resize, rife_mod.flow_warp = resize, warp
+        rife_mod._resize, rife_mod.flow_warp_batch = resize, warp
         try:
             with torch.inference_mode():
                 full = model(img0, img1, 0.5)
@@ -998,7 +1001,7 @@ def phase_rife_batch(card: str, tmp: Path):
                 half = model(img0[:2], img1[:2], 0.5)
                 single = torch.cat([model(img0[i:i + 1], img1[i:i + 1], 0.5) for i in range(2)])
         finally:
-            rife_mod._resize, rife_mod.flow_warp = orig_resize, orig_warp
+            rife_mod._resize, rife_mod.flow_warp_batch = orig_resize, orig_warp
             for h in handles:
                 h.remove()
 
@@ -1503,7 +1506,7 @@ def phase_render(card: str, tmp: Path) -> dict:
     frames_u8 = (torch.rand(16, H, W, 3, generator=torch.Generator().manual_seed(1))
                  * 255).to(torch.uint8).to(dev)
     frames = frames_u8.float() / 255.0
-    trackers = init_trackers(H, W, dev)
+    trackers = init_trackers(H, W, device=dev)
     run_params = params.replace(warp_hw=(H, W)).with_shift_bound(W)
     depths = pred.predict_01(frames, out_hw=(H, W))
     layers = {
@@ -2085,6 +2088,79 @@ def phase_surface(card: str, tmp: Path):
         f"(32 frames, checkpoint every chunk), resumed from frame 32: byte-identical to the "
         f"unbroken render ({os.path.getsize(part)} bytes) [{card}]")
     torch.cuda.empty_cache()
+    surface_functions(card)
+
+
+def surface_functions(card: str):
+    """The functions that complete the JAX package's surface, on cuda:0
+    against the same call on the CPU: the ops at 1080p, RIFE and ESRGAN at
+    toy widths (float32, TF32 off), within the CPU parity tests' gates."""
+    import numpy as np
+    import torch
+
+    from visiondepth3d_tpu_torch.depth.model import init_random_fan_in_
+    from visiondepth3d_tpu_torch.enhance.esrgan import ESRGANConfig, esrgan_apply
+    from visiondepth3d_tpu_torch.enhance.rife import IFNetConfig, rife_apply
+    from visiondepth3d_tpu_torch.ops import convert, depth_shaping, filters, quantiles, tiling
+    from visiondepth3d_tpu_torch.stereo.params import (StereoParams,
+                                                       pop_controls_locked_to_defaults)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(5)
+    frame = smooth_frame(gen, H, W, "cpu")
+    depth = frame.mean(-1)
+    u8 = (frame * 255).round().to(torch.uint8)
+    # values well inside their bins of 2048: the histogram is the same on both sides
+    inside = (torch.randint(0, 2048, (H, W), generator=gen)
+              + 0.1 + 0.8 * torch.rand(H, W, generator=gen)) / 2048
+    small = smooth_frame(gen, 64, 96, "cpu")
+    rife_cfg = IFNetConfig(cs=(32, 16), scales=(2, 1), n_res=2)
+    esr_cfg = ESRGANConfig(nf=16, nb=1, gc=8, scale=4)
+    rife_state = init_random_fan_in_(rife_cfg.build(), gen).state_dict()
+    esr_state = init_random_fan_in_(esr_cfg.build(), gen).state_dict()
+    tiles, starts = tiling.extract_tiles(frame, (518, 518), 64)
+    cases = {  # name -> (fn of a device, tolerance; 0 = bit for bit)
+        "rgb_to_gray": (lambda d: convert.rgb_to_gray(frame.to(d)), 1e-6),
+        "bgr_to_rgb": (lambda d: convert.bgr_to_rgb(frame.to(d)), 1e-6),
+        "depth_frame_to_01": (lambda d: convert.depth_frame_to_01(u8.to(d)), 0.0),
+        "midtone_shape": (lambda d: depth_shaping.midtone_shape(depth.to(d)), 1e-6),
+        "bilateral_smooth_depth": (lambda d: filters.bilateral_smooth_depth(depth.to(d)),
+                                   1e-5),
+        "hist_quantile": (lambda d: quantiles.hist_quantile(
+            inside.to(d), [0.02, 0.05, 0.5, 0.95, 0.98]), 1e-6),
+        "extract_tiles": (lambda d: tiling.extract_tiles(frame.to(d), (518, 518), 64)[0],
+                          1e-6),
+        "blend_tiles": (lambda d: tiling.blend_tiles(tiles.to(d), starts, (H, W)), 1e-6),
+        "tiled_apply": (lambda d: tiling.tiled_apply(lambda t: t.mean(-1), frame.to(d),
+                                                     (518, 518), 64), 1e-6),
+        "rife_apply": (lambda d: rife_apply((rife_state, rife_cfg), small.to(d),
+                                            small.flip(1).to(d), 0.5), 1e-5),
+        "esrgan_apply": (lambda d: esrgan_apply(esr_state, small[:32, :48].to(d),
+                                                cfg=esr_cfg), 1e-5),
+    }
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    try:
+        for name, (fn, tol) in cases.items():
+            want, got = fn("cpu"), fn("cuda:0")
+            expect(got.device.type == "cuda" and got.shape == want.shape
+                   and bool(torch.isfinite(got).all()),
+                   f"surface {name}: {got.device} {tuple(got.shape)} against "
+                   f"{tuple(want.shape)} on the CPU, or not finite")
+            err = (got.double().cpu() - want.double()).abs().max().item()
+            expect(err <= tol, f"surface {name}: card vs CPU max |d| {err:.3g} > {tol:g}")
+            errs[name] = err
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    moved = StereoParams(depth_pop_gamma=1.4, fg_pop_multiplier=2.0)
+    expect(pop_controls_locked_to_defaults(moved) == pop_controls_locked_to_defaults(
+        StereoParams()), "pop_controls_locked_to_defaults kept a moved pop control")
+    seconds = time.perf_counter() - t0
+    say(f"PHASE surface functions: {len(cases)} on cuda:0 against the CPU, max |d| "
+        f"{json.dumps({k: float(np.float32(v)) for k, v in errs.items()})}; "
+        f"pop_controls_locked_to_defaults field for field [{card}]")
+    say(f"PHASE surface functions took {seconds:.1f} s")
 
 
 def k7_depth_route(card: str, tmp: Path, phase: str, model: str, size: int,

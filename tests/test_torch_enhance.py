@@ -3,7 +3,8 @@ the JAX package, on numpy-seeded inputs at toy sizes.
 
 Weights: the JAX modules' flax params go through ``*_from_jax_params``
 into the port's modules. Tolerances (float32):
-- ``flow_warp``: 1e-6 (the same 4-gather formula);
+- ``flow_warp`` (one image) and ``flow_warp_batch``: 1e-6 (the same
+  4-gather formula);
 - pixel (un)shuffle: exact (pure data movement);
 - RRDBNet and IFNet outputs: 1e-5 (summation order of the convs, carried
   through the network and, for IFNet, through the flow warps);
@@ -29,7 +30,7 @@ from visiondepth3d_tpu.enhance import esrgan as jesr
 from visiondepth3d_tpu.enhance import rife as jrife
 from visiondepth3d_tpu.enhance.pipeline import EnhanceConfig as JConfig
 from visiondepth3d_tpu.enhance.pipeline import run_merged_pipeline as jrun
-from visiondepth3d_tpu.ops.flow_warp import flow_warp_batch
+from visiondepth3d_tpu.ops import flow_warp as jflow
 from test_torch_reference import bounded
 from visiondepth3d_tpu_torch.cli.main import main as cli_main
 from visiondepth3d_tpu_torch.enhance import esrgan as tesr
@@ -37,7 +38,7 @@ from visiondepth3d_tpu_torch.enhance import rife as trife
 from visiondepth3d_tpu_torch.enhance.convert import ifnet_from_jax_params, rrdbnet_from_jax_params
 from visiondepth3d_tpu_torch.enhance.pipeline import EnhanceConfig, run_merged_pipeline
 from visiondepth3d_tpu_torch.io import Y4MPlaneReader, Y4MReader, Y4MWriter
-from visiondepth3d_tpu_torch.ops.flow_warp import flow_warp
+from visiondepth3d_tpu_torch.ops.flow_warp import flow_warp, flow_warp_batch
 from visiondepth3d_tpu_torch.utils.onnx_reader import write_onnx_initializers
 
 
@@ -87,8 +88,10 @@ def _planes(path):
 
 # ------------------------------------------------------------------ ops
 
-@pytest.mark.parametrize("case", ["identity", "integer_shift", "random_past_borders"])
-def test_flow_warp_matches_jax(case):
+FLOW_CASES = ["identity", "integer_shift", "random_past_borders"]
+
+
+def _flow_case(case):
     rng = np.random.default_rng(4)
     img = rng.random((2, 12, 20, 3), dtype=np.float32)
     flow = np.zeros((2, 12, 20, 2), np.float32)
@@ -96,11 +99,29 @@ def test_flow_warp_matches_jax(case):
         flow[..., 0], flow[..., 1] = 3.0, -2.0
     elif case == "random_past_borders":
         flow = (rng.standard_normal((2, 12, 20, 2)) * 9).astype(np.float32)
-    got = flow_warp(_t(img), _t(flow)).numpy()
-    want = np.asarray(flow_warp_batch(jnp.asarray(img), jnp.asarray(flow)))
+    return img, flow
+
+
+@pytest.mark.parametrize("case", FLOW_CASES)
+def test_flow_warp_matches_jax(case):
+    """The batch form against JAX's ``flow_warp_batch``."""
+    img, flow = _flow_case(case)
+    got = flow_warp_batch(_t(img), _t(flow)).numpy()
+    want = np.asarray(jflow.flow_warp_batch(jnp.asarray(img), jnp.asarray(flow)))
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
     if case == "identity":
         np.testing.assert_allclose(got, img, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("case", FLOW_CASES)
+def test_flow_warp_one_image_matches_jax(case):
+    """The one-image form ([H, W, C], [H, W, 2]) against JAX's ``flow_warp``."""
+    img, flow = _flow_case(case)
+    for i in range(img.shape[0]):
+        got = flow_warp(_t(img[i]), _t(flow[i])).numpy()
+        want = np.asarray(jflow.flow_warp(jnp.asarray(img[i]), jnp.asarray(flow[i])))
+        assert got.shape == img.shape[1:]
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("r", [2, 4])

@@ -186,7 +186,7 @@ def test_banded_chunk_equals_one_device(case, sp):
     params = StereoParams(**kw).with_shift_bound(kw.get("warp_hw", (H, W))[1])
     frames, depths = _clip(seed=sp)
     blanks = torch.tensor([False, True, False, False])
-    t1, want = render_chunk(params, init_trackers(H, W, "cpu"), frames, depths, blanks)
+    t1, want = render_chunk(params, init_trackers(H, W, device="cpu"), frames, depths, blanks)
     bt, got = _banded(params, frames, depths, sp, blanks)
     for k in want._fields:
         assert torch.equal(getattr(got, k), getattr(want, k)), k
@@ -202,7 +202,7 @@ def test_banded_statistics_at_any_width():
     eyes within an ulp of float32 (the module docstring's vector tail)."""
     params = StereoParams().with_shift_bound(66)
     frames, depths = _clip(w=66, seed=4)
-    t1, want = render_chunk(params, init_trackers(H, 66, "cpu"), frames, depths)
+    t1, want = render_chunk(params, init_trackers(H, 66, device="cpu"), frames, depths)
     bt, got = _banded(params, frames, depths, 2, width=66)
     assert torch.equal(got.subject_depth, want.subject_depth)
     assert torch.equal(got.focal_depth, want.focal_depth)
@@ -245,7 +245,7 @@ def test_render_chunk_spatial_on_a_mesh():
     mesh = make_mesh(dp=1, sp=2, devices=["cpu", "cpu"])
     layout = spatial_layout(params, H, W, mesh)
     _, got = render_chunk_spatial(params, init_band_trackers(layout, W), frames, depths, mesh)
-    _, want = render_chunk(params, init_trackers(H, W, "cpu"), frames, depths)
+    _, want = render_chunk(params, init_trackers(H, W, device="cpu"), frames, depths)
     assert torch.equal(got.left, want.left) and torch.equal(got.right, want.right)
 
 

@@ -215,7 +215,7 @@ def test_render_segments_match_render_chunk():
     trackers, outs = render_segments(params, init_trackers_batch(2, 24, 32, CPU2), frames,
                                      depths, make_mesh(dp=2, devices=CPU2))
     for i in range(2):
-        t, want = render_chunk(params, init_trackers(24, 32, "cpu"), frames[i], depths[i])
+        t, want = render_chunk(params, init_trackers(24, 32, device="cpu"), frames[i], depths[i])
         assert torch.equal(outs[i].left, want.left) and torch.equal(outs[i].right, want.right)
         assert torch.equal(trackers[i].prev_depth, t.prev_depth)
     from visiondepth3d_tpu_torch.parallel.dp import spatial_layout
@@ -225,7 +225,7 @@ def test_render_segments_match_render_chunk():
     layout = spatial_layout(params, 24, 32, mesh)
     _, got = render_chunk_spatial(params, init_band_trackers(layout, 32), frames[0], depths[0],
                                   mesh)
-    _, want = render_chunk(params, init_trackers(24, 32, "cpu"), frames[0], depths[0])
+    _, want = render_chunk(params, init_trackers(24, 32, device="cpu"), frames[0], depths[0])
     assert torch.equal(got.left, want.left) and torch.equal(got.right, want.right)
 
 

@@ -260,8 +260,13 @@ EDGES = {
         [_frame(seed=1), _frame(seed=2), _depth()], F32),
     "heal_missing_pixels": lambda: (
         lambda a, o: jedges.heal_missing_pixels(a, o, None, 0.5),
-        lambda a, o: tedges.heal_missing_pixels(a, o, 0.5),
+        lambda a, o: tedges.heal_missing_pixels(a, o, None, 0.5),
         [_frame(seed=3), _frame(seed=4)], F32),
+    "heal_missing_pixels_edge_mask": lambda: (
+        lambda a, o, m: jedges.heal_missing_pixels(a, o, m, 0.5),
+        lambda a, o, m: tedges.heal_missing_pixels(a, o, m, 0.5),
+        [_frame(seed=3), _frame(seed=4), (_rng(13).random((48, 64)) > 0.7).astype(np.float32)],
+        F32),
     "color_grade_identity": lambda: (jgrade.apply_color_grade, tgrade.apply_color_grade,
                                      [_frame()], F32),
     "color_grade": lambda: (lambda a: jgrade.apply_color_grade(a, 1.3, 0.8, 0.05),

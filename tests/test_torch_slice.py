@@ -192,11 +192,11 @@ pred = load_predictor("depth-anything-v2-small", None, inference_size=28, config
                       device="cpu")
 frames = torch.rand(2, 24, 32, 3, generator=torch.Generator().manual_seed(0))
 depths = pred.predict_01(frames, out_hw=(24, 32))
-_, out = render_chunk(StereoParams().with_shift_bound(32), init_trackers(24, 32, "cpu"),
+_, out = render_chunk(StereoParams().with_shift_bound(32), init_trackers(24, 32, device="cpu"),
                       frames, depths)
 assert out.left.shape == (2, 24, 32, 3)
 _, out = render_chunk(StereoParams(dof_strength=2.0).with_shift_bound(32),
-                      init_trackers(24, 32, "cpu"), frames, depths)
+                      init_trackers(24, 32, device="cpu"), frames, depths)
 assert out.left.shape == (2, 24, 32, 3)
 from visiondepth3d_tpu_torch.ops import attention
 from visiondepth3d_tpu_torch.pipeline.depth_pipeline import DepthConfig, render_depth_video_file

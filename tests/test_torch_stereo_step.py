@@ -101,7 +101,7 @@ def test_stereo_step_matches_jax(config):
         def step(t, f, d):  # op by op: no fused multiply-adds
             with jax.disable_jit():
                 return jstep(jp, t, f, d)
-    jt, tt = jinit(H, W), tinit(H, W, "cpu")
+    jt, tt = jinit(H, W), tinit(H, W, device="cpu")
     for i in range(T):
         jt, jout = step(jt, jnp.asarray(frames[i]), jnp.asarray(depths[i]))
         tt, tout = stereo_frame_step(tp, tt, torch.from_numpy(frames[i]),
@@ -151,7 +151,7 @@ def test_render_chunk_dof_matches_jax(case):
     else:
         jt, jout = jax.jit(lambda t, f, d: jrender_chunk(jp, t, f, d))(
             jinit(H, W), jnp.asarray(frames), jnp.asarray(depths))
-    tt, tout = render_chunk(tp, tinit(H, W, "cpu"), torch.from_numpy(frames),
+    tt, tout = render_chunk(tp, tinit(H, W, device="cpu"), torch.from_numpy(frames),
                             torch.from_numpy(depths))
     _check_trackers(config, jt, tt, "chunk end")
     assert tout.left.shape == (T_DOF, H, width, 3)
@@ -170,8 +170,8 @@ def test_render_chunk_carries_trackers():
     carry across two chunks."""
     p = TParams().with_shift_bound(W)
     frames, depths = (torch.from_numpy(a) for a in _clip(seed=1))
-    t_all, out_all = render_chunk(p, tinit(H, W, "cpu"), frames, depths)
-    t_half, out_a = render_chunk(p, tinit(H, W, "cpu"), frames[:4], depths[:4])
+    t_all, out_all = render_chunk(p, tinit(H, W, device="cpu"), frames, depths)
+    t_half, out_a = render_chunk(p, tinit(H, W, device="cpu"), frames[:4], depths[:4])
     t_half, out_b = render_chunk(p, t_half, frames[4:], depths[4:])
     assert out_all.left.shape == (T, H, W, 3)
     torch.testing.assert_close(torch.cat([out_a.left, out_b.left]), out_all.left,
@@ -186,12 +186,12 @@ def test_unported_dof_raises():
     raises is asking for the kernel with CPU tensors, or a blur reach past
     the kernel's halo (dof_strength > 5)."""
     frame, depth = torch.rand(8, 8, 3), torch.rand(8, 8)
-    _, out = stereo_frame_step(TParams(dof_strength=1.0), tinit(8, 8, "cpu"), frame, depth)
+    _, out = stereo_frame_step(TParams(dof_strength=1.0), tinit(8, 8, device="cpu"), frame, depth)
     assert out.left.shape == (8, 8, 3)
     for dof_strength in (1.0, 5.5):
         with pytest.raises(ValueError):
             stereo_frame_step(TParams(dof_strength=dof_strength, dof_backend="cuda"),
-                              tinit(8, 8, "cpu"), frame, depth)
+                              tinit(8, 8, device="cpu"), frame, depth)
 
 
 BLANK_CASES = {"parity": ("parity", None), "shipped": ("shipped", None),
@@ -222,7 +222,7 @@ def test_blank_frame_passthrough(case):
     else:
         jt, jout = jax.jit(lambda t, f, d, b: jrender_chunk(jp, t, f, d, b))(
             jinit(H, W), jnp.asarray(frames), jnp.asarray(depths), jnp.asarray(blanks))
-    tt, tout = render_chunk(tp, tinit(H, W, "cpu"), torch.from_numpy(frames),
+    tt, tout = render_chunk(tp, tinit(H, W, device="cpu"), torch.from_numpy(frames),
                             torch.from_numpy(depths), torch.from_numpy(blanks))
     _check_trackers(config, jt, tt, "chunk end")
     assert tout.left.shape == (5, H, width, 3)
@@ -235,9 +235,9 @@ def test_blank_frame_passthrough(case):
         torch.testing.assert_close(tout.left[i], tout.right[i], atol=0, rtol=0)
     assert (tout.left[0] - tout.right[0]).abs().max() > 0.01
     # the frozen trackers against a run without blanks: frame 0 alone moves them
-    t1, _ = render_chunk(tp, tinit(H, W, "cpu"), torch.from_numpy(frames[:1]),
+    t1, _ = render_chunk(tp, tinit(H, W, device="cpu"), torch.from_numpy(frames[:1]),
                          torch.from_numpy(depths[:1]))
-    t3, _ = render_chunk(tp, tinit(H, W, "cpu"), torch.from_numpy(frames[:3]),
+    t3, _ = render_chunk(tp, tinit(H, W, device="cpu"), torch.from_numpy(frames[:3]),
                          torch.from_numpy(depths[:3]), torch.from_numpy(blanks[:3]))
     for name in ("fw_offset", "fw_counter", "focal", "focal_init"):
         torch.testing.assert_close(getattr(t3, name), getattr(t1, name), atol=0, rtol=0)

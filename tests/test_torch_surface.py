@@ -343,7 +343,7 @@ def test_resume_fused_route_truncates(tmp_path):
     tpipe.render_stereo_video(clip, None, part, None, cfg, cancel_check=_cancel_after(3),
                               predictor=pred)
     assert _read(part).shape[0] == 6
-    idx, _ = tresume.load_checkpoint(part, tinit(H, W, "cpu"))
+    idx, _ = tresume.load_checkpoint(part, tinit(H, W, device="cpu"))
     assert idx == 4
     tpipe.render_stereo_video(clip, None, part, None, dataclasses.replace(cfg, resume=True),
                               predictor=pred)
@@ -368,15 +368,15 @@ def test_checkpoints_interchange_with_jax(tmp_path, writer):
     if writer == "jax":
         jresume.save_checkpoint(out, 42, jinit(6, 8).replace(
             **{k: jnp.asarray(v) for k, v in vals.items()}))
-        idx, t = tresume.load_checkpoint(out, tinit(6, 8, "cpu"))
+        idx, t = tresume.load_checkpoint(out, tinit(6, 8, device="cpu"))
         get = lambda name: getattr(t, name).numpy()  # noqa: E731
     else:
-        tresume.save_checkpoint(out, 42, tinit(6, 8, "cpu").replace(
+        tresume.save_checkpoint(out, 42, tinit(6, 8, device="cpu").replace(
             **{k: torch.from_numpy(np.asarray(v)) for k, v in vals.items()}))
         idx, t = jresume.load_checkpoint(out, jinit(6, 8))
         get = lambda name: np.asarray(getattr(t, name))  # noqa: E731
     assert idx == 42 and tresume.checkpoint_path(out) == jresume.checkpoint_path(out)
-    assert [f.name for f in dataclasses.fields(tinit(1, 1, "cpu"))] == list(TRACKER_FIELDS)
+    assert [f.name for f in dataclasses.fields(tinit(1, 1, device="cpu"))] == list(TRACKER_FIELDS)
     for name, v in vals.items():
         got = get(name)
         assert got.dtype == np.asarray(v).dtype and np.array_equal(got, v), name

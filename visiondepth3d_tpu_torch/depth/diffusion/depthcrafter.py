@@ -234,3 +234,13 @@ class DepthCrafterPipeline:
 def _minmax(depth: torch.Tensor) -> torch.Tensor:
     lo, hi = depth.min(), depth.max()
     return torch.clamp((depth - lo) / torch.clamp(hi - lo, min=1e-9), 0.0, 1.0)
+
+
+def __getattr__(name: str):
+    # ``tiny_depthcrafter`` is defined in ``loaders``, which imports this module; it is
+    # importable from here too, where the JAX package defines it
+    if name == "tiny_depthcrafter":
+        from .loaders import tiny_depthcrafter
+
+        return tiny_depthcrafter
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -119,3 +119,13 @@ class MarigoldPipeline:
         outs = [self._run(rgb01, self._draw(self._latent_shape(rgb01), seed + e))
                 for e in range(self.ensemble_size)]
         return outs[0] if len(outs) == 1 else median0(torch.stack(outs))
+
+
+def __getattr__(name: str):
+    # ``tiny_marigold`` is defined in ``loaders``, which imports this module; it is
+    # importable from here too, where the JAX package defines it
+    if name == "tiny_marigold":
+        from .loaders import tiny_marigold
+
+        return tiny_marigold
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

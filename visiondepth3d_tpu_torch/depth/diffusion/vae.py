@@ -181,11 +181,15 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)
         self.post_quant_conv = nn.Conv2d(lat, lat, 1)
 
+    def encode_moments(self, x):
+        """[B, 3, H, W] -> the posterior's moments (mean, log variance),
+        [B, 2 latent, H / 2^(n-1), W / 2^(n-1)]."""
+        return self.quant_conv(self.encoder(x))
+
     def encode_mode(self, x):
         """[B, 3, H, W] in [-1, 1] -> the posterior's mode in latent units
         (times ``scaling_factor``), [B, latent, H / 2^(n-1), W / 2^(n-1)]."""
-        moments = self.quant_conv(self.encoder(x))
-        return moments[:, : self.cfg.latent_channels] * self.cfg.scaling_factor
+        return self.encode_moments(x)[:, : self.cfg.latent_channels] * self.cfg.scaling_factor
 
     def decode(self, z):
         return self.decoder(self.post_quant_conv(z / self.cfg.scaling_factor))

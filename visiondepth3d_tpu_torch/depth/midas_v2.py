@@ -81,6 +81,10 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = True,
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias, groups=groups)
 
 
+def relu6(x):
+    return F.relu6(x)
+
+
 class MBConvLite(nn.Module):
     """Inverted residual without squeeze-excite (the lite variant); an
     expand ratio of 1 is the depthwise-separable block of stage 0."""
@@ -99,10 +103,10 @@ class MBConvLite(nn.Module):
 
     def forward(self, x):
         if hasattr(self, "conv_pwl"):
-            h = F.relu6(self.conv_pw(x))
-            h = self.conv_pwl(F.relu6(self.conv_dw(h)))
+            h = relu6(self.conv_pw(x))
+            h = self.conv_pwl(relu6(self.conv_dw(h)))
         else:
-            h = self.conv_pw(F.relu6(self.conv_dw(x)))
+            h = self.conv_pw(relu6(self.conv_dw(x)))
         return h + x if self.residual else h
 
 
@@ -122,7 +126,7 @@ class EfficientNetLite(nn.Module):
 
     def forward(self, pixels):
         """The feature maps after the last stage of each tap group."""
-        x = F.relu6(self.conv_stem(pixels))
+        x = relu6(self.conv_stem(pixels))
         last = {g[-1] for g in self.cfg.taps}
         taps = []
         for si, stage in enumerate(self.blocks):

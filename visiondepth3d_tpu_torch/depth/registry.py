@@ -301,8 +301,8 @@ def _onnx_predictor(path: str, inference_size, device):
 
 
 def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518,
-                   seed: int = 0, dtype: str = "float32", device=DEFAULT_DEVICE,
-                   fast_head: bool = False, config=None, **diffusion_kw):
+                   seed: int = 0, dtype: str = "float32", config=None,
+                   device=DEFAULT_DEVICE, fast_head: bool = False, **diffusion_kw):
     """A predictor for a catalog entry on ``device`` (the CUDA card unless
     the caller passes "cpu"; without a card the default raises before any
     model is built): a ``DepthPredictor`` for the feed-forward families, a

@@ -115,6 +115,11 @@ def log_binom(n, k, eps: float = 1e-7):
     return n * torch.log(n) - k * torch.log(k) - (n - k) * torch.log(n - k + eps)
 
 
+def inv_attractor(dx, alpha: float = 1000.0, gamma: int = 2):
+    """The inverse attractor's pull dx / (1 + alpha dx^gamma)."""
+    return dx / (1.0 + alpha * dx ** gamma)
+
+
 class _TwoConv(nn.Module):
     """conv1 (1x1) -> ReLU -> conv2 (1x1): HF's seed regressors, projectors
     and attractors share these names."""
@@ -149,7 +154,7 @@ class AttractorLayerUnnormed(_TwoConv):
         attractors = F.softplus(super().forward(x))  # [B, A, h, w]
         centers = _up(prev_bin, x.shape[2:])  # [B, n_bins, h, w]
         dx = attractors[:, :, None] - centers[:, None]  # [B, A, n_bins, h, w]
-        delta = dx / (1.0 + self.alpha * dx ** 2)  # inverse attractor, gamma 2
+        delta = inv_attractor(dx, self.alpha)
         delta = delta.mean(1) if self.kind == "mean" else delta.sum(1)
         return centers + delta
 

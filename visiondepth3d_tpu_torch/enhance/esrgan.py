@@ -342,6 +342,22 @@ def load_esrgan_weights(path, scale: int | None = None
     return convert_esrgan(state, scale=scale)
 
 
+@torch.no_grad()
+def esrgan_apply(params, img: torch.Tensor, scale: int = 4,
+                 cfg: ESRGANConfig | None = None) -> torch.Tensor:
+    """One [H, W, 3] image in [0, 1] upscaled on its device. ``params``: the
+    state dict ``load_esrgan_weights`` returns (with its config as ``cfg``;
+    without one, the standard RRDBNet at ``scale``) or a built ``RRDBNet``."""
+    dev = img.device
+    if isinstance(params, RRDBNet):
+        model = params
+    else:
+        with dev:
+            model = (cfg or ESRGANConfig(scale=scale)).build()
+        model.load_state_dict(params)
+    return model.to(dev).eval()(img[None])[0]
+
+
 def blend_images(original: torch.Tensor, upscaled: torch.Tensor,
                  mode: str = "OFF") -> torch.Tensor:
     """AI-blend modes (merged_pipeline.py:233-238): alpha of the upscaled

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flow_warp import flow_warp
+from ..ops.flow_warp import flow_warp_batch
 from ..ops.resize import resize_bilinear
 from .esrgan import Conv3x3
 
@@ -171,8 +171,8 @@ class IFNet(nn.Module):
             dflow = y[..., :4] * float(s)
             flow = dflow if flow is None else flow + dflow
             mask = y[..., 4:5]  # overwritten per level, as upstream
-            warped0 = flow_warp(img0, flow[..., 0:2])
-            warped1 = flow_warp(img1, flow[..., 2:4])
+            warped0 = flow_warp_batch(img0, flow[..., 0:2])
+            warped1 = flow_warp_batch(img1, flow[..., 2:4])
         m = torch.sigmoid(mask)
         return torch.clamp(warped0 * m + warped1 * (1.0 - m), 0.0, 1.0)
 
@@ -202,6 +202,25 @@ def interpolate_pairs(model: IFNet, frames01: torch.Tensor, multiplier: int = 2)
         seq.extend(m[i] for m in mids)
     seq.append(frames01[-1])
     return torch.stack(seq)
+
+
+@torch.no_grad()
+def rife_apply(params_and_cfg, img0: torch.Tensor, img1: torch.Tensor,
+               t: float = 0.5) -> torch.Tensor:
+    """The frame at time t between two [H, W, 3] images in [0, 1], on
+    img0's device. ``params_and_cfg``: the (state dict, IFNetConfig) pair
+    ``load_rife_weights`` returns, a bare state dict (the default
+    geometry), or a built ``IFNet``."""
+    dev = img0.device
+    if isinstance(params_and_cfg, IFNet):
+        model = params_and_cfg
+    else:
+        state, cfg = (params_and_cfg if isinstance(params_and_cfg, tuple)
+                      else (params_and_cfg, IFNetConfig()))
+        with dev:
+            model = cfg.build()
+        model.load_state_dict(state)
+    return model.to(dev).eval()(img0[None], img1[None], t)[0]
 
 
 # ------------------------------------------------------------------ weights
@@ -255,9 +274,10 @@ def convert_rife(state: dict) -> tuple[dict[str, torch.Tensor], IFNetConfig]:
     return out, cfg
 
 
-def load_rife_weights(path) -> tuple[dict[str, torch.Tensor], IFNetConfig]:
+def load_rife_weights(path, scales=None) -> tuple[dict[str, torch.Tensor], IFNetConfig]:
     """RIFE weights from .pth/.pkl (torch), .safetensors or .onnx; the
-    geometry comes from the checkpoint itself."""
+    geometry comes from the checkpoint itself (``scales`` is taken, as in
+    the JAX package, and not used)."""
     p = str(path)
     if p.endswith(".onnx"):
         from ..utils.onnx_reader import read_onnx_initializers

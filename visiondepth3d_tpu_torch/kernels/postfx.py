@@ -34,7 +34,7 @@ def feather_heal_torch(left, right, frame, dleft, dright, blur_ksize: int = 7,
             out = edges.feather_shift_edges(out, orig, depth.float(), blur_ksize,
                                             feather_strength)
         if enable_healing:
-            out = edges.heal_missing_pixels(out, orig, heal_strength, heal_threshold)
+            out = edges.heal_missing_pixels(out, orig, None, heal_strength, heal_threshold)
         outs.append(out.to(dt))
     return tuple(outs)
 

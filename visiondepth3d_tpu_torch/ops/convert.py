@@ -11,6 +11,9 @@ from __future__ import annotations
 
 import torch
 
+# cv2's BGR2GRAY weights (Rec.601 luma), on RGB
+_GRAY_RGB = (0.299, 0.587, 0.114)
+
 
 def u8_to_float(img_u8: torch.Tensor) -> torch.Tensor:
     """uint8 [..., C] -> float32 in [0, 1]."""
@@ -31,6 +34,28 @@ def float_to_u8_round(img: torch.Tensor) -> torch.Tensor:
 def quantize_u8(img: torch.Tensor) -> torch.Tensor:
     """float(u8(trunc(x * 255))) / 255 without leaving float."""
     return torch.floor(img.clamp(0.0, 1.0) * 255.0) / 255.0
+
+
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """[..., 3] RGB -> [...] gray with cv2/Rec.601 weights, in rgb's type."""
+    return (_GRAY_RGB[0] * rgb[..., 0] + _GRAY_RGB[1] * rgb[..., 1]
+            + _GRAY_RGB[2] * rgb[..., 2])
+
+
+def depth_frame_to_01(depth_rgb_u8: torch.Tensor) -> torch.Tensor:
+    """An RGB uint8 depth frame [..., H, W, 3] -> round(gray) / 255 in
+    float32 [..., H, W] (the reference's BGR2GRAY of a depth frame).
+
+    The divisor is a tensor on the frame's device: PyTorch's CUDA division
+    by a Python number multiplies by its reciprocal, one ulp off the
+    quotient the CPU (and JAX) computes."""
+    gray = torch.round(rgb_to_gray(depth_rgb_u8.to(torch.float32)))
+    return gray / gray.new_tensor(255.0)
+
+
+def bgr_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """Reverse the last (channel) axis."""
+    return img.flip(-1)
 
 
 def yuv420_to_rgb_u8(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Counterpart of ``visiondepth3d_tpu/ops/depth_shaping.py``: percentile
 stretch, recenter on the subject, symmetric signed-power contrast about the
-mid plane; and the additive curvature dome.
+mid plane; the additive curvature dome; and the plain gamma
+``midtone_shape``.
 """
 
 from __future__ import annotations
@@ -57,3 +58,8 @@ def enhance_curvature(depth: torch.Tensor, strength: float = 0.08, row0: int = 0
     xx = torch.linspace(-1.0, 1.0, w, dtype=depth.dtype, device=depth.device)[None, :]
     curvature = 1.0 - (xx * xx + yy * yy)
     return depth + curvature * strength
+
+
+def midtone_shape(depth01: torch.Tensor, gamma: float = 0.85) -> torch.Tensor:
+    """The power curve clamp(d, 0, 1) ** gamma."""
+    return torch.clamp(depth01, 0.0, 1.0) ** gamma

@@ -37,14 +37,19 @@ def feather_shift_edges(shifted: torch.Tensor, original: torch.Tensor,
 
 
 def heal_missing_pixels(warped_frame: torch.Tensor, original_frame: torch.Tensor,
+                        edge_mask: torch.Tensor | None = None,
                         heal_strength: float = 0.5,
                         threshold: float = 0.05) -> torch.Tensor:
     """Blend the original into high-gradient (gap) areas, then re-soften
-    the healed areas with a 3x3 blur. [H, W, 3] in/out."""
+    the healed areas with a 3x3 blur. [H, W, 3] in/out; ``edge_mask``, an
+    optional [H, W], adds its areas to the gap mask (elementwise max)."""
     dx, dy = forward_diff_grad(warped_frame.mean(dim=-1))
     grad_mag = torch.sqrt(dx * dx + dy * dy)
     missing = (grad_mag > threshold).to(warped_frame.dtype)
-    m = torch.clamp(box_blur(missing, 5), 0.0, 1.0)[..., None]
+    missing = torch.clamp(box_blur(missing, 5), 0.0, 1.0)
+    if edge_mask is not None:
+        missing = torch.maximum(missing, edge_mask.to(missing.dtype))
+    m = missing[..., None]
     healed = (1.0 - heal_strength * m) * warped_frame + heal_strength * m * original_frame
     soft = box_blur(healed.permute(2, 0, 1), 3).permute(1, 2, 0)
     healed = (1.0 - 0.3 * m) * healed + 0.3 * m * soft

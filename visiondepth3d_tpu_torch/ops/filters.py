@@ -7,6 +7,8 @@ Counterpart of ``visiondepth3d_tpu/ops/filters.py``:
   (no edge repeat), rows first then columns;
 - ``sharpen``: the brightness-preserving 3x3 cross kernel with a
   reflect-101 border, clamped to [0, 1];
+- ``bilateral_smooth_depth``: cv2's bilateral filter on a depth plane in
+  u8 value scale (circular window, reflect-101 border), kept in float;
 - ``forward_diff_grad``: left/top zero-padded forward differences.
 """
 
@@ -103,6 +105,37 @@ def sharpen(x: torch.Tensor, factor: float) -> torch.Tensor:
     right = torch.cat([x[:, 1:], x[:, -2:-1]], dim=1)
     out = w_center * x + w_cross * (up + down + left + right)
     return out.clamp(0.0, 1.0).to(dt)
+
+
+def bilateral_smooth_depth(d: torch.Tensor, ksize: int = 9, sigma_color: float = 75.0,
+                           sigma_space: float = 75.0) -> torch.Tensor:
+    """Edge-preserving smoothing of an [H, W] depth in [0, 1] with
+    ``cv2.bilateralFilter``'s weights: a circular window of radius
+    ksize // 2 (taps with dy^2 + dx^2 > radius^2 are skipped), spatial
+    weight exp(-r^2 / (2 sigma_space^2)), range weight exp(-dv^2 /
+    (2 sigma_color^2)) with dv in u8 value scale, reflect-101 borders. The
+    values are not rounded to u8 on the way."""
+    radius = ksize // 2
+    sc = max(float(sigma_color), 1.0)
+    ss = max(float(sigma_space), 1.0)
+    v = d * 255.0
+    h, w = v.shape
+    vp = v.index_select(0, _reflect_index(h, radius, d.device)).index_select(
+        1, _reflect_index(w, radius, d.device))
+    num = torch.zeros_like(v)
+    den = torch.zeros_like(v)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            r2 = dy * dy + dx * dx
+            if r2 > radius * radius:
+                continue
+            sw = float(np.exp(-0.5 * r2 / (ss * ss)))
+            tap = vp[radius + dy:radius + dy + h, radius + dx:radius + dx + w]
+            # sw * exp(-0.5 * (diff * diff) / (sc * sc)), in place
+            wgt = (tap - v).square_().mul_(-0.5).div_(sc * sc).exp_().mul_(sw)
+            num += wgt * tap
+            den += wgt
+    return (num / den) / 255.0
 
 
 def forward_diff_grad(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -11,7 +11,13 @@ from __future__ import annotations
 import torch
 
 
-def flow_warp(imgs: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
+def flow_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """img [H, W, C]; flow [H, W, 2] (dx, dy) in pixels. Returns [H, W, C]:
+    out[y, x] = img sampled at (x + dx, y + dy), border-clamped bilinear."""
+    return flow_warp_batch(img[None], flow[None])[0]
+
+
+def flow_warp_batch(imgs: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
     """imgs [B, H, W, C]; flows [B, H, W, 2] (dx, dy) in pixels.
 
     out[b, y, x] = imgs[b] sampled at (x + dx, y + dy), border-clamped

@@ -10,6 +10,9 @@ Counterpart of ``visiondepth3d_tpu/ops/quantiles.py``. Two modes:
   to the JAX function. On a CUDA tensor the unmasked 2-D quantile pair runs
   the hand-written kernel of ``kernels/stats.py``, which reproduces the same
   decisions from one histogram pass.
+
+``hist_quantile`` inverts the CDF of a fixed-bin histogram instead (within
+a bin width of the exact quantile).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Literal, Sequence
 import torch
 
 QuantileMode = Literal["hist", "exact"]
+
+DEFAULT_BINS = 2048
 
 
 def histogram_01(x: torch.Tensor, bins: int,
@@ -64,6 +69,30 @@ def bisect_quantile_01(x: torch.Tensor, q, mask: torch.Tensor | None = None,
     return ((lo + hi) * 0.5).reshape(q_in.shape)
 
 
+def _hist_cdf_invert(hist: torch.Tensor, count: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Invert a histogram's CDF at quantile(s) q, interpolating linearly
+    inside the bin."""
+    bins = hist.shape[0]
+    cdf = torch.cumsum(hist, 0)
+    target = q * count
+    bin_idx = torch.searchsorted(cdf, target.reshape(-1), side="left").reshape(target.shape)
+    bin_idx = bin_idx.clamp(0, bins - 1)
+    cdf_lo = torch.where(bin_idx > 0, cdf[torch.clamp(bin_idx - 1, min=0)],
+                         torch.zeros((), dtype=hist.dtype, device=hist.device))
+    in_bin = torch.clamp(hist[bin_idx], min=1e-12)
+    frac = torch.clamp((target - cdf_lo) / in_bin, 0.0, 1.0)
+    return (bin_idx.to(hist.dtype) + frac) / bins
+
+
+def hist_quantile(x: torch.Tensor, q, mask: torch.Tensor | None = None,
+                  bins: int = DEFAULT_BINS) -> torch.Tensor:
+    """Quantile(s) of values in [0, 1] from the inverted CDF of a
+    ``bins``-bin histogram (within a bin width of the exact quantile)."""
+    q = torch.as_tensor(q, dtype=x.dtype, device=x.device)
+    hist = histogram_01(x, bins, mask)
+    return _hist_cdf_invert(hist, hist.sum(), q)
+
+
 def exact_quantile(x: torch.Tensor, q, mask: torch.Tensor | None = None) -> torch.Tensor:
     """torch.quantile linear interpolation; with a mask, the quantile of the
     valid subset (invalid elements sort to +inf)."""
@@ -84,8 +113,10 @@ def exact_quantile(x: torch.Tensor, q, mask: torch.Tensor | None = None) -> torc
 
 def quantile_01(x: torch.Tensor, q: Sequence[float] | float,
                 mask: torch.Tensor | None = None,
-                mode: QuantileMode = "hist") -> torch.Tensor:
-    """Quantile of values known to lie in [0, 1]. Dispatch on mode."""
+                mode: QuantileMode = "hist", bins: int = DEFAULT_BINS) -> torch.Tensor:
+    """Quantile of values known to lie in [0, 1]. Dispatch on mode. The
+    bisection reads no histogram: ``bins`` is taken, as in the JAX
+    package, and not used."""
     if mode == "exact":
         return exact_quantile(x, q, mask)
     if mask is None and x.ndim == 2 and isinstance(q, (tuple, list)) and len(q) == 2:
@@ -105,8 +136,10 @@ def exact_masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return s[idx]
 
 
-def hist_masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Bisection form of the masked lower-middle median."""
+def hist_masked_median(x: torch.Tensor, mask: torch.Tensor,
+                       bins: int = DEFAULT_BINS) -> torch.Tensor:
+    """Bisection form of the masked lower-middle median (``bins`` unused,
+    as in ``quantile_01``)."""
     count = torch.clamp(mask.to(x.dtype).sum(), min=1.0)
     # lower-middle order statistic: 1-based rank floor((n-1)/2) + 1
     q = (torch.floor((count - 1.0) / 2.0) + 1.0) / count
@@ -114,10 +147,10 @@ def hist_masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def masked_median_01(x: torch.Tensor, mask: torch.Tensor,
-                     mode: QuantileMode = "hist") -> torch.Tensor:
+                     mode: QuantileMode = "hist", bins: int = DEFAULT_BINS) -> torch.Tensor:
     if mode == "exact":
         return exact_masked_median(x, mask)
-    return hist_masked_median(x, mask)
+    return hist_masked_median(x, mask, bins)
 
 
 def quantile_pair_bands(bands: list[torch.Tensor], q: tuple[float, float], lead: torch.device,

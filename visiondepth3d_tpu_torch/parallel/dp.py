@@ -40,7 +40,7 @@ def init_trackers_batch(g: int, height: int, width: int, devices="cpu") -> list[
         devices = [devices] * g
     if len(devices) != g:
         raise ValueError(f"{len(devices)} devices for {g} segments")
-    return [init_trackers(height, width, torch.device(d)) for d in devices]
+    return [init_trackers(height, width, device=torch.device(d)) for d in devices]
 
 
 def render_segments(params: StereoParams, trackers: list[StereoTrackers],

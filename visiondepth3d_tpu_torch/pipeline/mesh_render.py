@@ -313,7 +313,7 @@ def render_stereo_video_mesh(
                  if sp > 1 else None)
         fn = make_chunk_fn(params, geom, cfg, predictor=pred, yuv_in=yuv_in, bands=bands)
         trackers = (init_band_trackers(bands, geom.eye_w) if bands is not None
-                    else init_trackers(geom.eye_h, geom.eye_w, seg_devices[g]))
+                    else init_trackers(geom.eye_h, geom.eye_w, device=seg_devices[g]))
         return fn, trackers
 
     seg_paths = [f"{output_path}.seg{g}.y4m" for g in range(dp)]

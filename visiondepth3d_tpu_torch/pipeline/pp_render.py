@@ -114,7 +114,7 @@ def render_stereo_video_pp(
         pipe = TwoStagePipeline([*slice_a, *slice_b], w, lambda item: depth_body(item[0]),
                                 stage_b)
         trackers = (init_band_trackers(bands, geom.eye_w) if bands is not None
-                    else init_trackers(geom.eye_h, geom.eye_w, dev_b))
+                    else init_trackers(geom.eye_h, geom.eye_w, device=dev_b))
         prog = RenderProgress()
         for out_u8, n in pipe.run(chunks(), trackers):
             stream.emit(out_u8, n)

@@ -447,7 +447,7 @@ def render_stereo_video(input_path, depth_path, output_path,
             rd.close()
             rd = Y4MPlaneReader(input_path)
         chunk_fn = make_chunk_fn(params, geom, cfg, predictor=predictor, yuv_in=yuv_in)
-        trackers = init_trackers(geom.eye_h, geom.eye_w, dev)
+        trackers = init_trackers(geom.eye_h, geom.eye_w, device=dev)
 
         skip_n = 0
         if cfg.resume:

@@ -60,7 +60,7 @@ def render_preview(frame01: np.ndarray, depth01: np.ndarray,
     frame = host_to_device(np.ascontiguousarray(frame01, np.float32), dev)
     depth = host_to_device(np.ascontiguousarray(depth01, np.float32), dev)
     h, w = frame.shape[:2]
-    _, out = stereo_frame_step(params, init_trackers(h, w, dev), frame, depth)
+    _, out = stereo_frame_step(params, init_trackers(h, w, device=dev), frame, depth)
 
     if mode == "left":
         img = out.left

@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from ..device import DEFAULT_DEVICE
 from ..ops.quantiles import QuantileMode, quantile_01
 
 
@@ -53,7 +54,8 @@ class StereoTrackers:
         return dataclasses.replace(self, **kw)
 
 
-def init_trackers(height: int, width: int, device, dtype=torch.float32) -> StereoTrackers:
+def init_trackers(height: int, width: int, dtype=torch.float32,
+                  device=DEFAULT_DEVICE) -> StereoTrackers:
     def z():
         return torch.zeros((), dtype=dtype, device=device)
 
@@ -84,19 +86,19 @@ def smooth_plane(initialized: torch.Tensor, prev_depth: torch.Tensor, depth: tor
     return alpha * prev + (1.0 - alpha) * depth
 
 
-def temporal_depth_smooth(t: StereoTrackers, depth: torch.Tensor, alpha: float = 0.5):
-    smoothed = smooth_plane(t.initialized, t.prev_depth, depth, alpha)
-    return t.replace(prev_depth=smoothed), smoothed
+def temporal_depth_smooth(trackers: StereoTrackers, depth: torch.Tensor, alpha: float = 0.5):
+    smoothed = smooth_plane(trackers.initialized, trackers.prev_depth, depth, alpha)
+    return trackers.replace(prev_depth=smoothed), smoothed
 
 
-def percentile_ema_normalize(t: StereoTrackers, depth01: torch.Tensor,
+def percentile_ema_normalize(trackers: StereoTrackers, depth01: torch.Tensor,
                              p_lo: float = 0.02, p_hi: float = 0.98,
                              alpha: float = 0.92,
                              quantile_mode: QuantileMode = "hist"):
     d = torch.clamp(depth01, 0.0, 1.0)
     q = quantile_01(d, (p_lo, p_hi), mode=quantile_mode)
-    t, new_lo, new_hi, degenerate = percentile_ema_update(t, q[0], q[1], alpha)
-    return t, percentile_ema_apply(d, new_lo, new_hi, degenerate)
+    trackers, new_lo, new_hi, degenerate = percentile_ema_update(trackers, q[0], q[1], alpha)
+    return trackers, percentile_ema_apply(d, new_lo, new_hi, degenerate)
 
 
 def percentile_ema_update(t: StereoTrackers, lo: torch.Tensor, hi: torch.Tensor,
@@ -120,50 +122,50 @@ def percentile_ema_apply(d: torch.Tensor, new_lo: torch.Tensor, new_hi: torch.Te
                        torch.clamp((d - new_lo) / (new_hi - new_lo + 1e-6), 0.0, 1.0))
 
 
-def convergence_ema_update(t: StereoTrackers, x: torch.Tensor, alpha: float = 0.97):
-    val = torch.where(t.conv_init, alpha * t.conv_val + (1 - alpha) * x, x)
-    return t.replace(conv_val=val, conv_init=_true(x)), val
+def convergence_ema_update(trackers: StereoTrackers, x: torch.Tensor, alpha: float = 0.97):
+    val = torch.where(trackers.conv_init, alpha * trackers.conv_val + (1 - alpha) * x, x)
+    return trackers.replace(conv_val=val, conv_init=_true(x)), val
 
 
-def shift_smoother_update(t: StereoTrackers, fg: float, mg: float, bg: float,
+def shift_smoother_update(trackers: StereoTrackers, fg: float, mg: float, bg: float,
                           alpha: float = 0.15):
     """Blends toward the new value with weight alpha."""
-    fg, mg, bg = (torch.full((), v, dtype=t.fg.dtype, device=t.fg.device)
+    fg, mg, bg = (torch.full((), v, dtype=trackers.fg.dtype, device=trackers.fg.device)
                   for v in (fg, mg, bg))
-    nfg = torch.where(t.shift_init, alpha * fg + (1 - alpha) * t.fg, fg)
-    nmg = torch.where(t.shift_init, alpha * mg + (1 - alpha) * t.mg, mg)
-    nbg = torch.where(t.shift_init, alpha * bg + (1 - alpha) * t.bg, bg)
-    return (t.replace(fg=nfg, mg=nmg, bg=nbg, shift_init=_true(t.fg)),
+    nfg = torch.where(trackers.shift_init, alpha * fg + (1 - alpha) * trackers.fg, fg)
+    nmg = torch.where(trackers.shift_init, alpha * mg + (1 - alpha) * trackers.mg, mg)
+    nbg = torch.where(trackers.shift_init, alpha * bg + (1 - alpha) * trackers.bg, bg)
+    return (trackers.replace(fg=nfg, mg=nmg, bg=nbg, shift_init=_true(trackers.fg)),
             (nfg, nmg, nbg))
 
 
-def floating_window_update(t: StereoTrackers, current_offset: torch.Tensor,
+def floating_window_update(trackers: StereoTrackers, current_offset: torch.Tensor,
                            alpha: float = 0.97, threshold: float = 0.0015):
-    prev = t.fw_offset
+    prev = trackers.fw_offset
     small = torch.abs(current_offset - prev) < threshold
     updated = alpha * prev + (1 - alpha) * current_offset
-    counter = t.fw_counter + 1
+    counter = trackers.fw_counter + 1
     clamp_now = counter >= 100
     updated = torch.where(clamp_now, torch.clamp(updated, -1.0, 1.0), updated)
     counter = torch.where(clamp_now, torch.zeros_like(counter), counter)
     new_offset = torch.where(small, prev, updated)
-    new_counter = torch.where(small, t.fw_counter, counter)
-    return t.replace(fw_offset=new_offset, fw_counter=new_counter), new_offset
+    new_counter = torch.where(small, trackers.fw_counter, counter)
+    return trackers.replace(fw_offset=new_offset, fw_counter=new_counter), new_offset
 
 
-def bar_easer_update(t: StereoTrackers, current_width: torch.Tensor, alpha: float = 0.85):
-    eased = torch.floor(alpha * t.bar_width + (1 - alpha) * current_width)
-    return t.replace(bar_width=eased), eased
+def bar_easer_update(trackers: StereoTrackers, current_width: torch.Tensor, alpha: float = 0.85):
+    eased = torch.floor(alpha * trackers.bar_width + (1 - alpha) * current_width)
+    return trackers.replace(bar_width=eased), eased
 
 
-def focal_tracker_update(t: StereoTrackers, candidate: torch.Tensor,
+def focal_tracker_update(trackers: StereoTrackers, candidate: torch.Tensor,
                          motion: torch.Tensor, deadband: float = 0.03,
                          max_step: float = 0.02):
     alpha = 0.10 + 0.20 * torch.clamp(motion, 0.0, 1.0)
-    focal = t.focal
+    focal = trackers.focal
     c = torch.where(torch.abs(candidate - focal) < deadband, focal, candidate)
     new_focal = (1.0 - alpha) * focal + alpha * c
     step = torch.clamp(new_focal - focal, -max_step, max_step)
     new_focal = torch.clamp(focal + step, 0.0, 1.0)
-    out = torch.where(t.focal_init, new_focal, candidate)
-    return t.replace(focal=out, focal_init=_true(out)), out
+    out = torch.where(trackers.focal_init, new_focal, candidate)
+    return trackers.replace(focal=out, focal_init=_true(out)), out

@@ -79,7 +79,7 @@ class BandTrackers:
 
 
 def init_band_trackers(layout: BandLayout, width: int) -> BandTrackers:
-    lead = trk.init_trackers(0, width, layout.lead)
+    lead = trk.init_trackers(0, width, device=layout.lead)
 
     def planes():
         return [torch.zeros((r1 - r0, width), dtype=torch.float32, device=d)

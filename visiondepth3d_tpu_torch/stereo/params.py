@@ -95,3 +95,12 @@ class StereoParams:
         a sub-pixel allowance for the convergence bias."""
         return self.replace(
             max_shift_px_bound=int(math.ceil(self.max_pixel_shift_percent * width)) + 2)
+
+
+def pop_controls_locked_to_defaults(p: StereoParams) -> StereoParams:
+    """``p`` with the reference render path's fixed pop constants (gamma
+    0.85, mid 0.50, stretch 0.05 / 0.95, pop 1.20, push 1.10, subject lock
+    1.00), for golden parity runs."""
+    return p.replace(depth_pop_gamma=0.85, depth_pop_mid=0.50, depth_stretch_lo=0.05,
+                     depth_stretch_hi=0.95, fg_pop_multiplier=1.20, bg_push_multiplier=1.10,
+                     subject_lock_strength=1.00)

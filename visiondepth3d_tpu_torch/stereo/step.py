@@ -138,11 +138,18 @@ def _dispatch_dof(p: StereoParams, left, right, depth_w, focal):
 
 
 def pixel_shift(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
-                depth: torch.Tensor, fg, mg, bg):
-    """The DIBR core. frame: [H, W, 3], depth: [H, W].
-    Returns (trackers, left, right, shift_map, subject_depth, frame_w): the
-    last is the frame at the warp size in the image type, the source of the
-    blank-frame passthrough."""
+                depth: torch.Tensor):
+    """The DIBR core at p's shifts. frame: [H, W, 3], depth: [H, W].
+    Returns (trackers, left, right, shift_map, subject_depth)."""
+    return _pixel_shift(p, t, frame, depth, p.fg_shift, p.mg_shift, p.bg_shift)[:5]
+
+
+def _pixel_shift(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
+                 depth: torch.Tensor, fg, mg, bg):
+    """``pixel_shift`` at the shifts fg, mg, bg (floats, or 0-d tensors on
+    the frame's device). Returns (trackers, left, right, shift_map,
+    subject_depth, frame_w): the last is the frame at the warp size in the
+    image type, the source of the blank-frame passthrough."""
     if p.warp_hw is not None and tuple(p.warp_hw) != tuple(frame.shape[:2]):
         frame = resize_bilinear(frame, tuple(p.warp_hw))
         depth = resize_bilinear(depth, tuple(p.warp_hw))
@@ -215,7 +222,7 @@ def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tenso
     ipd = 1.0 if p.ipd_factor == 0.0 else p.ipd_factor
     fg, mg, bg = fg * dyn * ipd, mg * dyn * ipd, bg * dyn * ipd
 
-    t, left, right, shift_map, subj, frame_w = pixel_shift(p, t, frame, depth_n, fg, mg, bg)
+    t, left, right, shift_map, subj, frame_w = _pixel_shift(p, t, frame, depth_n, fg, mg, bg)
     left = _maybe_quantize(left, p)
     right = _maybe_quantize(right, p)
 

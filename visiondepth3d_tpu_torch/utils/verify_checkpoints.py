@@ -62,6 +62,10 @@ def _host(x) -> np.ndarray:
     return x.float().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _on(frame: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(frame)).to(device)
+
+
 def _depth_sanity(pred) -> dict:
     d = _host(pred(torch.from_numpy(ground_plane_scene())))[0]
     if not np.isfinite(d).all():
@@ -104,33 +108,13 @@ def _check_feedforward(path: str, model: str, device) -> dict:
     return {"std": round(float(d.std()), 4)}
 
 
-@torch.no_grad()
-def _rife_mid(state_cfg, a: np.ndarray, b: np.ndarray, device) -> np.ndarray:
-    """The IFNet midpoint of two [H, W, 3] frames in [0, 1]."""
-    state, cfg = state_cfg
-    model = cfg.build()
-    model.load_state_dict(state)
-    model = model.to(device).eval()
-    pair = [torch.from_numpy(np.ascontiguousarray(f))[None].to(device) for f in (a, b)]
-    return _host(model(*pair, 0.5))[0]
-
-
-@torch.no_grad()
-def _esrgan_up(state, cfg, x: np.ndarray, device) -> np.ndarray:
-    """An [H, W, 3] frame in [0, 1] through the RRDBNet of ``cfg``."""
-    model = cfg.build()
-    model.load_state_dict(state)
-    model = model.to(device).eval()
-    return _host(model(torch.from_numpy(np.ascontiguousarray(x))[None].to(device)))[0]
-
-
 def _check_rife(path: str, device) -> dict:
-    from ..enhance.rife import load_rife_weights
+    from ..enhance.rife import load_rife_weights, rife_apply
 
     state_cfg = load_rife_weights(path)
     a = ground_plane_scene(96, 128)[0]
     b = np.roll(a, 4, axis=1)
-    mid = _rife_mid(state_cfg, a, b, device)
+    mid = _host(rife_apply(state_cfg, _on(a, device), _on(b, device)))
     if not np.isfinite(mid).all():
         raise AssertionError("non-finite frame")
     d_mid = float(np.abs(mid - a).mean())
@@ -143,11 +127,11 @@ def _check_rife(path: str, device) -> dict:
 
 
 def _check_esrgan(path: str, scale_hint=None, device=DEFAULT_DEVICE) -> dict:
-    from ..enhance.esrgan import load_esrgan_weights
+    from ..enhance.esrgan import esrgan_apply, load_esrgan_weights
 
     state, cfg = load_esrgan_weights(path, scale=scale_hint)
     x = ground_plane_scene(48, 64)[0]
-    y = _esrgan_up(state, cfg, x, device)
+    y = _host(esrgan_apply(state, _on(x, device), cfg=cfg))
     want = (48 * cfg.scale, 64 * cfg.scale, 3)
     if y.shape != want:
         raise AssertionError(f"output {y.shape}, expected {want}")
