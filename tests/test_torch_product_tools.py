@@ -56,7 +56,7 @@ PORT_OWN_HELP = {("", "description"), ("render", "--device"), ("depth", "--devic
                  ("render", "--mesh"), ("depth", "--mesh"), ("tools", "--mesh"),
                  ("tools", "--dtype"), ("render", "--checkpoint"), ("depth", "--checkpoint"),
                  ("render", "--dry-run"), ("depth", "--overlap"), ("preview", "--device"),
-                 ("serve", "--device")}
+                 ("serve", "--device"), ("render", "--trace")}
 
 
 @pytest.fixture(autouse=True)

@@ -4,6 +4,7 @@
         --checkpoint model.safetensors --format Full-SBS --device cuda
     vd3d-torch render --input clip.y4m --allow-random --dof_strength 2
     vd3d-torch render --input clip.y4m --allow-random --mesh dp=2 --mesh-snap-scenes
+    vd3d-torch render --input clip.y4m --allow-random --trace trace_dir/
     vd3d-torch render --input clip.y4m --depth clip_depth.y4m \\
         --format "Red-Cyan Anaglyph" --preset best3d --control ctl.txt --resume
     vd3d-torch render --batch-videos in/ --batch-depths depth/ --batch-out out/
@@ -76,8 +77,8 @@ from ..stereo import StereoParams
 # render refuses them, as the JAX CLI does
 _NOT_FUSED = ("vda", "diffusion")
 # the port's own help strings stay in English: the JAX CLI has no such flag
-# (--device, render --resume), or its text is not true of the port (--mesh,
-# tools --dtype)
+# (--device, render --resume, render --trace), or its text is not true of
+# the port (--mesh, tools --dtype)
 _DEVICE_HELP = "torch device: cuda, cuda:N or cpu"
 
 
@@ -193,6 +194,12 @@ def build_parser() -> _I18nParser:
     p.add_argument("--dry-run", action="store_true",
                    help="print the resolved parameters as JSON and exit")
     p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the model load and the render, "
+                        "with the render loop's spans, to DIR (TensorBoard), and the "
+                        "spans' host times and each chunk's frame count to "
+                        "DIR/vd3d_spans.json; the profiler keeps every operation in "
+                        "memory until the end, so trace a short clip")
     _add_param_flags(p)
     _add_depth_parser(sub)
     _add_frames_convert_parsers(sub)
@@ -450,6 +457,30 @@ def _control_check(args):
 
 
 def cmd_render(args) -> int:
+    """``render``; with ``--trace DIR`` it runs under ``profiler_trace(DIR)``,
+    so the trace holds the program's spans, and writes the spans' records
+    and each chunk's counts to ``DIR/vd3d_spans.json``."""
+    if args.trace is None:
+        return _render(args)
+    import os
+
+    from ..utils.observability import profiler_trace, records, reset_records
+
+    reset_records()
+    try:
+        with profiler_trace(args.trace):
+            return _render(args)
+    finally:
+        spans, counts = records()
+        reset_records()
+        os.makedirs(args.trace, exist_ok=True)
+        with open(os.path.join(args.trace, "vd3d_spans.json"), "w") as f:
+            json.dump({"spans": [s._asdict() for s in spans],
+                       "counts": [{"name": k, "chunk": c, "n": n}
+                                  for (k, c), n in counts.items()]}, f)
+
+
+def _render(args) -> int:
     from ..config.presets import load_builtin, load_preset, params_to_dict
 
     if args.input is None and args.batch_videos is None:

@@ -36,6 +36,7 @@ import os
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..utils.observability import span
 from . import configs
 from .convert import load_hf_state_dict, load_safetensors
 from .depth_pro import DepthProConfig
@@ -323,6 +324,13 @@ def load_predictor(name: str, checkpoint=None, inference_size: int | tuple = 518
     ``ensemble``, ``allow_random`` of ``load_diffusion_pipeline``.
     config: overrides the catalog config (tiny configs in tests).
     """
+    with span("load"):
+        return _load_predictor(name, checkpoint, inference_size, seed, dtype, config, device,
+                               fast_head, diffusion_kw)
+
+
+def _load_predictor(name, checkpoint, inference_size, seed, dtype, config, device, fast_head,
+                    diffusion_kw):
     if name.startswith("onnx:"):
         return _onnx_predictor(name[len("onnx:"):], inference_size, device)
     native = False

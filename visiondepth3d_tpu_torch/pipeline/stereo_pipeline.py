@@ -41,6 +41,7 @@ from ..state import init_trackers
 from ..stereo import StereoParams
 from ..stereo.bands import render_chunk_bands
 from ..stereo.step import render_chunk
+from ..utils.observability import count, span
 from . import resume
 from .geometry import RenderGeometry, resolve_geometry
 
@@ -132,18 +133,21 @@ def _chunk_pieces(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
         return u8_to_float(yuv420_to_rgb_u8(*frames_in) if yuv_in else frames_in)
 
     def finish(trackers, frames, depths, blanks):
-        if bands is None:
-            trackers, outs = render_chunk(params, trackers, frames, depths, blanks)
-        else:
-            trackers, outs = render_chunk_bands(params, trackers, frames, depths, bands, blanks)
-        packed = []
-        for left, right in zip(outs.left, outs.right):
-            left, right = fmt_ops.pack_per_eye(left, right, cfg.output_format,
-                                               geom.per_eye_w, geom.per_eye_h)
-            packed.append(fmt_ops.format_3d_output(
-                left, right, cfg.output_format,
-                anaglyph_bgr_convention=cfg.anaglyph_bgr_convention))
-        return trackers, to_u8(torch.stack(packed))
+        with span("step"):
+            if bands is None:
+                trackers, outs = render_chunk(params, trackers, frames, depths, blanks)
+            else:
+                trackers, outs = render_chunk_bands(params, trackers, frames, depths, bands,
+                                                    blanks)
+        with span("pack"):
+            packed = []
+            for left, right in zip(outs.left, outs.right):
+                left, right = fmt_ops.pack_per_eye(left, right, cfg.output_format,
+                                                   geom.per_eye_w, geom.per_eye_h)
+                packed.append(fmt_ops.format_3d_output(
+                    left, right, cfg.output_format,
+                    anaglyph_bgr_convention=cfg.anaglyph_bgr_convention))
+            return trackers, to_u8(torch.stack(packed))
 
     return decode, crop, finish
 
@@ -179,20 +183,25 @@ def make_chunk_fn(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig,
     if predictor is not None:
         @torch.inference_mode()
         def chunk_fused(trackers, frames_in, blanks=None):
-            frames = crop(decode(frames_in))  # [T, ch, cw, 3]
-            depths = predict_groups(predictor, frames, eye_hw)
-            return finish(trackers, resize_bilinear(frames, eye_hw), depths, blanks)
+            with span("decode"):
+                frames = crop(decode(frames_in))  # [T, ch, cw, 3]
+            with span("depth"):
+                depths = predict_groups(predictor, frames, eye_hw)
+            with span("decode"):
+                frames = resize_bilinear(frames, eye_hw)
+            return finish(trackers, frames, depths, blanks)
 
         return chunk_fused
 
     @torch.inference_mode()
     def chunk_fn(trackers, frames_in, depths_u16, blanks=None):
-        frames = decode(frames_in)
-        depths = depths_u16.to(torch.float32) / 65535.0
-        if tuple(depths.shape[1:]) != tuple(frames.shape[1:3]):
-            depths = resize_bilinear(depths, tuple(frames.shape[1:3]))
-        frames = resize_bilinear(crop(frames), eye_hw)
-        depths = resize_bilinear(crop(depths), eye_hw)
+        with span("decode"):
+            frames = decode(frames_in)
+            depths = depths_u16.to(torch.float32) / 65535.0
+            if tuple(depths.shape[1:]) != tuple(frames.shape[1:3]):
+                depths = resize_bilinear(depths, tuple(frames.shape[1:3]))
+            frames = resize_bilinear(crop(frames), eye_hw)
+            depths = resize_bilinear(crop(depths), eye_hw)
         return finish(trackers, frames, depths, blanks)
 
     return chunk_fn
@@ -217,12 +226,16 @@ def make_pp_bodies(params: StereoParams, geom: RenderGeometry, cfg: RenderConfig
 
     @torch.inference_mode()
     def depth_body(frames_in):
-        return predict_groups(predictor, crop(decode(frames_in)), eye_hw)
+        with span("decode"):
+            frames = crop(decode(frames_in))
+        with span("depth"):
+            return predict_groups(predictor, frames, eye_hw)
 
     @torch.inference_mode()
     def stereo_body(trackers, frames_in, depths01, blanks=None):
-        return finish(trackers, resize_bilinear(crop(decode(frames_in)), eye_hw), depths01,
-                      blanks)
+        with span("decode"):
+            frames = resize_bilinear(crop(decode(frames_in)), eye_hw)
+        return finish(trackers, frames, depths01, blanks)
 
     return depth_body, stereo_body
 
@@ -252,7 +265,18 @@ class ChunkStream:
     of an RGB reader); ``limit``: the frames to render, None for all;
     ``frame_idx``: the absolute index of the next frame (blank frames are
     indexed so). With ``output_path`` the trackers are checkpointed beside
-    the output every ``cfg.checkpoint_every_chunks`` chunks."""
+    the output every ``cfg.checkpoint_every_chunks`` chunks.
+
+    Spans (``utils.observability``): each ``launch`` is a ``chunk``, numbered
+    from 0 at the stream's first launch, holding ``read`` (``read.frames``,
+    ``read.upload``), ``dispatch`` (the chunk function's ``decode``,
+    ``depth``, ``step``, ``pack``) and ``emit`` (its ``flush``:
+    ``flush.wait``, ``flush.write``); the counter ``frames`` takes the
+    frames it holds. A dp mesh launches its segments' streams in turn, one
+    chunk each a round, so there chunk k is round k: the segments' spans of
+    that round share the number and ``frames`` sums their frames. The pp
+    render calls ``read`` and ``emit`` itself: its spans belong to no chunk
+    and it counts no frames."""
 
     def __init__(self, rd, dd, wr, chunk_fn, trackers, dev: torch.device, geom: RenderGeometry,
                  cfg: RenderConfig, yuv_in: bool, blank_set: set[int], frame_idx: int = 0,
@@ -267,10 +291,23 @@ class ChunkStream:
         self.eof = False
         self.pending = None  # (host array, frame count, event, checkpoint)
         self.chunks_since_ckpt = 0
+        self.chunks = 0  # chunks launched: the next one's index in its spans
 
     def read(self):
         """(frames_in, depths_u16 or None, blanks or None, n) on the
         device, or None (and ``eof``) when the stream has no frame left."""
+        with span("read"):
+            with span("read.frames"):
+                frames, depths, blanks = self._take()
+            if not frames:
+                self.eof = True
+                return None
+            with span("read.upload"):
+                return self._upload(frames, depths, blanks)
+
+    def _take(self):
+        """Up to ``cfg.chunk_size`` frames from the readers: (frames, depth
+        frames, blank flags), each a list."""
         frames, depths, blanks = [], [], []
         while len(frames) < self.cfg.chunk_size:
             if self.limit is not None and self.limit <= 0:
@@ -289,9 +326,10 @@ class ChunkStream:
             self.frame = None
             if self.limit is not None:
                 self.limit -= 1
-        if not frames:
-            self.eof = True
-            return None
+        return frames, depths, blanks
+
+    def _upload(self, frames, depths, blanks):
+        """A chunk read by ``_take``, padded and on the device."""
         n = len(frames)
         pad = self.cfg.chunk_size - n
         frames += [frames[-1]] * pad  # static chunk shape
@@ -313,60 +351,67 @@ class ChunkStream:
 
     def launch(self) -> int:
         """Read, run and emit one chunk; the frames it holds (0 at the end)."""
-        item = self.read()
-        if item is None:
-            return 0
-        frames_in, depths_in, blanks_in, n = item
-        with torch.inference_mode():
-            if depths_in is None:
-                self.trackers, out_u8 = self.chunk_fn(self.trackers, frames_in, blanks_in)
-            else:
-                self.trackers, out_u8 = self.chunk_fn(self.trackers, frames_in, depths_in,
-                                                      blanks_in)
-        self.emit(out_u8, n)
-        return n
+        with span("chunk", chunk=self.chunks):
+            self.chunks += 1
+            item = self.read()
+            if item is None:
+                return 0
+            frames_in, depths_in, blanks_in, n = item
+            count("frames", n)
+            with span("dispatch"), torch.inference_mode():
+                if depths_in is None:
+                    self.trackers, out_u8 = self.chunk_fn(self.trackers, frames_in, blanks_in)
+                else:
+                    self.trackers, out_u8 = self.chunk_fn(self.trackers, frames_in, depths_in,
+                                                          blanks_in)
+            self.emit(out_u8, n)
+            return n
 
     def emit(self, out_u8: torch.Tensor, n: int) -> None:
-        with torch.inference_mode():
-            if self.yuv_out:
-                planes = rgb_u8_to_yuv420(out_u8)
-                out_u8 = torch.cat([p.reshape(p.shape[0], -1) for p in planes], dim=1)
-        host = _to_host(out_u8)
-        self.chunks_since_ckpt += 1
-        ckpt = None
-        if self.output_path is not None and \
-                0 < self.cfg.checkpoint_every_chunks <= self.chunks_since_ckpt:
-            # the trackers as this chunk left them, copied behind its output
-            ckpt = (self.frame_idx, dataclasses.replace(self.trackers, **{
-                f.name: _to_host(getattr(self.trackers, f.name))
-                for f in dataclasses.fields(self.trackers)}))
-            self.chunks_since_ckpt = 0
-        event = None
-        if out_u8.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(out_u8.device))
-        self.flush()
-        self.pending = (host, n, event, ckpt)
+        with span("emit"):
+            with torch.inference_mode():
+                if self.yuv_out:
+                    planes = rgb_u8_to_yuv420(out_u8)
+                    out_u8 = torch.cat([p.reshape(p.shape[0], -1) for p in planes], dim=1)
+            host = _to_host(out_u8)
+            self.chunks_since_ckpt += 1
+            ckpt = None
+            if self.output_path is not None and \
+                    0 < self.cfg.checkpoint_every_chunks <= self.chunks_since_ckpt:
+                # the trackers as this chunk left them, copied behind its output
+                ckpt = (self.frame_idx, dataclasses.replace(self.trackers, **{
+                    f.name: _to_host(getattr(self.trackers, f.name))
+                    for f in dataclasses.fields(self.trackers)}))
+                self.chunks_since_ckpt = 0
+            event = None
+            if out_u8.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(out_u8.device))
+            self.flush()
+            self.pending = (host, n, event, ckpt)
 
     def flush(self) -> None:
         """Write the chunk whose readback is in flight."""
         if self.pending is None:
             return
-        host, n, event, ckpt = self.pending
-        self.pending = None
-        if event is not None:
-            event.synchronize()
-        arr = host.numpy()
-        hh, ww = self.geom.out_h, self.geom.out_w
-        for i in range(n):
-            if self.yuv_out:
-                y = arr[i, : hh * ww].reshape(hh, ww)
-                u, v = arr[i, hh * ww:].reshape(2, hh // 2, ww // 2)
-                self.wr.write_yuv420(y, u, v)
-            else:
-                self.wr.write(arr[i])
-        if ckpt is not None:  # after the chunk's frames are in the file
-            resume.save_checkpoint(self.output_path, *ckpt)
+        with span("flush"):
+            host, n, event, ckpt = self.pending
+            self.pending = None
+            with span("flush.wait"):
+                if event is not None:
+                    event.synchronize()
+            with span("flush.write"):
+                arr = host.numpy()
+                hh, ww = self.geom.out_h, self.geom.out_w
+                for i in range(n):
+                    if self.yuv_out:
+                        y = arr[i, : hh * ww].reshape(hh, ww)
+                        u, v = arr[i, hh * ww:].reshape(2, hh // 2, ww // 2)
+                        self.wr.write_yuv420(y, u, v)
+                    else:
+                        self.wr.write(arr[i])
+                if ckpt is not None:  # after the chunk's frames are in the file
+                    resume.save_checkpoint(self.output_path, *ckpt)
 
 
 def plane_input(input_path, cfg: RenderConfig, rd) -> bool:

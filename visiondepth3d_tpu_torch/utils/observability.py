@@ -1,5 +1,5 @@
 """Progress, FPS and ETA reporting, crash logging, stage timing, profiling
-hooks and cooperative suspend / resume / cancel.
+hooks, the render loop's spans and cooperative suspend / resume / cancel.
 
 The port of ``visiondepth3d_tpu/utils/observability.py``: a rolling
 10-sample FPS + ETA meter, excepthooks appending to ``vd3d_crash.log``,
@@ -7,6 +7,16 @@ wall-clock stage timers (device work is asynchronous: a timer given
 ``sync`` waits for the card with ``torch.cuda.synchronize`` before it
 stops), a ``torch.profiler`` trace context, and the suspend / cancel handle
 and control file the render loops poll between chunks.
+
+The port adds a span recorder. The render loop and the model loader open
+``span(name)`` around each stage and ``count(name, n)`` what a chunk holds.
+While no ``torch.profiler`` traces the calling thread, a span is one shared
+no-op context and a count does nothing. While one does, a span opens
+``record_function("vd3d.<name>")``, so the trace holds it on the clock of
+the device operations launched inside it, and keeps its name, host start
+and end (``time.perf_counter``), parent and chunk, and counts are kept per
+chunk, for ``records()``. A profiler traces only the thread that started
+it, and one runs at a time, so one stack of open spans serves.
 """
 
 from __future__ import annotations
@@ -18,10 +28,12 @@ import tempfile
 import threading
 import time
 import traceback
-from collections import deque
+from collections import defaultdict, deque
 from pathlib import Path
+from typing import NamedTuple
 
 CRASH_LOG = Path("vd3d_crash.log")
+SPAN_PREFIX = "vd3d."  # the spans' ranges in a profiler trace
 
 
 class FpsMeter:
@@ -120,6 +132,87 @@ def profiler_trace(log_dir: str | None = None):
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
         yield log_dir
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    start: float  # time.perf_counter seconds
+    end: float
+    parent: str | None  # the enclosing span's name
+    chunk: int | None  # the chunk the span belongs to, None outside every chunk
+
+
+class Records(NamedTuple):
+    spans: list[SpanRecord]  # in the order they ended
+    counts: dict[tuple[str, int | None], int]  # (name, chunk) -> total
+
+
+_SPANS: list[SpanRecord] = []
+_COUNTS: dict[tuple[str, int | None], int] = defaultdict(int)
+_OPEN: list[_Span] = []  # the traced thread's open spans, innermost last
+_OFF = contextlib.nullcontext()
+
+
+def _tracing() -> bool:
+    """Whether a ``torch.profiler`` traces the calling thread."""
+    import torch
+
+    return torch._C._autograd._profiler_enabled()
+
+
+class _Span:
+    __slots__ = ("name", "chunk", "parent", "start", "range")
+
+    def __init__(self, name: str, chunk: int | None):
+        import torch
+
+        self.name, self.chunk = name, chunk
+        self.range = torch.profiler.record_function(SPAN_PREFIX + name)
+
+    def __enter__(self):
+        outer = _OPEN[-1] if _OPEN else None
+        self.parent = outer.name if outer else None
+        if self.chunk is None and outer is not None:
+            self.chunk = outer.chunk
+        _OPEN.append(self)
+        self.range.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter()
+        self.range.__exit__(*exc)
+        _OPEN.pop()
+        _SPANS.append(SpanRecord(self.name, self.start, end, self.parent, self.chunk))
+        return False
+
+
+def span(name: str, chunk: int | None = None):
+    """A span around a stage of the program. With ``chunk``, the span and
+    every span opened inside it belong to that chunk; without, a span
+    belongs to the chunk of the span it is opened in. While no profiler
+    traces the thread this is one shared context that does nothing."""
+    if not _tracing():
+        return _OFF
+    return _Span(name, chunk)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` of the current chunk (kept only
+    while a profiler traces the thread)."""
+    if _tracing():
+        _COUNTS[name, _OPEN[-1].chunk if _OPEN else None] += n
+
+
+def records() -> Records:
+    """A copy of the spans and counts kept so far."""
+    return Records(list(_SPANS), dict(_COUNTS))
+
+
+def reset_records() -> None:
+    """Forget every kept span and count."""
+    _SPANS.clear()
+    _COUNTS.clear()
 
 
 class RenderControl:
