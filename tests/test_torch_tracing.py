@@ -7,15 +7,17 @@ range and keeps its name, host times, parent and chunk, and counts are kept
 per chunk; a thread the profiler does not trace records nothing. Through
 ``ChunkStream`` at a tiny size on the CPU, under the profiler, every
 top-level ``aten::`` op of a chunk lies in a leaf span that names its
-stage; a dp mesh numbers its chunks by round; the pp render's spans belong
-to no chunk. ``vd3d-torch render --trace DIR`` writes a trace that holds
-the spans, and their records beside it.
+stage; the stream's staging thread, which reads ahead, opens no span and
+calls nothing of torch; a dp mesh numbers its chunks by round; the pp
+render's spans belong to no chunk. ``vd3d-torch render --trace DIR``
+writes a trace that holds the spans, and their records beside it.
 """
 
 from __future__ import annotations
 
 import glob
 import json
+import os
 import threading
 from pathlib import Path
 
@@ -27,7 +29,7 @@ torch.set_num_threads(1)
 from visiondepth3d_tpu_torch.cli.main import main as cli_main
 from visiondepth3d_tpu_torch.depth.configs import DA_TINY
 from visiondepth3d_tpu_torch.depth.registry import load_predictor
-from visiondepth3d_tpu_torch.io import Y4MPlaneReader, Y4MWriter
+from visiondepth3d_tpu_torch.io import Y4MPlaneReader, Y4MWriter, open_depth_reader
 from visiondepth3d_tpu_torch.pipeline.geometry import resolve_geometry
 from visiondepth3d_tpu_torch.pipeline.stereo_pipeline import (ChunkStream, RenderConfig,
                                                               make_chunk_fn, render_stereo_video)
@@ -38,7 +40,7 @@ from visiondepth3d_tpu_torch.utils import observability as obs
 SIZE = 56
 CPU2 = [torch.device("cpu")] * 2
 # the spans that name one stage each (the others only hold spans)
-LEAVES = {"read.frames", "read.upload", "decode", "depth", "step", "pack", "emit",
+LEAVES = {"read.wait", "read.upload", "decode", "depth", "step", "pack", "emit",
           "flush.wait", "flush.write"}
 HOLDERS = {"chunk", "read", "dispatch", "flush"}
 
@@ -83,7 +85,7 @@ def test_nesting_parents_chunks_counts_and_reset():
         for k in (0, 1):
             with obs.span("chunk", chunk=k):
                 with obs.span("read"):
-                    with obs.span("read.frames"):
+                    with obs.span("read.wait"):
                         pass
                 obs.count("frames", 4 - k)
                 obs.count("frames", 1)
@@ -95,15 +97,15 @@ def test_nesting_parents_chunks_counts_and_reset():
     spans, counts = obs.records()
     got = [(s.name, s.parent, s.chunk) for s in spans]
     assert got == [("load", None, None),
-                   ("read.frames", "read", 0), ("read", "chunk", 0), ("flush", "emit", 0),
+                   ("read.wait", "read", 0), ("read", "chunk", 0), ("flush", "emit", 0),
                    ("emit", "chunk", 0), ("chunk", None, 0),
-                   ("read.frames", "read", 1), ("read", "chunk", 1), ("flush", "emit", 1),
+                   ("read.wait", "read", 1), ("read", "chunk", 1), ("flush", "emit", 1),
                    ("emit", "chunk", 1), ("chunk", None, 1),
                    ("flush", None, None)]
     assert all(s.start <= s.end for s in spans)
     by = {(s.name, s.chunk): s for s in spans}
-    assert by["chunk", 0].start <= by["read", 0].start <= by["read.frames", 0].start
-    assert by["read.frames", 0].end <= by["read", 0].end <= by["chunk", 0].end
+    assert by["chunk", 0].start <= by["read", 0].start <= by["read.wait", 0].start
+    assert by["read.wait", 0].end <= by["read", 0].end <= by["chunk", 0].end
     assert counts == {("frames", 0): 5, ("frames", 1): 4, ("frames", None): 7}
     with obs.span("step"):  # the profiler has stopped
         obs.count("frames", 1)
@@ -238,7 +240,14 @@ def test_every_op_of_a_chunk_lies_in_one_stage_span(tmp_path):
         assert innermost in LEAVES, (name, sorted(holding))
     spans, counts = obs.records()
     assert [s.chunk for s in spans if s.name == "chunk"] == [0, 1, 2, 3]
-    assert counts == {("frames", 0): 4, ("frames", 1): 4, ("frames", 2): 2}
+    ready = {k: v for (name, k), v in counts.items() if name == "read.ready"}
+    assert counts == {("frames", 0): 4, ("frames", 1): 4, ("frames", 2): 2,
+                      **{("read.ready", k): v for k, v in ready.items()}}
+    # the first chunk is staged when it is asked for; the fourth read finds
+    # the end the third one handed over, and waits for nothing
+    assert set(ready) == {0, 1, 2} and ready[0] == 0 and set(ready.values()) <= {0, 1}
+    assert [s.parent for s in spans if s.name in ("read.wait", "read.upload")] == \
+        ["read", "read"] * 3
     assert [s.chunk for s in spans if s.name == "flush"] == [1, 2, None]
     assert [(s.parent, s.chunk) for s in spans if s.name == "load"] == [(None, None)]
     assert {s.parent for s in spans if s.name in ("decode", "depth", "step", "pack")} == \
@@ -255,11 +264,72 @@ def _depth_clip(path, n, w=64, h=48):
     return path
 
 
+TORCH_DIR = os.path.dirname(torch.__file__) + os.sep
+
+
+def _torch_call(frame, event, arg) -> str | None:
+    """The name of what a profile hook event calls, when it is torch's."""
+    if event == "call" and frame.f_code.co_filename.startswith(TORCH_DIR):
+        return frame.f_code.co_name
+    if event == "c_call":
+        owner = getattr(arg, "__self__", None)
+        module = getattr(arg, "__module__", None) or type(owner).__module__
+        if module.split(".")[0] == "torch" or isinstance(owner, torch.Tensor):
+            return arg.__qualname__
+    return None
+
+
+def test_the_staging_thread_opens_no_span_and_calls_no_torch(tmp_path):
+    """The depth route's stream under the profiler (10 frames, chunks of 4):
+    a profile hook on the staging thread sees it read every frame and call
+    nothing of torch (so no ``aten::`` op) and no span; the trace's ops and
+    ranges are all the render thread's, and the spans are those of the
+    render thread's table."""
+    clip, depth = _clip(tmp_path / "clip.y4m", 10), _depth_clip(tmp_path / "depth.y4m", 10)
+    cfg = RenderConfig(chunk_size=4, device="cpu", preserve_original_aspect=True)
+    geom = resolve_geometry(64, 48, cfg.output_format, 48, preserve_original_aspect=True)
+    seen: dict[str, list] = {"reads": [], "torch": [], "spans": []}
+
+    def hook(frame, event, arg):
+        if not threading.current_thread().name.startswith("vd3d-staging"):
+            return
+        if event == "call" and frame.f_code.co_name == "read":
+            seen["reads"].append(frame.f_code.co_filename)
+        if event == "call" and frame.f_code.co_filename == obs.__file__:
+            seen["spans"].append(frame.f_code.co_name)
+        name = _torch_call(frame, event, arg)
+        if name is not None:
+            seen["torch"].append(name)
+
+    rd, dd, sink = Y4MPlaneReader(str(clip)), open_depth_reader(str(depth)), Sink()
+    stream = ChunkStream(rd, dd, sink, make_chunk_fn(StereoParams(), geom, cfg, yuv_in=True),
+                         init_trackers(geom.eye_h, geom.eye_w, device="cpu"),
+                         torch.device("cpu"), geom, cfg, True, set())
+    threading.setprofile(hook)
+    try:
+        with _profile() as prof:
+            while stream.launch():
+                pass
+            stream.flush()
+    finally:
+        stream.close()
+        threading.setprofile(None)
+        rd.close()
+        dd.close()
+    assert sink.frames == 10
+    assert len(seen["reads"]) >= 20  # the frames and the depth frames, read there
+    assert seen["torch"] == [] and seen["spans"] == []
+    events = _trace_events(prof, tmp_path / "trace.json")
+    threads = {e["tid"] for e in events if e.get("cat") in ("cpu_op", "user_annotation")}
+    assert len(threads) == 1
+    assert {s.name for s in obs.records().spans} == (LEAVES | HOLDERS) - {"depth"}
+
+
 def test_a_dp_mesh_numbers_its_chunks_by_round(tmp_path):
     """12 frames on dp=2 from a depth clip: two 6-frame segments, each a
     chunk of 4 and a chunk of 2 (which reaches the segment's end). Chunk k
-    is round k: both segments' spans carry k, and ``frames`` sums the
-    round."""
+    is round k: both segments' spans carry k, and ``frames`` and
+    ``read.ready`` sum the round."""
     clip, depth = _clip(tmp_path / "clip.y4m", 12), _depth_clip(tmp_path / "depth.y4m", 12)
     cfg = RenderConfig(chunk_size=4, device="cpu", preserve_original_aspect=True, mesh="dp=2")
     with _profile():
@@ -267,14 +337,18 @@ def test_a_dp_mesh_numbers_its_chunks_by_round(tmp_path):
     assert prog.frames_done == 12
     spans, counts = obs.records()
     assert [s.chunk for s in spans if s.name == "chunk"] == [0, 0, 1, 1]
-    assert counts == {("frames", 0): 8, ("frames", 1): 4}
+    ready = {k: v for (name, k), v in counts.items() if name == "read.ready"}
+    assert counts == {("frames", 0): 8, ("frames", 1): 4,
+                      **{("read.ready", k): v for k, v in ready.items()}}
+    assert ready[0] == 0 and ready[1] in (0, 1, 2)  # summed over the round's segments
     assert sorted(s.chunk for s in spans if s.name == "step") == [0, 0, 1, 1]
     assert {s.parent for s in spans if s.name == "decode"} == {"dispatch"}
 
 
 def test_the_pp_render_spans_belong_to_no_chunk(tmp_path):
     """pp=2 drives ``ChunkStream.read`` and ``emit`` from its own loop:
-    every stage span is there, none in a chunk, and no frame is counted."""
+    every stage span is there, none in a chunk, and no frame is counted
+    (``read.ready`` too belongs to no chunk)."""
     clip = _clip(tmp_path / "clip.y4m", 6)
     pred = load_predictor("depth-anything-v2-small", inference_size=SIZE, config=DA_TINY,
                           device="cpu")
@@ -285,7 +359,7 @@ def test_the_pp_render_spans_belong_to_no_chunk(tmp_path):
     assert prog.frames_done == 6
     spans, counts = obs.records()
     assert {s.name for s in spans} == LEAVES | {"read", "flush"}
-    assert {s.chunk for s in spans} == {None} and counts == {}
+    assert {s.chunk for s in spans} == {None} and set(counts) <= {("read.ready", None)}
     assert {s.parent for s in spans if s.name in ("decode", "depth", "step", "pack")} == {None}
 
 
@@ -306,6 +380,7 @@ def test_cli_render_trace_holds_the_spans(tmp_path):
     assert {s["name"] for s in kept["spans"]} == names
     assert [s["chunk"] for s in kept["spans"] if s["name"] == "chunk"] == [0, 1]
     assert all(s["start"] <= s["end"] for s in kept["spans"])
-    assert kept["counts"] == [{"name": "frames", "chunk": 0, "n": 4},
-                              {"name": "frames", "chunk": 1, "n": 2}]
+    assert [c for c in kept["counts"] if c["name"] == "frames"] == [
+        {"name": "frames", "chunk": 0, "n": 4}, {"name": "frames", "chunk": 1, "n": 2}]
+    assert [c["chunk"] for c in kept["counts"] if c["name"] == "read.ready"] == [0, 1]
     assert obs.records() == obs.Records([], {})  # forgotten once written

@@ -162,19 +162,18 @@ class Y4MPlaneReader:
         self._ch = (self.height + 1) // 2
         self._ysz = self.width * self.height
         self._csz = self._cw * self._ch
-        self._buf = ctypes.create_string_buffer(self._ysz + 2 * self._csz)
 
     def read(self):
+        """The next frame's planes, views of one fresh array the native
+        reader fills (the caller's to keep), or None at the end."""
         if self._h is None:
             return None
-        ok = self._lib.vd3d_y4m_read(self._h, self._buf)
-        if not ok:
+        raw = np.empty(self._ysz + 2 * self._csz, np.uint8)
+        if not self._lib.vd3d_y4m_read(self._h, raw.ctypes.data_as(ctypes.c_char_p)):
             return None
-        raw = np.frombuffer(self._buf, dtype=np.uint8)
-        y = raw[: self._ysz].reshape(self.height, self.width).copy()
-        u = raw[self._ysz : self._ysz + self._csz].reshape(
-            self._ch, self._cw).copy()
-        v = raw[self._ysz + self._csz :].reshape(self._ch, self._cw).copy()
+        y = raw[: self._ysz].reshape(self.height, self.width)
+        u = raw[self._ysz : self._ysz + self._csz].reshape(self._ch, self._cw)
+        v = raw[self._ysz + self._csz :].reshape(self._ch, self._cw)
         return y, u, v
 
     def seek(self, frame_idx: int) -> bool:

@@ -348,6 +348,8 @@ def render_stereo_video_mesh(
         for s in streams:
             s.flush()
     finally:
+        for s in streams:
+            s.close()
         for f in opened:
             f.close()
 

@@ -75,7 +75,7 @@ def render_stereo_video_pp(
     dev_a, dev_b = slice_a[0], slice_b[0]
 
     rd = open_video(input_path, cfg.start_s, cfg.end_s)
-    wr = None
+    wr = stream = None
     try:
         fps = cfg.fps or rd.fps or 30.0
         first, geom = probe_geometry(rd, cfg)
@@ -124,6 +124,8 @@ def render_stereo_video_pp(
                 progress_cb(prog)
         stream.flush()
     finally:
+        if stream is not None:
+            stream.close()
         rd.close()
         if wr is not None:
             wr.close()

@@ -26,12 +26,13 @@ import dataclasses
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..device import host_to_device, resolve_device, same_device
+from ..device import resolve_device, same_device
 from ..io import Y4MPlaneReader, blackdetect, open_depth_reader, open_video, open_writer
 from ..ops import formats as fmt_ops
 from ..ops.convert import (float_to_u8_round, float_to_u8_trunc, rgb_u8_to_yuv420,
@@ -253,38 +254,123 @@ class RenderProgress:
         return (self.total_frames - self.frames_done) / self.fps
 
 
+class _Staging:
+    """One set of host buffers a chunk is staged in, pinned for a CUDA
+    device: ``frames`` (the Y, U and V planes, or RGB), ``depths`` (uint16,
+    when the stream has a depth reader) and ``blanks``. The staging thread
+    writes through their numpy views (``*_np``); ``event`` is recorded
+    after the set's H2D copies."""
+
+    def __init__(self, frame_shapes, depth_shape, size: int, dev: torch.device):
+        cuda = dev.type == "cuda"
+
+        def buf(shape, dtype):
+            return torch.empty(shape, dtype=dtype, pin_memory=cuda)
+
+        self.frames = [buf(shape, torch.uint8) for shape in frame_shapes]
+        self.depths = None if depth_shape is None else buf(depth_shape, torch.uint16)
+        self.blanks = buf((size,), torch.bool)
+        self.frames_np = [t.numpy() for t in self.frames]
+        self.depths_np = None if self.depths is None else self.depths.numpy()
+        self.blanks_np = self.blanks.numpy()
+        self.event = torch.cuda.Event(blocking=True) if cuda else None
+
+
+class _ChunkReader:
+    """The reading side of a ``ChunkStream``, run on its staging thread: the
+    readers, the absolute index of the next frame to read, what is left of
+    ``limit``, and a frame already read (the probe frame of an RGB reader).
+    It makes host reads and numpy copies, and calls nothing of torch but
+    the wait on a set's event."""
+
+    def __init__(self, rd, dd, yuv_in: bool, blank_set: set[int], frame_idx: int, frame,
+                 limit: int | None, size: int):
+        self.rd, self.dd, self.yuv_in, self.blank_set = rd, dd, yuv_in, blank_set
+        self.frame_idx, self.frame, self.limit, self.size = frame_idx, frame, limit, size
+
+    def fill(self, st: _Staging) -> tuple[int, bool]:
+        """Up to ``size`` frames (and as many depth frames) read into ``st``,
+        each into its slot as it is read; a short chunk padded with its
+        last frame (static chunk shape). (frames read, whether the stream
+        ended)."""
+        if st.event is not None:
+            st.event.synchronize()  # the set's last H2D copies are done
+        planes, depths, blanks = st.frames_np, st.depths_np, st.blanks_np
+        n, ended = 0, False
+        while n < self.size:
+            if self.limit is not None and self.limit <= 0:
+                ended = True
+                break
+            if self.frame is None:
+                self.frame = self.rd.read()
+            d = self.dd.read() if (self.dd is not None and self.frame is not None) else None
+            if self.frame is None or (self.dd is not None and d is None):
+                ended = True
+                break
+            for buf, plane in zip(planes, self.frame if self.yuv_in else (self.frame,)):
+                buf[n] = plane
+            if depths is not None:
+                np.copyto(depths[n], np.clip(d * 65535.0 + 0.5, 0, 65535), casting="unsafe")
+            blanks[n] = self.frame_idx in self.blank_set
+            self.frame_idx += 1
+            self.frame = None
+            if self.limit is not None:
+                self.limit -= 1
+            n += 1
+        if n:
+            for buf in planes + ([] if depths is None else [depths]):
+                buf[n:] = buf[n - 1]
+            blanks[n:] = False  # padded tail frames are not blank
+        return n, ended
+
+
 class ChunkStream:
     """Chunks of one stream of frames through a chunk function on one
-    device. ``read`` takes up to ``cfg.chunk_size`` frames (and as many
-    depth frames) from the readers, pads a short chunk with its last frame
-    (static chunk shape) and puts it on the device; ``emit`` converts a
-    chunk's packed output to YUV420 planes on the device, queues its
-    readback and writes the previous chunk's (one readback in flight);
-    ``launch`` is read, the chunk function, emit. ``flush`` writes the last
-    readback. ``frame``: a frame already read from ``rd`` (the probe frame
-    of an RGB reader); ``limit``: the frames to render, None for all;
-    ``frame_idx``: the absolute index of the next frame (blank frames are
-    indexed so). With ``output_path`` the trackers are checkpointed beside
-    the output every ``cfg.checkpoint_every_chunks`` chunks.
+    device. ``read`` hands over up to ``cfg.chunk_size`` frames (and as many
+    depth frames), a short chunk padded with its last frame (static chunk
+    shape), on the device; ``emit`` converts a chunk's packed output to
+    YUV420 planes on the device, queues its readback and writes the
+    previous chunk's (one readback in flight); ``launch`` is read, the chunk
+    function, emit. ``flush`` writes the last readback. ``frame``: a frame
+    already read from ``rd`` (the probe frame of an RGB reader); ``limit``:
+    the frames to render, None for all; ``frame_idx``: the absolute index
+    of the next frame handed over (blank frames are indexed so).
+    With ``output_path`` the trackers are checkpointed beside the output
+    every ``cfg.checkpoint_every_chunks`` chunks.
 
-    Spans (``utils.observability``): each ``launch`` is a ``chunk``, numbered
-    from 0 at the stream's first launch, holding ``read`` (``read.frames``,
-    ``read.upload``), ``dispatch`` (the chunk function's ``decode``,
-    ``depth``, ``step``, ``pack``) and ``emit`` (its ``flush``:
+    The readers are read one chunk ahead on the stream's staging thread,
+    into two sets of reused host buffers (pinned for a CUDA device, made at
+    the first ``read``): while the render thread runs chunk k, the thread
+    reads chunk k + 1 into the other set, once that set's H2D copies are
+    done. ``read`` waits for the staged chunk, has the next one read, and
+    queues the set's H2D copies into fresh device tensors; every device
+    operation is launched from the render thread. ``eof`` and
+    ``frame_idx`` count the chunks handed over, never the one staged ahead.
+    An error of the staging thread is raised from ``read``. ``close`` waits
+    for the staging and ends the thread: call it before closing the
+    readers. A stream dropped without it reads nothing more once its last
+    staging is done.
+
+    Spans (``utils.observability``): each ``launch`` is a ``chunk``,
+    numbered from 0 at the stream's first launch, holding ``read``
+    (``read.wait``, ``read.upload``), ``dispatch`` (the chunk function's
+    ``decode``, ``depth``, ``step``, ``pack``) and ``emit`` (its ``flush``:
     ``flush.wait``, ``flush.write``); the counter ``frames`` takes the
-    frames it holds. A dp mesh launches its segments' streams in turn, one
-    chunk each a round, so there chunk k is round k: the segments' spans of
-    that round share the number and ``frames`` sums their frames. The pp
-    render calls ``read`` and ``emit`` itself: its spans belong to no chunk
-    and it counts no frames."""
+    frames it holds and ``read.ready`` 1 when its frames were staged before
+    ``read`` asked for them, else 0. The staging thread opens no span. A dp
+    mesh launches its segments' streams in turn, one chunk each a round, so
+    there chunk k is round k: the segments' spans of that round share the
+    number and the counters sum over them. The pp render calls ``read`` and
+    ``emit`` itself: its spans and ``read.ready`` belong to no chunk and it
+    counts no frames."""
 
     def __init__(self, rd, dd, wr, chunk_fn, trackers, dev: torch.device, geom: RenderGeometry,
                  cfg: RenderConfig, yuv_in: bool, blank_set: set[int], frame_idx: int = 0,
                  frame=None, limit: int | None = None, output_path=None):
         self.rd, self.dd, self.wr = rd, dd, wr
         self.chunk_fn, self.trackers, self.dev = chunk_fn, trackers, dev
-        self.geom, self.cfg, self.yuv_in, self.blank_set = geom, cfg, yuv_in, blank_set
-        self.frame_idx, self.frame, self.limit = frame_idx, frame, limit
+        self.geom, self.cfg, self.yuv_in = geom, cfg, yuv_in
+        self.frame_idx = frame_idx
         self.output_path = output_path
         self.yuv_out = (hasattr(wr, "write_yuv420") and geom.out_w % 2 == 0
                         and geom.out_h % 2 == 0)
@@ -292,62 +378,76 @@ class ChunkStream:
         self.pending = None  # (host array, frame count, event, checkpoint)
         self.chunks_since_ckpt = 0
         self.chunks = 0  # chunks launched: the next one's index in its spans
+        self._reader = _ChunkReader(rd, dd, yuv_in, blank_set, frame_idx, frame, limit,
+                                    cfg.chunk_size)
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="vd3d-staging")
+        self._sets = None  # two _Staging, made at the first read
+        self._job = None  # (set index, future) of the chunk being staged
+        self._closed = False
+
+    def _staging(self) -> _Staging:
+        size, h, w = self.cfg.chunk_size, self.rd.height, self.rd.width
+        if self.yuv_in:
+            ch, cw = (h + 1) // 2, (w + 1) // 2
+            frame_shapes = [(size, h, w), (size, ch, cw), (size, ch, cw)]
+        else:
+            frame_shapes = [(size, h, w, 3)]
+        depth_shape = None if self.dd is None else (size, self.dd.height, self.dd.width)
+        return _Staging(frame_shapes, depth_shape, size, self.dev)
+
+    def _stage(self, k: int):
+        return k, self._pool.submit(self._reader.fill, self._sets[k])
 
     def read(self):
         """(frames_in, depths_u16 or None, blanks or None, n) on the
         device, or None (and ``eof``) when the stream has no frame left."""
+        if self._closed:
+            raise ValueError("read from a closed ChunkStream")
         with span("read"):
-            with span("read.frames"):
-                frames, depths, blanks = self._take()
-            if not frames:
+            if self.eof:
+                return None
+            with span("read.wait"):
+                ready = self._job is not None and self._job[1].done()
+                if self._sets is None:  # the first read
+                    self._sets = (self._staging(), self._staging())
+                    self._job = self._stage(0)
+                k, job = self._job
+                n, ended = job.result()
+            self._job = None
+            if n == 0:
                 self.eof = True
                 return None
+            count("read.ready", int(ready))
+            if ended:
+                self.eof = True
+            else:
+                self._job = self._stage(1 - k)
+            self.frame_idx += n
             with span("read.upload"):
-                return self._upload(frames, depths, blanks)
+                return self._upload(self._sets[k], n)
 
-    def _take(self):
-        """Up to ``cfg.chunk_size`` frames from the readers: (frames, depth
-        frames, blank flags), each a list."""
-        frames, depths, blanks = [], [], []
-        while len(frames) < self.cfg.chunk_size:
-            if self.limit is not None and self.limit <= 0:
-                self.eof = True
-                break
-            if self.frame is None:
-                self.frame = self.rd.read()
-            d = self.dd.read() if (self.dd is not None and self.frame is not None) else None
-            if self.frame is None or (self.dd is not None and d is None):
-                self.eof = True
-                break
-            frames.append(self.frame)
-            depths.append(d)
-            blanks.append(self.frame_idx in self.blank_set)
-            self.frame_idx += 1
-            self.frame = None
-            if self.limit is not None:
-                self.limit -= 1
-        return frames, depths, blanks
+    def _upload(self, st: _Staging, n: int):
+        """The staged chunk in ``st`` copied into fresh device tensors (the
+        copies queued, for a CUDA device), then ``st.event`` recorded."""
+        cuda = self.dev.type == "cuda"
 
-    def _upload(self, frames, depths, blanks):
-        """A chunk read by ``_take``, padded and on the device."""
-        n = len(frames)
-        pad = self.cfg.chunk_size - n
-        frames += [frames[-1]] * pad  # static chunk shape
-        depths += [depths[-1]] * pad
-        blanks += [False] * pad  # padded tail frames are not blank
-        dev = self.dev
-        if self.yuv_in:
-            frames_in = tuple(host_to_device(np.stack([f[i] for f in frames]), dev)
-                              for i in range(3))
-        else:
-            frames_in = host_to_device(np.stack(frames), dev)
+        def put(t):
+            return t.to(self.dev, non_blocking=cuda, copy=True)
+
+        frames_in = tuple(map(put, st.frames)) if self.yuv_in else put(st.frames[0])
         # a chunk without a blank frame takes the step without the passthrough
-        blanks_in = host_to_device(np.asarray(blanks), dev) if any(blanks) else None
-        depths_in = None
-        if self.dd is not None:
-            db = np.clip(np.stack(depths) * 65535.0 + 0.5, 0, 65535).astype(np.uint16)
-            depths_in = host_to_device(db, dev)
+        blanks_in = put(st.blanks) if st.blanks_np.any() else None
+        depths_in = None if st.depths is None else put(st.depths)
+        if cuda:
+            st.event.record(torch.cuda.current_stream(self.dev))
         return frames_in, depths_in, blanks_in, n
+
+    def close(self) -> None:
+        """Wait for the chunk being staged (dropped, as is its error) and end
+        the staging thread; the readers are not read again."""
+        self._closed = True
+        self._job = None
+        self._pool.shutdown(wait=True)
 
     def launch(self) -> int:
         """Read, run and emit one chunk; the frames it holds (0 at the end)."""
@@ -532,6 +632,8 @@ def render_stereo_video(input_path, depth_path, output_path,
         if stream.eof:
             resume.clear_checkpoint(output_path)
     finally:
+        if stream is not None:
+            stream.close()
         rd.close()
         if dd is not None:
             dd.close()
