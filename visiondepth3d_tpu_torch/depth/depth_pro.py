@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_bilinear
+from ..utils.observability import count, span
 from .configs import ViTConfig
 from .dinov2 import Embeddings, Encoder
 from .dpt import PreActResidual, _conv3
@@ -88,23 +89,27 @@ class _Holder(nn.Module):
 
 class Dinov2Trunk(nn.Module):
     """DINOv2 returning the last hidden state after the final LayerNorm and
-    every block's raw output (Depth Pro taps raw intermediates)."""
+    the raw outputs of the blocks in ``taps`` (0-based; Depth Pro taps raw
+    intermediates), in the order of ``taps``. Only those are kept: a block's
+    output is freed once the next block has read it."""
 
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, taps: tuple = ()):
         super().__init__()
         self.cfg = cfg
+        self.taps = tuple(taps)
         self.embeddings = Embeddings(cfg)
         self.encoder = Encoder(cfg)
         self.layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, pixels):  # [B, 3, H, W] -> [B, N, C], [[B, N, C]] * layers
+    def forward(self, pixels):  # [B, 3, H, W] -> [B, N, C], [[B, N, C]] * len(taps)
         p = self.cfg.patch_size
         x = self.embeddings(pixels, (pixels.shape[2] // p, pixels.shape[3] // p))
-        hiddens = []
-        for block in self.encoder.layer:
+        tapped = {}
+        for i, block in enumerate(self.encoder.layer):
             x = block(x)
-            hiddens.append(x)
-        return self.layernorm(x), hiddens
+            if i in self.taps:
+                tapped[i] = x
+        return self.layernorm(x), [tapped[i] for i in self.taps]
 
 
 def split_to_patches(x: torch.Tensor, patch: int, overlap_ratio: float):
@@ -227,7 +232,8 @@ class DepthPro(nn.Module):
             nn.Identity() if i == len(all_dims) - 1 and d == f else _conv3(d, f, bias=False)
             for i, d in enumerate(all_dims))
         self.depth_pro = _Holder(
-            encoder=_Holder(patch_encoder=_Holder(model=Dinov2Trunk(cfg.patch_model)),
+            encoder=_Holder(patch_encoder=_Holder(model=Dinov2Trunk(cfg.patch_model,
+                                                                    cfg.intermediate_hook_ids)),
                             image_encoder=_Holder(model=Dinov2Trunk(cfg.image_model))),
             neck=_Holder(feature_upsample=upsample,
                          fuse_image_with_low_res=nn.Conv2d(2 * dims[0], dims[0], 1),
@@ -253,68 +259,112 @@ class DepthPro(nn.Module):
                 head=_Holder(layers=nn.Sequential(*fov_layers)))
 
     def forward(self, pixels):
+        """Each stage in a span of its own (``utils/observability``), every
+        device operation in one of them: ``depth.windows`` (the rescales and
+        the split), ``depth.patch_encoder``, ``depth.merge`` (the
+        ``reconstruct`` calls of the two encoders), ``depth.image_encoder``
+        (its rescale too), ``depth.fusion`` (neck, fusion stage and head) and
+        ``depth.fov`` (the FOV encoder, its merge and its head); the counter
+        ``depth.windows`` counts the windows the patch encoder ran. Each
+        intermediate is dropped after its last use, so a chunk of frames
+        holds little more than one stage's activations."""
         cfg = self.cfg
         b, _, h, w = pixels.shape
         out_size = cfg.image_model.image_size // cfg.image_model.patch_size
         exp = int(math.log2(w / out_size))
         base_h, base_w = h // 2 ** exp, w // 2 ** exp
         n_scaled = len(cfg.scaled_images_ratios)
+        top = 2 ** (n_scaled - 1)
         enc, neck = self.depth_pro.encoder, self.depth_pro.neck
 
         # the patch encoder over every window of every scale, one batch
-        scaled, counts = [], []
-        for r, overlap in zip(cfg.scaled_images_ratios, cfg.scaled_images_overlap_ratios):
-            img = resize_bilinear(pixels, (int(h * r), int(w * r)), channel_last=False)
-            tiles, n = split_to_patches(img, cfg.patch_size, overlap)
-            scaled.append(tiles)
-            counts.append(n * b)
-        last, hiddens = enc.patch_encoder.model(torch.cat(scaled[::-1], dim=0))  # high res first
-        per_scale_last = torch.split(last, counts[::-1], dim=0)[::-1]
-        feats = []
-        for i in range(n_scaled):
-            pad = int(cfg.merge_padding_value * (1 / cfg.scaled_images_ratios[i]))
-            feats.append(reconstruct(per_scale_last[i], b, pad,
-                                     (base_h * 2 ** i, base_w * 2 ** i)))
-        top = 2 ** (n_scaled - 1)
-        pad = int(cfg.merge_padding_value * (1 / cfg.scaled_images_ratios[-1]))
-        for hook in cfg.intermediate_hook_ids:  # raw block outputs of the highest-res scale
-            hs = torch.split(hiddens[hook], counts[::-1], dim=0)[0]
-            feats.append(reconstruct(hs, b, pad, (base_h * top, base_w * top)))
+        with span("depth.windows"):
+            scaled, counts = [], []
+            for r, overlap in zip(cfg.scaled_images_ratios, cfg.scaled_images_overlap_ratios):
+                img = resize_bilinear(pixels, (int(h * r), int(w * r)), channel_last=False)
+                tiles, n = split_to_patches(img, cfg.patch_size, overlap)
+                scaled.append(tiles)
+                counts.append(n * b)
+            del img, tiles
+            windows = torch.cat(scaled[::-1], dim=0)  # high res first
+            del scaled
+        count("depth.windows", windows.shape[0])
+        with span("depth.patch_encoder"):
+            last, taps = enc.patch_encoder.model(windows)
+        del windows
+        with span("depth.merge"):
+            per_scale_last = torch.split(last, counts[::-1], dim=0)[::-1]
+            del last
+            feats = []
+            for i in range(n_scaled):
+                pad = int(cfg.merge_padding_value * (1 / cfg.scaled_images_ratios[i]))
+                feats.append(reconstruct(per_scale_last[i], b, pad,
+                                         (base_h * 2 ** i, base_w * 2 ** i)))
+            del per_scale_last
+            pad = int(cfg.merge_padding_value * (1 / cfg.scaled_images_ratios[-1]))
+            for i in range(len(taps)):  # raw block outputs of the highest-res scale
+                hs = torch.split(taps[i], counts[::-1], dim=0)[0]
+                taps[i] = None
+                feats.append(reconstruct(hs, b, pad, (base_h * top, base_w * top)))
+                del hs
+            del taps
 
         # the image encoder (global context)
-        img_small = resize_bilinear(pixels, (cfg.image_model.image_size,) * 2,
-                                    channel_last=False)
-        image_last, _ = enc.image_encoder.model(img_small)
-        features = [reconstruct(image_last, b, 0, (base_h, base_w)), *feats]
+        with span("depth.image_encoder"):
+            img_small = resize_bilinear(pixels, (cfg.image_model.image_size,) * 2,
+                                        channel_last=False)
+            image_last, _ = enc.image_encoder.model(img_small)
+            del img_small
+        with span("depth.merge"):
+            features = [reconstruct(image_last, b, 0, (base_h, base_w)), *feats]
+            del image_last, feats
 
-        # neck: upsample each, fuse the image features with the lowest scale, project
-        up = neck.feature_upsample
-        features[0] = up.image_block(features[0])
-        for i in range(n_scaled):
-            features[i + 1] = up.scaled_images[i](features[i + 1])
-        for i in range(len(cfg.intermediate_hook_ids)):
-            features[n_scaled + i + 1] = up.intermediate[i](features[n_scaled + i + 1])
-        fused_low = neck.fuse_image_with_low_res(torch.cat([features[1], features[0]], dim=1))
-        features = [fused_low, *features[2:]]
-        projected = [proj(x) for proj, x in zip(neck.feature_projection.projections, features)]
+        with span("depth.fusion"):
+            # neck: upsample each, fuse the image features with the lowest scale, project
+            up = neck.feature_upsample
+            features[0] = up.image_block(features[0])
+            for i in range(n_scaled):
+                features[i + 1] = up.scaled_images[i](features[i + 1])
+            for i in range(len(cfg.intermediate_hook_ids)):
+                features[n_scaled + i + 1] = up.intermediate[i](features[n_scaled + i + 1])
+            fused_low = neck.fuse_image_with_low_res(torch.cat([features[1], features[0]], dim=1))
+            features = [fused_low, *features[2:]]
+            del fused_low
+            projections = neck.feature_projection.projections
+            projected = []
+            for i, proj in enumerate(projections):
+                projected.append(proj(features[i]))
+                features[i] = None
+            del features
+            global_features = projected[0]  # the FOV head's input too
 
-        # fusion, lowest resolution first, 2x transposed conv each step
-        fused = None
-        for layer, hs in zip(self.fusion_stage.intermediate, projected[:-1]):
-            fused = layer(hs) if fused is None else layer(fused, hs)
-        fused = self.fusion_stage.final(fused, projected[-1])
-        depth = self.head.layers(fused)[:, 0]
+            # fusion, lowest resolution first, 2x transposed conv each step
+            fused = None
+            for i, layer in enumerate(self.fusion_stage.intermediate):
+                hs, projected[i] = projected[i], None
+                fused = layer(hs) if fused is None else layer(fused, hs)
+                del hs
+            hs, projected[-1] = projected[-1], None
+            fused = self.fusion_stage.final(fused, hs)
+            del hs, projected
+            x, fused = fused, None
+            for layer in self.head.layers:
+                x = layer(x)
+            depth = x[:, 0]
+            del x
 
         fov = None
         if cfg.use_fov_model:
-            fm = self.fov_model
-            fov_in = resize_bilinear(pixels, (cfg.fov_model.image_size,) * 2, channel_last=False)
-            fov_last, _ = fm.fov_encoder.model(fov_in)
-            fov_feat = reconstruct(fm.fov_encoder.neck(fov_last), b, 0, (base_h, base_w))
-            # transformers feeds the neck-projected global features
-            gf = F.relu(fm.conv(projected[0]))
-            if gf.shape[2:] != fov_feat.shape[2:]:
-                gf = resize_bilinear(gf, tuple(fov_feat.shape[2:]), channel_last=False)
-            ff = resize_bilinear(fov_feat + gf, (out_size, out_size), channel_last=False)
-            fov = fm.head.layers(ff).reshape(b, -1)[:, 0]
+            with span("depth.fov"):
+                fm = self.fov_model
+                fov_in = resize_bilinear(pixels, (cfg.fov_model.image_size,) * 2,
+                                         channel_last=False)
+                fov_last, _ = fm.fov_encoder.model(fov_in)
+                fov_feat = reconstruct(fm.fov_encoder.neck(fov_last), b, 0, (base_h, base_w))
+                # transformers feeds the neck-projected global features
+                gf = F.relu(fm.conv(global_features))
+                if gf.shape[2:] != fov_feat.shape[2:]:
+                    gf = resize_bilinear(gf, tuple(fov_feat.shape[2:]), channel_last=False)
+                ff = resize_bilinear(fov_feat + gf, (out_size, out_size), channel_last=False)
+                fov = fm.head.layers(ff).reshape(b, -1)[:, 0]
         return depth, fov
