@@ -7,7 +7,8 @@ At the JAX package's tiny config (``DEPTH_PRO_TINY``: three ViTs of width
   JAX package's ``convert_depth_pro``; both predictors see the same frames
   at 64 px. float32: max |d| <= 1e-4 x max |ref|, the field of view too.
   bfloat16: no further from the JAX float32 depth than the JAX bf16 depth
-  is, plus 25 %.
+  is, plus 25 %. float32 with the decoder in frame groups (one frame each,
+  ``depth_pro.MAX_ELEMENTS`` patched): the same limits.
 - transformers' model built as ``tests/test_depth_models.py`` builds it,
   with the same weights: max |d| <= 1e-4 x max |ref| (depth and field of
   view).
@@ -128,6 +129,40 @@ def test_depth_pro_matches_jax(dtype):
         scale = np.abs(ref).max()
         mine, theirs = np.abs(got - ref) / scale, np.abs(want - ref) / scale
         assert mine.max() <= 1.25 * theirs.max(), (mine.max(), theirs.max())
+
+
+def test_depth_pro_in_frame_groups_matches_jax(monkeypatch):
+    """float32, ``MAX_ELEMENTS`` at one frame's largest decoder tensor: each
+    forward runs its decoder in groups of one frame, and the depth and the
+    field of view hold to the JAX package's at the ungrouped limits."""
+    from visiondepth3d_tpu_torch.depth import depth_pro as tdp
+
+    state = hf_state(seed=1)
+    frames = _frames()
+    jpred, params = _jax(state)
+    want = np.asarray(jpred(frames))
+    pred = _port(state)
+    # the tiny config's last fusion level is a quarter of the input's side
+    monkeypatch.setattr(tdp, "MAX_ELEMENTS", pred.model._decoder_elements(SIZE // 4, SIZE // 4))
+    groups = []
+    decode = tdp.DepthPro._decode
+
+    def spy(self, features):
+        groups.append(features[0].shape[0])
+        return decode(self, features)
+
+    monkeypatch.setattr(tdp.DepthPro, "_decode", spy)
+    got = pred(torch.from_numpy(frames)).numpy()
+    assert groups == [1, 1]
+    assert got.shape == want.shape == (2, SIZE // 2, SIZE // 2)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    x = np.random.default_rng(2).standard_normal((2, SIZE, SIZE, 3)).astype(np.float32)
+    _, jfov = JDepthPro(JTINY).apply({"params": params}, jnp.asarray(x))
+    with torch.no_grad():
+        _, fov = pred.model(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert groups == [1, 1, 1, 1]
+    np.testing.assert_allclose(fov.numpy(), np.asarray(jfov),
+                               atol=1e-4 * np.abs(np.asarray(jfov)).max())
 
 
 def test_depth_pro_matches_transformers():

@@ -16,8 +16,8 @@ trimmed as published (6 and 3 tokens), at widths of 32:
   meta device at the published widths (19.28 TFLOP a frame, within 1 %:
   the counter adds the resizes' products);
 - under the CPU profiler every top-level operation of the forward lies in
-  one of the six leaf spans, and the ``depth.windows`` counter reads 35 a
-  frame;
+  one of the six leaf spans, the ``depth.windows`` counter reads 35 a
+  frame and ``depth.fusion_groups`` 1 a forward;
 - the patch encoder's trunk keeps only the tapped block outputs, and the
   model's output is bit for bit the forward that kept every block's;
 - the ``depthpro.*`` readers on a synthetic trace, and None on a program
@@ -187,8 +187,8 @@ def test_flops_match_the_counter():
 
 def test_spans_cover_the_forward():
     """Under the profiler each top-level operation of the model's forward
-    lies in exactly one leaf span (they do not nest), and the windows
-    counter reads 35 a frame."""
+    lies in exactly one leaf span (they do not nest), the windows counter
+    reads 35 a frame and the decoder runs the chunk in one group."""
     from torch.profiler import ProfilerActivity, profile
 
     from visiondepth3d_tpu_torch.utils import observability
@@ -202,7 +202,7 @@ def test_spans_cover_the_forward():
             model(x)
     counts = observability.records().counts
     observability.reset_records()
-    assert counts == {("depth.windows", None): 70}
+    assert counts == {("depth.windows", None): 70, ("depth.fusion_groups", None): 1}
 
     def annotation(e):
         return e.name.startswith(observability.SPAN_PREFIX)

@@ -38,6 +38,10 @@ UNUSED_HF_KEYS = ("depth_pro.encoder.patch_encoder.model.embeddings.mask_token",
                   "depth_pro.encoder.image_encoder.model.embeddings.mask_token",
                   "fov_model.fov_encoder.model.embeddings.mask_token")
 
+# the most elements a tensor of one frame group holds in the decoder
+# (``frame_groups``, ``DepthPro.forward``)
+MAX_ELEMENTS = 2 ** 31 - 1
+
 # DINOv2-L/16 at 384^2, the three encoders of apple/DepthPro-hf (config.json)
 _VIT_L16_384 = ViTConfig(hidden_size=1024, num_layers=24, num_heads=16, patch_size=16,
                          image_size=384)
@@ -160,6 +164,16 @@ def reconstruct(tokens, batch_size: int, padding: int, out_hw) -> torch.Tensor:
     return resize_bilinear(f, tuple(out_hw), align_corners=False, channel_last=False)
 
 
+def frame_groups(frames: int, per_frame: int) -> list[slice]:
+    """Consecutive slices of ``frames`` frames, near-equal, so that no group
+    of a tensor of ``per_frame`` elements a frame passes ``MAX_ELEMENTS``:
+    the fewest groups of at most that many frames, ``ceil(frames / n)``
+    frames each, then the rest."""
+    n = math.ceil(frames / max(1, MAX_ELEMENTS // per_frame))
+    size = math.ceil(frames / n)
+    return [slice(i, min(i + size, frames)) for i in range(0, frames, size)]
+
+
 def _deconv(cin: int, cout: int, bias: bool) -> nn.ConvTranspose2d:
     return nn.ConvTranspose2d(cin, cout, 2, stride=2, bias=bias)
 
@@ -258,6 +272,54 @@ class DepthPro(nn.Module):
                 conv=_conv3(f, f // 2, stride=2),
                 head=_Holder(layers=nn.Sequential(*fov_layers)))
 
+    def _decoder_elements(self, h: int, w: int) -> int:
+        """The most elements a frame's tensor holds in ``_decode``, the last
+        fusion level being h x w: that level's, or the head's at 2h x 2w."""
+        f = self.cfg.fusion_hidden_size
+        c = max(f, self.cfg.intermediate_feature_dims[-1])
+        return max(c * h * w, max(f // 2, 32) * 4 * h * w)
+
+    def _decode(self, features):
+        """Neck, fusion stage and head over the encoders' features ->
+        (depth [B, S, S], the projected global features [B, f, s, s]). The
+        list is consumed: each entry is dropped after its last use."""
+        cfg = self.cfg
+        n_scaled = len(cfg.scaled_images_ratios)
+        neck = self.depth_pro.neck
+        # neck: upsample each, fuse the image features with the lowest scale, project
+        up = neck.feature_upsample
+        features[0] = up.image_block(features[0])
+        for i in range(n_scaled):
+            features[i + 1] = up.scaled_images[i](features[i + 1])
+        for i in range(len(cfg.intermediate_hook_ids)):
+            features[n_scaled + i + 1] = up.intermediate[i](features[n_scaled + i + 1])
+        fused_low = neck.fuse_image_with_low_res(torch.cat([features[1], features[0]], dim=1))
+        features = [fused_low, *features[2:]]
+        del fused_low
+        projections = neck.feature_projection.projections
+        projected = []
+        for i, proj in enumerate(projections):
+            projected.append(proj(features[i]))
+            features[i] = None
+        del features
+        global_features = projected[0]  # the FOV head's input too
+
+        # fusion, lowest resolution first, 2x transposed conv each step
+        fused = None
+        for i, layer in enumerate(self.fusion_stage.intermediate):
+            hs, projected[i] = projected[i], None
+            fused = layer(hs) if fused is None else layer(fused, hs)
+            del hs
+        hs, projected[-1] = projected[-1], None
+        fused = self.fusion_stage.final(fused, hs)
+        del hs, projected
+        x, fused = fused, None
+        for layer in self.head.layers:
+            x = layer(x)
+        depth = x[:, 0]
+        del x
+        return depth, global_features
+
     def forward(self, pixels):
         """Each stage in a span of its own (``utils/observability``), every
         device operation in one of them: ``depth.windows`` (the rescales and
@@ -267,7 +329,19 @@ class DepthPro(nn.Module):
         ``depth.fov`` (the FOV encoder, its merge and its head); the counter
         ``depth.windows`` counts the windows the patch encoder ran. Each
         intermediate is dropped after its last use, so a chunk of frames
-        holds little more than one stage's activations."""
+        holds little more than one stage's activations.
+
+        The encoders take the whole chunk in one batch; the decoder
+        (``_decode``) runs over consecutive groups of its frames, as few as
+        keep each of a group's tensors under ``MAX_ELEMENTS`` (2^31 - 1),
+        and the counter ``depth.fusion_groups`` counts them. At 1536^2 a
+        chunk of 16 frames holds 2.4e9 elements in each 768^2 x 256 tensor,
+        and past 2^31 their 3x3 convolutions left cuDNN's implicit GEMMs for
+        its generic engine, at 2.6x the time; under the limit they run the
+        implicit GEMMs again. The head's 1536^2 x 128 tensors are the
+        largest, so they set the groups (6, 6 and 4 frames of 16; up to 7
+        frames are one group): groups of 8, which keep only the 768^2
+        tensors under the limit, were as fast and peaked 9 GiB higher."""
         cfg = self.cfg
         b, _, h, w = pixels.shape
         out_size = cfg.image_model.image_size // cfg.image_model.patch_size
@@ -275,7 +349,7 @@ class DepthPro(nn.Module):
         base_h, base_w = h // 2 ** exp, w // 2 ** exp
         n_scaled = len(cfg.scaled_images_ratios)
         top = 2 ** (n_scaled - 1)
-        enc, neck = self.depth_pro.encoder, self.depth_pro.neck
+        enc = self.depth_pro.encoder
 
         # the patch encoder over every window of every scale, one batch
         with span("depth.windows"):
@@ -319,39 +393,16 @@ class DepthPro(nn.Module):
             features = [reconstruct(image_last, b, 0, (base_h, base_w)), *feats]
             del image_last, feats
 
+        # the decoder in frame groups, each tensor of a group under MAX_ELEMENTS
+        side = top * 2 ** (len(cfg.intermediate_hook_ids) + 1)  # the last fusion level
+        groups = frame_groups(b, self._decoder_elements(base_h * side, base_w * side))
+        count("depth.fusion_groups", len(groups))
         with span("depth.fusion"):
-            # neck: upsample each, fuse the image features with the lowest scale, project
-            up = neck.feature_upsample
-            features[0] = up.image_block(features[0])
-            for i in range(n_scaled):
-                features[i + 1] = up.scaled_images[i](features[i + 1])
-            for i in range(len(cfg.intermediate_hook_ids)):
-                features[n_scaled + i + 1] = up.intermediate[i](features[n_scaled + i + 1])
-            fused_low = neck.fuse_image_with_low_res(torch.cat([features[1], features[0]], dim=1))
-            features = [fused_low, *features[2:]]
-            del fused_low
-            projections = neck.feature_projection.projections
-            projected = []
-            for i, proj in enumerate(projections):
-                projected.append(proj(features[i]))
-                features[i] = None
+            parts = [self._decode([f[g] for f in features]) for g in groups]
             del features
-            global_features = projected[0]  # the FOV head's input too
-
-            # fusion, lowest resolution first, 2x transposed conv each step
-            fused = None
-            for i, layer in enumerate(self.fusion_stage.intermediate):
-                hs, projected[i] = projected[i], None
-                fused = layer(hs) if fused is None else layer(fused, hs)
-                del hs
-            hs, projected[-1] = projected[-1], None
-            fused = self.fusion_stage.final(fused, hs)
-            del hs, projected
-            x, fused = fused, None
-            for layer in self.head.layers:
-                x = layer(x)
-            depth = x[:, 0]
-            del x
+            depth = torch.cat([d for d, _ in parts])
+            global_features = torch.cat([gf for _, gf in parts])
+            del parts
 
         fov = None
         if cfg.use_fov_model:
