@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 torch.set_num_threads(1)
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from visiondepth3d_tpu_torch.kernels import stats
 from visiondepth3d_tpu_torch.parallel.halo import (BandLayout, band_bounds, crop_halo_rows,
@@ -47,7 +48,7 @@ from visiondepth3d_tpu_torch.state import init_trackers
 from visiondepth3d_tpu_torch.stereo import StereoParams
 from visiondepth3d_tpu_torch.stereo.bands import (init_band_trackers, render_chunk_bands,
                                                   stereo_halo)
-from visiondepth3d_tpu_torch.stereo.step import render_chunk
+from visiondepth3d_tpu_torch.stereo.step import render_chunk, stereo_frame_step
 
 H, W, T = 70, 64, 4
 
@@ -247,6 +248,54 @@ def test_render_chunk_spatial_on_a_mesh():
     _, got = render_chunk_spatial(params, init_band_trackers(layout, W), frames, depths, mesh)
     _, want = render_chunk(params, init_trackers(H, W, device="cpu"), frames, depths)
     assert torch.equal(got.left, want.left) and torch.equal(got.right, want.right)
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+# (params, blank frame) -> aten ops of one ``stereo_frame_step`` at 70 x 64
+# and of ``render_chunk_bands`` over two frames at sp=2
+OP_CASES = {
+    "full_sbs": (dict(), False, 1703, 3492),
+    "half_sbs": (dict(warp_hw=(H, W // 2)), False, 1706, 3400),
+    "bf16_dof": (dict(image_dtype="bfloat16", enable_healing=True, dof_strength=2.0), False,
+                 2356, 6104),
+    "blank": (dict(), True, 1709, 3510),
+    "half_sbs_dof": (dict(warp_hw=(H, W // 2), dof_strength=2.0), False, 2200, 5376),
+}
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["one_device", "sp2"])
+@pytest.mark.parametrize("case", sorted(OP_CASES))
+def test_stereo_step_op_counts(case, banded):
+    """The stage sequence launches a pinned number of ops on each layout:
+    a stage added, dropped or repeated, or a layout that adds work on one
+    device, changes the count. The step runs once before it is counted, so
+    the resize matrices are already cached."""
+    kw, blank, one_device, sp2 = OP_CASES[case]
+    params = StereoParams(**kw).with_shift_bound(kw.get("warp_hw", (H, W))[1])
+    frames, depths = _clip(t=2)
+    blanks, is_blank = (torch.tensor([False, True]), torch.tensor(True)) if blank else (None, None)
+
+    def run():
+        if banded:
+            return _banded(params, frames, depths, 2, blanks)
+        return stereo_frame_step(params, init_trackers(H, W, device="cpu"), frames[0], depths[0],
+                                 is_blank)
+
+    run()
+    with _OpCount() as count:
+        run()
+    assert count.n == (sp2 if banded else one_device)
 
 
 # ------------------------------------------------------------------ the CLI

@@ -5,13 +5,17 @@ smooth, percentile-EMA normalization, shift smoother and dynamic parallax,
 curvature, subject estimate, Pop-Control shaping, shift map with edge-mask
 suppression, dual-eye warp, feather + heal, focal tracking and depth of
 field, color grade, the blank-frame passthrough, floating-window bars,
-sharpen. ``render_chunk`` runs the step frame by frame over a chunk,
-carrying the trackers (a Python loop in place of ``lax.scan``); nothing in
-the loop reads a device value on the host.
+sharpen. ``layout_step`` writes that order once, over plane layouts that
+hold what differs between a frame on one device (``WholeFrame``: a plane
+is one tensor, the one-device ops) and a frame in row bands
+(``stereo/bands.py:RowBands``). ``render_chunk`` runs the step frame by
+frame over a chunk, carrying the trackers (a Python loop in place of
+``lax.scan``); nothing in the loop reads a device value on the host.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -19,9 +23,11 @@ import torch
 from ..kernels import dof as kdof
 from ..kernels import postfx as kpostfx
 from ..kernels import warp as kwarp
-from ..ops import convert, dof, edges, filters, formats, grade, subject
-from ..ops.depth_shaping import enhance_curvature, shape_depth_for_pop
+from ..ops import convert, dof, edges, filters, formats, grade
+from ..ops.depth_shaping import enhance_curvature, shape_depth_apply
+from ..ops.quantiles import quantile_01
 from ..ops.resize import resize_bilinear
+from ..ops.subject import dynamic_parallax_scale, estimate_subject_depth, motion_metric
 from ..state import trackers as trk
 from .params import StereoParams
 
@@ -137,69 +143,100 @@ def _dispatch_dof(p: StereoParams, left, right, depth_w, focal):
     return left, right, False
 
 
+def _clamp01(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def _dof_grade(p: StereoParams, left, right, depth_w, focal):
+    """Depth of field and the color grade of both eyes."""
+    left, right, graded = _dispatch_dof(p, left, right, depth_w, focal)
+    if graded:
+        return left, right
+    return color_grade(p, left), color_grade(p, right)
+
+
+class WholeFrame:
+    """The one-device plane layout: a plane is one tensor ([H, W] or
+    [H, W, 3]), a frame-level value stays where it is, and the statistics
+    are the one-device ops."""
+
+    quantile_pair = staticmethod(quantile_01)
+    subject = staticmethod(estimate_subject_depth)
+    parallax = staticmethod(dynamic_parallax_scale)
+    motion = staticmethod(motion_metric)
+    curvature = staticmethod(enhance_curvature)
+
+    def map(self, fn, *planes):
+        return fn(*planes)
+
+    def scalar(self, x):
+        return x
+
+    crop = scalar
+
+    def width(self, plane) -> int:
+        return plane.shape[1]
+
+    def to_warp(self, p: StereoParams, eye, frame, depth):
+        """The frame and the normalized depth at ``p.warp_hw`` (a resize to
+        the size a plane has already returns it)."""
+        hw = tuple(p.warp_hw or frame.shape[:2])
+        return resize_bilinear(frame, hw), resize_bilinear(depth, hw)
+
+    def trackers(self, t: trk.StereoTrackers):
+        return t, t.prev_depth, t.prev_norm_depth
+
+    def pack(self, t: trk.StereoTrackers, prev_depth, prev_norm_depth) -> trk.StereoTrackers:
+        return t.replace(prev_depth=prev_depth, prev_norm_depth=prev_norm_depth)
+
+
 def pixel_shift(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
                 depth: torch.Tensor):
     """The DIBR core at p's shifts. frame: [H, W, 3], depth: [H, W].
     Returns (trackers, left, right, shift_map, subject_depth)."""
-    return _pixel_shift(p, t, frame, depth, p.fg_shift, p.mg_shift, p.bg_shift)[:5]
+    one = WholeFrame()
+    return _pixel_shift(p, one, one, t, frame, depth, p.fg_shift, p.mg_shift, p.bg_shift)[:5]
 
 
-def _pixel_shift(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
-                 depth: torch.Tensor, fg, mg, bg):
-    """``pixel_shift`` at the shifts fg, mg, bg (floats, or 0-d tensors on
-    the frame's device). Returns (trackers, left, right, shift_map,
-    subject_depth, frame_w): the last is the frame at the warp size in the
-    image type, the source of the blank-frame passthrough."""
-    if p.warp_hw is not None and tuple(p.warp_hw) != tuple(frame.shape[:2]):
-        frame = resize_bilinear(frame, tuple(p.warp_hw))
-        depth = resize_bilinear(depth, tuple(p.warp_hw))
+def _pixel_shift(p: StereoParams, eye, lay, t: trk.StereoTrackers, frame, depth, fg, mg, bg):
+    """``pixel_shift`` over ``layout_step``'s layouts (``lay`` the warp
+    size's), at the shifts fg, mg, bg (floats, or 0-d tensors on the
+    trackers' device). Returns (trackers, left, right, shift_map,
+    subject_depth, frame_i, dof_depth): frame_i is the frame at the warp size
+    in the image type, the source of the blank-frame passthrough; dof_depth
+    the depth at the warp size, which the depth of field reads (None
+    without it)."""
+    frame, depth = lay.to_warp(p, eye, frame, depth)
+    dof_depth = depth if p.dof_strength > 0.0 else None
     if p.enable_curvature:
-        depth = enhance_curvature(depth, p.curvature_strength)
-    depth = torch.clamp(depth, 0.0, 1.0)
+        depth = lay.curvature(depth, p.curvature_strength)
+    depth = lay.map(_clamp01, depth)
 
-    subj_raw = subject.estimate_subject_depth(depth, p.quantile_mode)
-    shaped = shape_depth_for_pop(
-        depth, subj_raw, stretch_lo=p.depth_stretch_lo, stretch_hi=p.depth_stretch_hi,
-        depth_mid=p.depth_pop_mid, gamma=p.depth_pop_gamma,
-        quantile_mode=p.quantile_mode)
-    subject_depth = subject.estimate_subject_depth(shaped, p.quantile_mode)
-    t, final_shift = compute_shift_map(p, t, shaped, subject_depth, fg, mg, bg)
+    subj_raw = lay.subject(depth, p.quantile_mode)
+    # ops.depth_shaping.shape_depth_for_pop, at the whole frame's quantiles
+    d = lay.map(_clamp01, depth)
+    q = lay.quantile_pair(d, (p.depth_stretch_lo, p.depth_stretch_hi), mode=p.quantile_mode)
+    shaped = lay.map(partial(shape_depth_apply, depth_mid=p.depth_pop_mid,
+                             gamma=p.depth_pop_gamma),
+                     d, lay.scalar(q[0]), lay.scalar(q[1]), lay.scalar(subj_raw))
+    del d, q
+    subject_depth = lay.subject(shaped, p.quantile_mode)
+    t, zero_parallax, convergence = shift_scalars(p, t, subject_depth, fg, mg, bg,
+                                                  lay.width(shaped))
+    final_shift = lay.map(partial(shift_plane, p), shaped,
+                          *map(lay.scalar, (fg, mg, bg, zero_parallax, convergence)))
     # image-plane ops run in p.image_dtype; the shift map and all depth
     # statistics above stay float32
-    img_dt = _DTYPES[p.image_dtype]
-    frame_i = frame.to(img_dt)
-    left, right, dleft, dright = _dispatch_warp(p, frame_i, shaped.to(img_dt), final_shift)
-    left, right = _dispatch_postfx(p, left, right, frame_i, dleft, dright)
-    return t, left, right, final_shift, subject_depth, frame_i
+    to_image = partial(torch.Tensor.to, dtype=_DTYPES[p.image_dtype])
+    frame_i = lay.map(to_image, frame)
+    left, right, dleft, dright = lay.map(partial(_dispatch_warp, p), frame_i,
+                                         lay.map(to_image, shaped), final_shift)
+    left, right = lay.map(partial(_dispatch_postfx, p), left, right, frame_i, dleft, dright)
+    return t, left, right, final_shift, subject_depth, frame_i, dof_depth
 
 
 def color_grade(p: StereoParams, x: torch.Tensor) -> torch.Tensor:
     return grade.apply_color_grade(x, p.color_saturation, p.color_contrast, p.color_brightness)
-
-
-def hold_on_blank(t: trk.StereoTrackers, t_in: trk.StereoTrackers,
-                  is_blank: torch.Tensor) -> trk.StereoTrackers:
-    """A blank frame keeps the floating-window and focal trackers at their
-    input values."""
-    return t.replace(**{name: torch.where(is_blank, getattr(t_in, name), getattr(t, name))
-                        for name in ("fw_offset", "fw_counter", "focal", "focal_init")})
-
-
-def side_mask_terms(p: StereoParams, t: trk.StereoTrackers, subj_window: torch.Tensor,
-                    fg, mg, bg, width: int):
-    """The floating window's convergence EMA and bar easer for a frame
-    ``width`` wide: (trackers, (bar width, side sign) for
-    ``formats.apply_side_mask``, or None when the window is off)."""
-    raw_zero = (-subj_window * fg - subj_window * mg + subj_window * bg) / (width / 2.0 + 1e-6)
-    t, stable_zero = trk.convergence_ema_update(t, raw_zero, alpha=0.97)
-    if not (p.enable_floating_window and p.use_subject_tracking):
-        return t, None
-    raw_bar = torch.floor(torch.abs(stable_zero) * width * 0.75)
-    t, eased = trk.bar_easer_update(t, raw_bar, alpha=0.85)
-    bar_width = torch.clamp(eased, 0.0, 80.0)
-    side_sign = torch.where(stable_zero > 0.005, 1.0,
-                            torch.where(stable_zero < -0.005, -1.0, 0.0))
-    return t, (bar_width, side_sign)
 
 
 def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tensor,
@@ -210,57 +247,86 @@ def stereo_frame_step(p: StereoParams, t: trk.StereoTrackers, frame: torch.Tenso
     keeps the floating-window and focal trackers at their input values; the
     other trackers update as on any frame. Returns (trackers,
     StereoFrameOut)."""
-    t_in = t
+    one = WholeFrame()
+    return layout_step(p, one, one, t, frame, depth01, is_blank)
 
-    t, depth_s = trk.temporal_depth_smooth(t, depth01, alpha=0.5)
-    t, depth_n = trk.percentile_ema_normalize(t, depth_s, 0.02, 0.98, 0.92, p.quantile_mode)
 
-    t, (fg, mg, bg) = trk.shift_smoother_update(t, p.fg_shift, p.mg_shift, p.bg_shift,
-                                                alpha=0.15)
-    dyn = (subject.dynamic_parallax_scale(depth_n, 0.90, 1.15)
-           if p.enable_dynamic_parallax else 1.0)
+def layout_step(p: StereoParams, eye, warp, t, frame, depth01, is_blank=None):
+    """``stereo_frame_step`` over two plane layouts: ``eye`` holds the
+    eye-size planes (``depth01``, the trackers' planes), ``warp`` the
+    warp-size ones; ``frame`` is what ``warp.to_warp`` takes. Returns
+    (trackers, StereoFrameOut of ``warp``'s planes, cropped)."""
+    ts, prev_depth, prev_norm_depth = eye.trackers(t)
+    t_in = ts
+
+    quantize = partial(_maybe_quantize, p=p)
+
+    def sharpen(x):
+        return _maybe_quantize(filters.sharpen(x, p.sharpness_factor), p)
+
+    depth_s = eye.map(partial(trk.smooth_plane, alpha=0.5), eye.scalar(ts.initialized),
+                      prev_depth, depth01)
+    d = eye.map(_clamp01, depth_s)
+    q = eye.quantile_pair(d, (0.02, 0.98), mode=p.quantile_mode)
+    ts, lo, hi, degenerate = trk.percentile_ema_update(ts, q[0], q[1], 0.92)
+    depth_n = eye.map(trk.percentile_ema_apply, d, eye.scalar(lo), eye.scalar(hi),
+                      eye.scalar(degenerate))
+    # the clamped plane ends here, before the warp's planes are made: a
+    # plane held longer moves the caching allocator's peak
+    del d, q
+
+    ts, (fg, mg, bg) = trk.shift_smoother_update(ts, p.fg_shift, p.mg_shift, p.bg_shift,
+                                                 alpha=0.15)
+    dyn = eye.parallax(depth_n, 0.90, 1.15) if p.enable_dynamic_parallax else 1.0
     ipd = 1.0 if p.ipd_factor == 0.0 else p.ipd_factor
     fg, mg, bg = fg * dyn * ipd, mg * dyn * ipd, bg * dyn * ipd
 
-    t, left, right, shift_map, subj, frame_w = _pixel_shift(p, t, frame, depth_n, fg, mg, bg)
-    left = _maybe_quantize(left, p)
-    right = _maybe_quantize(right, p)
+    ts, left, right, shift_map, subj, frame_i, depth_w = _pixel_shift(p, eye, warp, ts, frame,
+                                                                      depth_n, fg, mg, bg)
+    left, right = warp.map(quantize, left), warp.map(quantize, right)
 
-    candidate_focal = subject.estimate_subject_depth(depth_n, p.quantile_mode)
-    motion = torch.where(t.initialized,
-                         subject.motion_metric(t_in.prev_norm_depth, depth_n), 0.0)
-    t, focal = trk.focal_tracker_update(t, candidate_focal, motion)
-    graded = False
+    candidate_focal = eye.subject(depth_n, p.quantile_mode)
+    motion = torch.where(ts.initialized, eye.motion(prev_norm_depth, depth_n), 0.0)
+    ts, focal = trk.focal_tracker_update(ts, candidate_focal, motion)
     if p.dof_strength > 0.0:
         # DOF reads the normalized depth at the warp size (Half-SBS warps
         # at another width than the eye)
-        depth_w = resize_bilinear(depth_n, tuple(left.shape[:2]))
-        left, right, graded = _dispatch_dof(p, left, right, depth_w, focal)
-
-    if not graded:
-        left, right = color_grade(p, left), color_grade(p, right)
-    left = _maybe_quantize(left, p)
-    right = _maybe_quantize(right, p)
+        left, right = warp.map(partial(_dof_grade, p), left, right, depth_w, warp.scalar(focal))
+    else:
+        grade_eye = partial(color_grade, p)
+        left, right = warp.map(grade_eye, left), warp.map(grade_eye, right)
+    left, right = warp.map(quantize, left), warp.map(quantize, right)
 
     if is_blank is not None:
         # a device bool through torch.where: no host sync, and the kernels
-        # above ran as on any frame
-        left = torch.where(is_blank, frame_w, left)
-        right = torch.where(is_blank, frame_w, right)
-        t = hold_on_blank(t, t_in, is_blank)
+        # above ran as on any frame; the floating-window and focal
+        # trackers keep their input values
+        blank = warp.scalar(is_blank)
+        left = warp.map(torch.where, blank, frame_i, left)
+        right = warp.map(torch.where, blank, frame_i, right)
+        ts = ts.replace(**{name: torch.where(is_blank, getattr(t_in, name), getattr(ts, name))
+                           for name in ("fw_offset", "fw_counter", "focal", "focal_init")})
 
-    # floating-window side masks: bar geometry at the warp-stage width
-    t, bars = side_mask_terms(p, t, candidate_focal, fg, mg, bg, left.shape[1])
-    if bars is not None:
-        left = formats.apply_side_mask(left, *bars)
-        right = formats.apply_side_mask(right, *bars)
+    # floating-window side masks: the convergence EMA and the bar easer, the
+    # bar geometry at the warp-stage width
+    width = warp.width(left)
+    raw_zero = ((-candidate_focal * fg - candidate_focal * mg + candidate_focal * bg)
+                / (width / 2.0 + 1e-6))
+    ts, stable_zero = trk.convergence_ema_update(ts, raw_zero, alpha=0.97)
+    if p.enable_floating_window and p.use_subject_tracking:
+        raw_bar = torch.floor(torch.abs(stable_zero) * width * 0.75)
+        ts, eased = trk.bar_easer_update(ts, raw_bar, alpha=0.85)
+        bar_width = warp.scalar(torch.clamp(eased, 0.0, 80.0))
+        side_sign = warp.scalar(torch.where(stable_zero > 0.005, 1.0,
+                                            torch.where(stable_zero < -0.005, -1.0, 0.0)))
+        left = warp.map(formats.apply_side_mask, left, bar_width, side_sign)
+        right = warp.map(formats.apply_side_mask, right, bar_width, side_sign)
 
-    left = _maybe_quantize(filters.sharpen(left, p.sharpness_factor), p)
-    right = _maybe_quantize(filters.sharpen(right, p.sharpness_factor), p)
-
-    t = t.replace(prev_norm_depth=depth_n,
-                  initialized=torch.ones((), dtype=torch.bool, device=depth_n.device))
-    return t, StereoFrameOut(left, right, shift_map, subj, focal)
+    left = warp.crop(warp.map(sharpen, left))
+    right = warp.crop(warp.map(sharpen, right))
+    ts = ts.replace(initialized=torch.ones((), dtype=torch.bool, device=ts.initialized.device))
+    return (eye.pack(ts, depth_s, depth_n),
+            StereoFrameOut(left, right, warp.crop(shift_map), subj, focal))
 
 
 def render_chunk(p: StereoParams, t: trk.StereoTrackers, frames: torch.Tensor,
